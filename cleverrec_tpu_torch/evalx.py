@@ -1,0 +1,201 @@
+"""Evaluation engine: candidate-list and full-catalog top-K ranking
+(as ``cleverrec_tpu/evalx.py``).
+
+- ``candidate`` (loo or neg_samples>0): score each test user's candidate
+  list (negatives first, ground truth last), rank it, map ranks back to
+  item ids; metrics against candidates[neg_samples:],
+- full catalog: score all items with the user's seen TRAIN items masked,
+  then top-k; ``full_fused`` runs the masked-scoring CUDA kernels for
+  models with a ``dot_decomposition`` (default on a CUDA device,
+  ``eval.fused_kernel`` forces either way), ``full`` plain PyTorch.
+
+The test set is stacked once into padded user batches on the device; a
+Python loop ranks each batch and reduces it to per-K metric sums (the
+reference's HR/MRR/NDCG formulas, utils/metrics.py:9-19), so the host
+receives one [n_K, 3] array per eval.  The streaming and sharded modes
+come with later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cleverrec_tpu_torch import ranking
+from cleverrec_tpu_torch.common import cdiv, resolve_device
+from cleverrec_tpu_torch.data.arrays import DeviceData
+from cleverrec_tpu_torch.metrics import PAD_ITEM, ranking_metrics_topks
+from cleverrec_tpu_torch.ops.topk import topk
+from cleverrec_tpu_torch.sampling import rows_to_bits
+
+
+def _pad_masked(v, items):
+    return torch.where(torch.isfinite(v), items, torch.full_like(items,
+                                                                 PAD_ITEM))
+
+
+class Evaluator:
+    """Evaluates ``model`` on ``device`` (default ``cuda``; the model is
+    moved there)."""
+
+    def __init__(self, model, device_data: DeviceData, cfg, device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.dd = device_data
+        self.cfg = cfg
+        self.topk = cfg.topk
+        self.kmax = max(self.topk)
+        self.batch_size_t = cfg.test_batch_size
+        self.candidate_eval = device_data.cand is not None
+        self.standard_mrr = cfg.bool("metrics.standard_mrr", False)
+        fused_ok = (not self.candidate_eval
+                    and hasattr(model, "dot_decomposition"))
+        self._use_fused = fused_ok and cfg.bool(
+            "eval.fused_kernel", self.device.type == "cuda")
+        if self.candidate_eval:
+            self.mode = "candidate"
+        elif self._use_fused:
+            self.mode = "full_fused"
+        else:
+            self.mode = "full"
+        self._batches = self._build_batches()
+
+    # -- rankers: [b, kmax] item ids, PAD_ITEM where masked -------------
+    def _rank_candidates(self, aux, u, cand, mask):
+        scores = self.model.score_candidates(u, cand, aux)
+        scores = scores.masked_fill(~mask, -torch.inf)
+        v, idx = topk(scores, min(self.kmax, cand.shape[1]))
+        return _pad_masked(v, torch.gather(cand, 1, idx))
+
+    def _rank_full(self, aux, u, seen_rows):
+        return _pad_masked(*ranking.rank_dense(self.model, aux, u, seen_rows,
+                                               self.kmax))
+
+    def _rank_full_fused(self, aux, u, seen_bits=None, seen_rows=None,
+                         pre=None):
+        # Past the global bitmap budget the batches carry rows; build the
+        # batch's bitmaps from them.
+        if seen_bits is None:
+            seen_bits = rows_to_bits(seen_rows, self.dd.item_nums)
+        return _pad_masked(*ranking.rank_fused(
+            self.model, aux, u, seen_bits, self.kmax, pre=pre))
+
+    def _rank_batch(self, aux, b, pre):
+        if self.candidate_eval:
+            return self._rank_candidates(aux, b["u"], b["cand"], b["mask"])
+        if self.mode == "full_fused":
+            return self._rank_full_fused(aux, b["u"], b.get("bits"),
+                                         b.get("rows"), pre=pre)
+        return self._rank_full(aux, b["u"], b["rows"])
+
+    # -- batches ------------------------------------------------------------
+    def _build_batches(self):
+        """The whole test set as [n_batches, bt, ...] device tensors
+        (built once; row_w zeroes the wrapped pad rows)."""
+        dd = self.dd
+        t = len(dd.test_users)
+        bt = self.batch_size_t
+        nb = cdiv(t, bt)
+        padded = nb * bt
+        order = np.arange(padded) % t                     # pad wraps around
+        users = dd.test_users[order].astype(np.int64)
+
+        def put(a):
+            a = np.asarray(a)
+            return torch.as_tensor(a.reshape(nb, bt, *a.shape[1:]),
+                                   device=self.device)
+
+        out = {"u": put(users),
+               "row_w": put((np.arange(padded) < t).astype(np.float32)),
+               "real": put(dd.real_padded[order])}
+        if self.candidate_eval:
+            out["cand"] = put(dd.cand[order].astype(np.int64))
+            out["mask"] = put(dd.cand_mask[order])
+        elif self.mode == "full_fused" and dd.seen.bits is not None:
+            out["bits"] = put(dd.seen.bits[users])
+        else:
+            out["rows"] = put(dd.seen.rows[users].astype(np.int64))
+        return out
+
+    def _batch(self, idx):
+        return {k: v[idx] for k, v in self._batches.items()}
+
+    def _aux(self, aux):
+        return {k: v.to(self.device) for k, v in (aux or {}).items()}
+
+    # -- metrics --------------------------------------------------------------
+    def _metric_sums(self, rec, real, row_w):
+        """Per-K (HR, MRR, NDCG) sums over a batch — the torch form of
+        metrics.ranking_metrics (reference utils/metrics.py:9-19)."""
+        valid = real != PAD_ITEM                          # [b, T]
+        n_real = valid.sum(dim=1)
+        n_real_safe = n_real.clamp(min=1)
+        matches = ((real[:, :, None] == rec[:, None, :])
+                   & valid[:, :, None]
+                   & (rec != PAD_ITEM)[:, None, :])       # [b, T, kmax]
+        found = matches.any(dim=2)
+        # argmax of a bool row: the first match (the first True).
+        rank = torch.where(found, matches.to(torch.uint8).argmax(dim=2),
+                           self.kmax)
+        slot = torch.arange(real.shape[1], dtype=torch.float32,
+                            device=real.device)
+        idcg = torch.where(valid, 1.0 / torch.log2(slot + 2.0),
+                           0.0).sum(dim=1).clamp(min=1e-12)
+        w = row_w * (n_real > 0)
+        per_k = []
+        for k in self.topk:
+            hit_k = found & (rank < k)
+            hits = hit_k.sum(dim=1).float()
+            hr = hits / n_real_safe.clamp(max=k)
+            if self.standard_mrr:
+                best = torch.where(hit_k, rank, self.kmax).amin(dim=1)
+                mrr = torch.where(best < k, 1.0 / (best + 1.0), 0.0)
+            else:
+                mrr = torch.where(hit_k, 1.0 / (rank + 1.0), 0.0).sum(dim=1)
+            dcg = torch.where(hit_k, 1.0 / torch.log2(rank + 2.0),
+                              0.0).sum(dim=1)
+            ndcg = dcg / idcg
+            per_k.append(torch.stack([(hr * w).sum(), (mrr * w).sum(),
+                                      (ndcg * w).sum()]))
+        return torch.stack(per_k)                         # [n_K, 3]
+
+    def _pre(self, aux):
+        return (ranking.fused_precompute(self.model, aux)
+                if self.mode == "full_fused" else None)
+
+    # -- host driver ------------------------------------------------------
+    @torch.no_grad()
+    def recommend_topk(self, aux=None) -> np.ndarray:
+        """Top-K item lists for all test users, in test-user order."""
+        aux = self._aux(aux)
+        pre = self._pre(aux)
+        outs = [self._rank_batch(aux, self._batch(i), pre).cpu().numpy()
+                for i in range(self._batches["u"].shape[0])]
+        return np.concatenate(outs, axis=0)[:len(self.dd.test_users)]
+
+    def evaluate_host(self, aux=None):
+        """Host-metrics path (numpy formulas) — the cross-check oracle for
+        the on-device reduction; also used when eval.host_metrics is set."""
+        rec_all = self.recommend_topk(aux)
+        per_k = ranking_metrics_topks(self.dd.real_padded, rec_all,
+                                      self.topk,
+                                      standard_mrr=self.standard_mrr)
+        return {k: (float(hr.mean()), float(mrr.mean()), float(ndcg.mean()))
+                for k, (hr, mrr, ndcg) in per_k.items()}
+
+    @torch.no_grad()
+    def evaluate(self, aux=None) -> dict[int, tuple[float, float, float]]:
+        """Returns {K: (mean HR, mean MRR, mean NDCG)} over all test users."""
+        if self.cfg.bool("eval.host_metrics", False):
+            return self.evaluate_host(aux)
+        aux = self._aux(aux)
+        pre = self._pre(aux)
+        sums = torch.zeros((len(self.topk), 3), device=self.device)
+        for i in range(self._batches["u"].shape[0]):
+            b = self._batch(i)
+            rec = self._rank_batch(aux, b, pre)
+            sums += self._metric_sums(rec, b["real"], b["row_w"])
+        sums = sums.cpu().numpy()
+        t = len(self.dd.test_users)
+        return {k: tuple(float(x) / t for x in sums[idx])
+                for idx, k in enumerate(self.topk)}

@@ -1,0 +1,43 @@
+"""Model registry.  This slice of the port holds BPR only."""
+
+from __future__ import annotations
+
+import torch
+
+from cleverrec_tpu_torch.common import resolve_device
+from cleverrec_tpu_torch.config import Config
+from cleverrec_tpu_torch.models.base import DataMeta, RecModel
+from cleverrec_tpu_torch.models.bpr import BPR
+
+_REGISTRY: dict[str, type] = {BPR.name: BPR}
+
+# Where each model of the JAX package's zoo arrives in the port.
+_LATER_SLICES = {
+    "GMF": "NCF", "MLP": "NCF", "NeuMF": "NCF",
+    "SBPR": "social", "TBPR": "social", "CUNE_BPR": "social",
+    "SAMN": "social", "SAMN_single": "social",
+    "CML": "metric-learning", "LRML": "metric-learning",
+    "TransCF": "metric-learning",
+}
+
+
+def available_models() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def make_model(cfg: Config, meta: DataMeta, device="cuda",
+               generator: torch.Generator | None = None) -> RecModel:
+    """Build ``cfg.recommender``, initialize it from ``generator``
+    (default: seeded with ``cfg.seed``) and move it to ``device``."""
+    dev = resolve_device(device)
+    name = cfg.recommender
+    if name not in _REGISTRY:
+        where = _LATER_SLICES.get(name, "other-ranking-models")
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet: it comes with the port's "
+            f"{where} slice; ported: {available_models()}")
+    model = _REGISTRY[name](cfg, meta)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    model.init(generator)
+    return model.to(dev)

@@ -1,0 +1,65 @@
+"""Top-k selection with ``lax.top_k``'s tie rule.
+
+``lax.top_k`` breaks ties by the LOWEST index, and the JAX package relies
+on it (candidate eval puts the ground truth last).  ``torch.topk``
+promises no order among equal values, so every selection here orders by
+(value descending, index ascending) through a stable sort.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cleverrec_tpu_torch.common import cdiv
+
+# Below this width a plain selection wins over the grouped pipeline.
+GROUPED_MIN_COLS = 16384
+_NEG = -3.0e38   # finite mask sentinel (matches ops/scores.NEG)
+
+
+def topk(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row, ties to the lowest index: ([B, k], [B, k])."""
+    v, idx = torch.sort(values, dim=1, descending=True, stable=True)
+    return v[:, :k], idx[:, :k]
+
+
+def merge_topk(values, ids, k: int):
+    """Merge candidate blocks: values/ids [B, M] -> top-k [B, k]."""
+    v, idx = topk(values, k)
+    return v, torch.gather(ids, 1, idx)
+
+
+def grouped_topk(scores: torch.Tensor, k: int, group: int = 128,
+                 min_cols: int = GROUPED_MIN_COLS):
+    """Exact top-k via group-max pruning (cleverrec_tpu/ops/topk.py):
+
+    1. the max of each ``group``-column block,
+    2. the top k groups by max,
+    3. those groups' columns, gathered in ascending group order,
+    4. top-k over the [B, k*group] rescue set.
+
+    Exact, ties included: an item ranked above the k-th in the order
+    (value desc, index asc) lies in a group whose max ranks above the
+    k-th group in the same order, so step 2 keeps it; step 3's ascending
+    order makes step 4's position ties index ties.
+
+    Masked slots must be <= -1e37 (-inf or the kernels' -3e38) and come
+    back as exactly -inf; their indices may point past the row.  Rows
+    narrower than ``min_cols``, too few groups for k, or a non-float32
+    dtype take a plain ``topk``.
+    """
+    b, n = scores.shape
+    g = cdiv(n, group)
+    if n < min_cols or g < k or scores.dtype != torch.float32:
+        return topk(scores, k)
+    s = torch.clamp(scores, min=_NEG)
+    if g * group > n:
+        s = torch.nn.functional.pad(s, (0, g * group - n), value=_NEG)
+    s3 = s.view(b, g, group)
+    gi = topk(s3.amax(dim=2), k)[1].sort(dim=1).values          # [B, k]
+    cand = torch.gather(s3, 1, gi[:, :, None].expand(b, k, group))
+    v, ci = topk(cand.reshape(b, k * group), k)
+    cols = (gi[:, :, None] * group
+            + torch.arange(group, device=gi.device)).reshape(b, k * group)
+    idx = torch.gather(cols, 1, ci)
+    return torch.where(v > -1.0e37, v, torch.full_like(v, -torch.inf)), idx

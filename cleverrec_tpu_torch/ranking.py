@@ -1,0 +1,131 @@
+"""Shared full-catalog ranking backends (as ``cleverrec_tpu/ranking.py``).
+
+One implementation of each ranker, used by both the Evaluator (evalx.py)
+and the serving module (serving.py).  Every ranker returns
+``(values [B, k], items [B, k])`` with masked slots at exactly ``-inf``
+(the kernels' finite -3e38 sentinel is normalized here).  Scores are
+"higher is better" (distance models, which rank ascending, come with
+the metric-learning slice).  Selection breaks ties by the lowest item
+id, as ``lax.top_k``.
+
+The dense ranker is plain PyTorch (plain XLA in the JAX package); the
+fused ranker runs the CUDA kernels of ops/scores.py on a CUDA device and
+their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cleverrec_tpu_torch.ops.scores import (COMB_I, NEG, dot_gmax,
+                                            dot_scores)
+from cleverrec_tpu_torch.ops.topk import grouped_topk, topk
+
+# The JAX package's fused path pads the catalog to 4096-item tiles and
+# takes the group-max branch from two tiles up; the port keeps the same
+# rule so both packages take the same branch for one catalog.
+BLOCK_I = 4096
+
+
+def _normalize(v):
+    return torch.where(v > -1e37, v, torch.full_like(v, -torch.inf))
+
+
+def masked_full_scores(model, aux, u, rows, filter_seen: bool = True):
+    """[B, I] scores with seen train items masked to -inf.
+
+    ``rows``: the batch users' sorted seen rows [B, L], padded with the
+    sentinel id ``I``, which lands in a spill column that is cut off."""
+    scores = model.score_all(u, aux)
+    if not filter_seen:
+        return scores
+    b, item_nums = scores.shape
+    seen = torch.zeros((b, item_nums + 1), dtype=torch.bool,
+                       device=scores.device)
+    seen.scatter_(1, rows.long(), True)
+    return scores.masked_fill(seen[:, :item_nums], -torch.inf)
+
+
+@torch.no_grad()
+def rank_dense(model, aux, u, rows, k: int, filter_seen: bool = True):
+    """Dense [B, I] scoring + top-k (group-max pruned past 16k items)."""
+    return grouped_topk(masked_full_scores(model, aux, u, rows,
+                                           filter_seen), k)
+
+
+def fused_precompute(model, aux):
+    """Batch-independent half of the fused path: the item table and the
+    item bias, contiguous float32.  Callers ranking many
+    batches against one set of parameters compute it once and pass it to
+    ``rank_fused`` as ``pre``.  The port scores in original item order, so
+    unlike the JAX package nothing is permuted."""
+    dev = next(model.parameters()).device
+    _, table, bias = model.dot_decomposition(
+        torch.zeros(1, dtype=torch.long, device=dev), aux)
+    table = table.detach().float().contiguous()
+    return table, None if bias is None else bias.detach().float().contiguous()
+
+
+@torch.no_grad()
+def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
+    """Kernel path for dot-decomposable models.
+
+    ``seen_bits``: [B, ceil(I/32)] int32 packed seen bitmaps (zeros for
+    unfiltered retrieval).  ``pre``: output of ``fused_precompute``.
+
+    Narrow catalogs: ``dot_scores`` writes the masked [B, I] scores and
+    one row top-k ranks them.  Wide catalogs: ``dot_gmax`` writes only
+    the max of each 32-item group, the top k groups are selected, their
+    [B, k, 32, d] table slabs are rescued and rescored, re-masked with
+    one bitmap word per group, and k rounds of max extraction pick the
+    result.  Any group holding a top-k item has a max >= the k-th score,
+    and at most k groups can, so the rescue is exact up to f32 rounding
+    between the kernel's dot and the rescue's."""
+    u_vecs, table, bias = model.dot_decomposition(u, aux)
+    if pre is not None:
+        table, bias = pre
+    u_vecs = u_vecs.float().contiguous()
+    table = table.float().contiguous()
+    seen_bits = seen_bits.to(torch.int32).contiguous()
+    i_real = table.shape[0]
+    n = i_real + ((-i_real) % BLOCK_I)           # the JAX padded width
+    b = u_vecs.shape[0]
+    if not (n >= 2 * BLOCK_I and n // COMB_I >= 2 * k):
+        scores = dot_scores(u_vecs, table, seen_bits, bias)
+        if i_real < k:      # the JAX path ranks padded (masked) columns
+            scores = torch.nn.functional.pad(scores, (0, k - i_real),
+                                             value=NEG)
+        v, idx = topk(scores, k)
+        return _normalize(v), idx
+
+    gmax = dot_gmax(u_vecs, table, seen_bits, bias)          # [B, G]
+    # Ascending group order: the extraction's first-position tie rule
+    # then picks the lowest item id.
+    gi = topk(gmax, k)[1].sort(dim=1).values                 # [B, k]
+    # Group g is the contiguous rows [32g, 32g + 32) of the table; rows
+    # past the catalog are clamped here and masked below.
+    ids = gi[:, :, None] * COMB_I + torch.arange(COMB_I, device=gi.device)
+    slab_rows = ids.clamp(max=i_real - 1)
+    qc = table[slab_rows]                                    # [B, k, 32, d]
+    cand = torch.einsum("bkcd,bd->bkc", qc, u_vecs)          # [B, k, 32]
+    if bias is not None:
+        cand = cand + bias[slab_rows]
+    # Group g is bitmap word g: member r is bit r.
+    words = torch.gather(seen_bits, 1, gi)                   # [B, k]
+    bit = torch.arange(COMB_I, dtype=torch.int32, device=words.device)
+    seen = ((words[:, :, None] >> bit) & 1) == 1
+    cand = torch.where(seen | (ids >= i_real), torch.full_like(cand, NEG),
+                       cand)
+    # k rounds of max extraction; argmax returns the first maximal lane.
+    c = cand.reshape(b, k * COMB_I)
+    ids_flat = ids.reshape(b, k * COMB_I)
+    batch = torch.arange(b, device=c.device)
+    vs, cis = [], []
+    for _ in range(k):
+        a = c.argmax(dim=1)
+        vs.append(c[batch, a])
+        cis.append(a)
+        c[batch, a] = -torch.inf
+    v = torch.stack(vs, dim=1)
+    items = torch.gather(ids_flat, 1, torch.stack(cis, dim=1))
+    return _normalize(v), items

@@ -1,0 +1,108 @@
+"""Serving: top-K retrieval and re-ranking (as ``cleverrec_tpu/serving.py``).
+
+- ``build_retrieval_fn``: ``retrieve(user_ids) -> (items, scores)`` over
+  the model's frozen tables with seen-item filtering on the device — the
+  online-serving hot path.  Backends mirror the Evaluator's rankers:
+  ``dense`` [B, I] scoring in plain PyTorch, and ``fused`` (the
+  masked-scoring CUDA kernels, for dot-decomposable models).
+- ``build_rerank_fn``: ``rerank(user_ids, candidate_ids) -> (items,
+  scores)`` over an externally retrieved candidate set.
+
+Export (``torch.export`` in place of ``jax.export``) and the streaming
+and sharded backends come with later slices.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cleverrec_tpu_torch import ranking
+from cleverrec_tpu_torch.common import resolve_device
+from cleverrec_tpu_torch.ops.topk import topk
+from cleverrec_tpu_torch.sampling import rows_to_bits
+
+
+def _pick_backend(model, device: torch.device) -> str:
+    if device.type == "cuda" and hasattr(model, "dot_decomposition"):
+        return "fused"
+    return "dense"
+
+
+def _pad_ids(v, items):
+    return torch.where(torch.isfinite(v), items, torch.full_like(items, -1)), v
+
+
+def build_retrieval_fn(model, aux, device_data, k: int = 10,
+                       filter_seen: bool = True, backend: str = "auto",
+                       device="cuda"):
+    """User -> top-k retrieval on ``device`` (default ``cuda``; the model
+    is moved there).
+
+    Returns retrieve(user_ids [B]) -> (items [B, k] int64, scores [B, k]).
+    Filtered-out / past-catalog slots come back as item id -1 with -inf
+    score.  ``backend``: auto | dense | fused; auto picks fused on a CUDA
+    device for dot-decomposable models.  ``retrieve.backend`` names the
+    backend in use.
+    """
+    dev = resolve_device(device)
+    model.to(dev)
+    aux = {key: v.to(dev) for key, v in (aux or {}).items()}
+    item_nums = model.meta.item_nums
+    if backend == "auto":
+        backend = _pick_backend(model, dev)
+    if backend not in ("dense", "fused"):
+        raise ValueError(f"unknown retrieval backend {backend!r}")
+    if backend == "fused" and not hasattr(model, "dot_decomposition"):
+        raise ValueError(f"{model.name}: no dot decomposition — "
+                         "fused retrieval unavailable")
+    seen = device_data.seen
+    # Past the global bitmap budget (seen.bits is None) the fused path
+    # builds each batch's bitmaps from its sorted rows.
+    use_bits = backend == "fused" and filter_seen and seen.bits is not None
+    seen_tbl = None
+    if use_bits:
+        seen_tbl = torch.as_tensor(seen.bits, device=dev)
+    elif filter_seen:
+        seen_tbl = torch.as_tensor(seen.rows, device=dev).long()
+    pre = ranking.fused_precompute(model, aux) if backend == "fused" else None
+
+    @torch.no_grad()
+    def retrieve(u):
+        u = torch.as_tensor(u, device=dev).long()
+        if backend == "dense":
+            rows = seen_tbl[u] if filter_seen else None
+            return _pad_ids(*ranking.rank_dense(model, aux, u, rows, k,
+                                                filter_seen))
+        if use_bits:
+            bits = seen_tbl[u]
+        elif filter_seen:
+            bits = rows_to_bits(seen_tbl[u], item_nums)
+        else:
+            bits = torch.zeros((u.shape[0], (item_nums + 31) // 32),
+                               dtype=torch.int32, device=dev)
+        return _pad_ids(*ranking.rank_fused(model, aux, u, bits, k, pre=pre))
+
+    retrieve.backend = backend
+    return retrieve
+
+
+def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
+    """Second-stage scorer on ``device``: rerank(user_ids [B], cand [B, C])
+    -> (items [B, k], scores [B, k]), the top-k of each user's provided
+    candidate list (no seen filtering — the retriever already did it).
+    Negative candidate ids are treated as padding and never surface."""
+    dev = resolve_device(device)
+    model.to(dev)
+    aux = {key: v.to(dev) for key, v in (aux or {}).items()}
+
+    @torch.no_grad()
+    def rerank(u, cand):
+        u = torch.as_tensor(u, device=dev).long()
+        cand = torch.as_tensor(cand, device=dev).long()
+        valid = cand >= 0
+        scores = model.score_candidates(u, cand.clamp(min=0), aux)
+        scores = scores.masked_fill(~valid, -torch.inf)
+        v, idx = topk(scores, min(k, cand.shape[1]))
+        return _pad_ids(v, torch.gather(cand, 1, idx))
+
+    return rerank

@@ -1,0 +1,78 @@
+"""The port's masked-scoring plain versions (the CPU path of the CUDA
+kernels' wrappers) against the JAX package's Pallas kernels in
+interpret mode, on identical numpy inputs."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cleverrec_tpu.ops.pallas_scores import (fused_dot_gmax,
+                                             fused_dot_scores,
+                                             permute_item_table)
+from cleverrec_tpu_torch.ops import scores as S
+
+# f32 dots of width 16, summed in another order by XLA and by torch.
+ATOL = 1e-5
+B, I, D = 37, 5000, 16          # two 4096-item tiles, ragged tail
+
+
+def _inputs(with_bias):
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(B, D)).astype(np.float32)
+    q = rng.normal(size=(I, D)).astype(np.float32)
+    words = -(-I // 32)
+    bits = np.zeros((B, words), np.uint32)
+    for r in range(B):
+        s = rng.choice(I, size=400, replace=False)
+        np.bitwise_or.at(bits[r], s >> 5, np.uint32(1) << (s & 31))
+    bits[0, :3] = 0xFFFFFFFF                       # whole groups seen
+    bias = rng.normal(size=(I,)).astype(np.float32) if with_bias else None
+    return u, q, bits, bias
+
+
+def _torch(u, q, bits, bias):
+    return (torch.as_tensor(u), torch.as_tensor(q),
+            torch.as_tensor(bits.view(np.int32)),
+            None if bias is None else torch.as_tensor(bias))
+
+
+def _assert_masked_close(got, want):
+    masked = want == S.NEG
+    np.testing.assert_array_equal(got == S.NEG, masked)
+    np.testing.assert_allclose(got[~masked], want[~masked], rtol=0,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_dot_scores_ref_matches_pallas(with_bias):
+    u, q, bits, bias = _inputs(with_bias)
+    perm, item_map = fused_dot_scores(
+        jnp.asarray(u), jnp.asarray(q), jnp.asarray(bits), block_b=8,
+        interpret=True, bias=None if bias is None else jnp.asarray(bias))
+    imap = np.asarray(item_map)
+    want = np.empty((B, imap.shape[0]), np.float32)
+    want[:, imap] = np.asarray(perm)                 # back to item order
+    assert (want[:, I:] == S.NEG).all()              # padded items masked
+    got = S.dot_scores(*_torch(u, q, bits, bias)).numpy()
+    assert got.shape == (B, I)
+    _assert_masked_close(got, want[:, :I])
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_dot_gmax_ref_matches_pallas(with_bias):
+    u, q, bits, bias = _inputs(with_bias)
+    q_perm, item_map = permute_item_table(jnp.asarray(q))
+    bias_perm = None
+    if bias is not None:
+        padded = np.zeros(item_map.shape[0], np.float32)
+        padded[:I] = bias
+        bias_perm = jnp.asarray(padded)[item_map]
+    want = np.asarray(fused_dot_gmax(
+        jnp.asarray(u), q_perm, jnp.asarray(bits), interpret=True,
+        item_nums=I, bias_perm=bias_perm))
+    groups = -(-I // 32)
+    assert (want[:, groups:] == S.NEG).all()         # all-padding groups
+    got = S.dot_gmax(*_torch(u, q, bits, bias)).numpy()
+    assert got.shape == (B, groups)
+    _assert_masked_close(got, want[:, :groups])
