@@ -1,14 +1,18 @@
-"""Parameters carried across from the JAX package.
+"""Parameters and Adam state carried across from the JAX package.
 
 The JAX models keep a flat ``{name: array}`` pytree whose names match the
-port's ``nn.Parameter`` names (BPR: ``P``, ``Q``).  Convert the arrays
-to numpy on the JAX side (``np.asarray``); nothing here imports JAX.
+port's ``nn.Parameter`` names (BPR: ``P``, ``Q``), and optax's Adam keeps
+``opt_state[0]`` = (count, mu, nu) over the same names.  Convert the
+arrays to numpy on the JAX side (``np.asarray``); nothing here imports
+JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cleverrec_tpu_torch.common import AdamState
 
 
 def params_from_jax(params: dict[str, np.ndarray],
@@ -31,3 +35,13 @@ def load_params(model: torch.nn.Module, params: dict[str, np.ndarray]) -> None:
             raise ValueError(f"{name}: shape {tuple(value.shape)} != "
                              f"{tuple(own[name].shape)}")
         own[name].copy_(value)
+
+
+def adam_state_from_jax(count, mu: dict[str, np.ndarray],
+                        nu: dict[str, np.ndarray], device) -> AdamState:
+    """optax's ``ScaleByAdamState`` (``opt_state[0].count``, ``.mu``,
+    ``.nu``, as numpy) -> the port's ``AdamState`` on ``device``."""
+    if set(mu) != set(nu):
+        raise KeyError(f"mu {sorted(mu)} and nu {sorted(nu)} differ")
+    return AdamState(int(np.asarray(count)), params_from_jax(mu, device),
+                     params_from_jax(nu, device))

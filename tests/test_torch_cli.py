@@ -1,0 +1,111 @@
+"""The port's CLI: the default recipe's flow (properties files, --set
+overrides, train, eval, best epoch) on the toy dataset on the CPU, the
+flags that are not ported yet, and the card the default device needs."""
+
+import logging
+import os
+
+import pytest
+import torch
+
+from cleverrec_tpu_torch import cli
+from cleverrec_tpu_torch.utils.logging import get_logger
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class Records(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+@pytest.fixture
+def toy_argv(toy_dataset, tmp_path):
+    props = tmp_path / "global.properties"
+    props.write_text("\n".join([
+        "[default]", "recommender=BPR", "model_type=ranking",
+        f"data.root_dir={toy_dataset['root']}",
+        f"data.dataset={toy_dataset['name']}", "data.file_name=ratings.csv",
+        "data.sep=,", "data.format=UIRT", "data.split_way=loo",
+        "test.neg_samples=10", "test.batch_size=16", "topk=[5,10]",
+        f"log.dir={tmp_path / 'logs'}", "seed=7", ""]))
+    return ["--config", str(props), "--conf-dir", os.path.join(REPO, "conf"),
+            "--set", "epoches=3", "--set", "batch_size=64",
+            "--set", "embed_size=16", "--set", "lr=0.05"]
+
+
+@pytest.fixture
+def records(tmp_path):
+    """A function that makes the CLI's logger afresh, as the CLI makes it
+    (stdout as it is when called, a file under tmp_path), and returns the
+    list a further handler fills with its records."""
+    logger = logging.getLogger("cleverrec_tpu_torch.BPR")
+
+    def drop_handlers():
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+
+    def make():
+        drop_handlers()
+        get_logger(str(tmp_path / "logs"), "BPR")
+        handler = Records()
+        logger.addHandler(handler)
+        return handler.records
+
+    yield make
+    drop_handlers()
+
+
+@pytest.mark.parametrize("fused", ["False", "True"])
+def test_cli_trains_the_toy_recipe(toy_argv, records, capsys, tmp_path,
+                                   fused):
+    records = records()
+    rc = cli.main(toy_argv + ["--device", "cpu",
+                              "--set", f"train.fused_kernel={fused}"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "Training loss: " in out and "best_epoch: " in out
+    assert "best_epoch: " in (tmp_path / "logs" / "BPR.log").read_text()
+    epochs = [r.train for r in records if hasattr(r, "train")]
+    assert [e["epoch"] for e in epochs] == [1, 2, 3]
+    assert epochs[-1]["losses"][-1] < epochs[0]["losses"][0]
+    evals = [r.eval for r in records if hasattr(r, "eval")]
+    assert [e["epoch"] for e in evals] == [1, 2, 3]
+    best = [r for r in records if hasattr(r, "best")]
+    assert len(best) == 1 and best[0].getMessage().startswith("best_epoch: ")
+    assert best[0].best["epoch"] in (1, 2, 3)
+    assert sorted(best[0].best["metrics"]) == [5, 10]
+
+
+def test_cli_evaluates_every_interval(toy_argv, records):
+    records = records()
+    rc = cli.main(toy_argv + ["--device", "cpu", "--set", "test.interval=2"])
+    assert rc == 0
+    assert [r.train["epoch"] for r in records if hasattr(r, "train")] == [2, 3]
+    assert [r.eval["epoch"] for r in records if hasattr(r, "eval")] == [2]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mesh", "2x1"], ["--distributed"], ["--export-serving", "out"],
+    ["--resume", "ckpt"], ["--tune"], ["--set", "model_type=rating"],
+    ["--set", "nokey"]])
+def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
+    assert cli.main(toy_argv + ["--device", "cpu"] + flags) == 2
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err or "bad --set" in err
+
+
+def test_cli_lists_models(capsys):
+    assert cli.main(["--list-models"]) == 0
+    assert capsys.readouterr().out.split() == ["BPR"]
+
+
+def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(toy_argv)

@@ -12,12 +12,16 @@ import pytest
 import torch
 
 from cleverrec_tpu_torch.ops import scores as S
+from cleverrec_tpu_torch.ops import train as T
 
 pytestmark = pytest.mark.cuda
 
 # Masked slots are the exact sentinel in both versions; elsewhere the two
 # sum the same f32 products in another order.
 ATOL, RTOL = 1e-4, 1e-5
+# bpr_epoch: f32 atomics sum duplicate ids in a run-dependent order, and
+# Adam's normalisation carries that rounding into each step.
+EPOCH_ATOL, EPOCH_RTOL, EPOCH_LOSS_RTOL = 1e-5, 1e-3, 1e-5
 
 
 @pytest.fixture
@@ -76,3 +80,51 @@ def test_wrapper_rejects_bad_input(cuda):
         S.dot_scores(u, q, bits[:, :1])
     with pytest.raises(ValueError):
         S.dot_scores(u.t().contiguous().t(), q, bits)
+
+
+def _epoch_inputs(u_n, i_n, d, steps, b, t0, seed=0):
+    rng = np.random.default_rng(seed)
+    u_pad, i_pad = T.sentinel_dims(u_n, i_n)
+    invalid = rng.random((steps, b)) < 0.15
+    ids = [np.where(invalid, pad - 1, rng.integers(0, n, (steps, b)))
+           .astype(np.int32) for n, pad in ((u_n, u_pad), (i_n, i_pad),
+                                            (i_n, i_pad))]
+    state = [rng.normal(size=(n, d)).astype(np.float32) * 0.1
+             for n in (u_n, i_n)]
+    for n in (u_n, u_n, i_n, i_n):
+        m = rng.normal(size=(n, d)).astype(np.float32) * 1e-3
+        state.append(np.zeros_like(m) if t0 == 0 else
+                     (np.abs(m) * 1e-3 if len(state) % 2 else m))
+    return state, ids
+
+
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
+    (37, 53, 16, 4, 64, 0), (37, 53, 16, 4, 64, 7), (29, 41, 40, 3, 37, 2),
+    (943, 1682, 128, 3, 6144, 65)])
+def test_bpr_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
+    state, ids = _epoch_inputs(u_n, i_n, d, steps, b, t0)
+    got = [torch.as_tensor(x).to(cuda) for x in state]
+    want = [torch.as_tensor(x).to(cuda) for x in state]
+    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+    before = T.launches["bpr_epoch"]
+    loss = T.fused_bpr_epoch(*got, *ids, t0, lr=0.01, reg=0.02)
+    ref = T.fused_bpr_epoch_ref(*want, *ids, t0, lr=0.01, reg=0.02)
+    torch.cuda.synchronize()
+    assert T.launches["bpr_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+def test_bpr_epoch_rejects_bad_input(cuda):
+    state, ids = _epoch_inputs(5, 7, 8, 2, 4, 0)
+    state = [torch.as_tensor(x).to(cuda) for x in state]
+    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+    with pytest.raises(TypeError):
+        T.fused_bpr_epoch(*state, ids[0].long(), *ids[1:], 0, lr=0.1, reg=0)
+    with pytest.raises(ValueError):
+        T.fused_bpr_epoch(state[0].t().contiguous().t(), *state[1:], *ids, 0,
+                          lr=0.1, reg=0)
+    with pytest.raises(ValueError):
+        T.fused_bpr_epoch(*state, ids[0].cpu(), *ids[1:], 0, lr=0.1, reg=0)
