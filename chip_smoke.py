@@ -32,6 +32,13 @@ width of ``conf/BPR.properties`` (embed_size 128):
   beside them but not held: they were taken on the real ``u.data``,
   whose time order the repo's libfm copy does not keep (see
   ``phase_d``).
+- Phase E, the NCF family on the rebuilt ml-100k (kernels ``gmf_epoch``
+  and ``mlp_epoch``): the same CLI with ``--model GMF``, ``MLP`` and
+  ``NeuMF`` at the widths of their confs, 30 epochs each through the
+  fused tier: each kernel launches once per epoch, the loss falls, and
+  the best HR@10 is at least the JAX package's on the same data less
+  ``JAX_BAND``.  Then each model 3 epochs through the fused and the scan
+  tier on identical draws, held to each other as phase D holds BPR's.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -72,8 +79,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "build", "data")
 LOGS = os.path.join(ROOT, "build", "logs")
 NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
-          "cleverrec_tpu_torch/csrc/bpr_epoch.cu", "CleverRec.properties",
-          "conf/BPR.properties", "benchmarks/UIRT/ml100k.train.libfm",
+          "cleverrec_tpu_torch/csrc/bpr_epoch.cu",
+          "cleverrec_tpu_torch/csrc/gmf_epoch.cu",
+          "cleverrec_tpu_torch/csrc/mlp_epoch.cu",
+          "cleverrec_tpu_torch/csrc/epoch.cuh", "CleverRec.properties",
+          "conf/BPR.properties", "conf/GMF.properties", "conf/MLP.properties",
+          "conf/NeuMF.properties", "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
 # NVIDIA H100 SXM data sheet: FP32 on the CUDA cores, HBM3 bandwidth.
@@ -94,6 +105,20 @@ MIN_HR10 = 0.55       # phase C: best HR@10 of 30 epochs at embed 128
 # test users.
 TIER_BAND = {"HR@10": 0.015, "NDCG@10": 0.01}
 EPOCHS = 30
+NCF = ("GMF", "MLP", "NeuMF")
+NCF_KERNEL = {"GMF": "gmf_epoch", "MLP": "mlp_epoch", "NeuMF": "mlp_epoch"}
+# Phase E: the JAX package's best HR@10 on the same rebuilt ml-100k, each
+# conf's recipe, 30 epochs (the JAX CLI on the CPU; the command is in
+# PERF.md), and how far below it the port may land: other random draws
+# from the same seed.
+JAX_HR10 = {"GMF": 0.5419, "MLP": 0.7964, "NeuMF": 0.8038}
+JAX_BAND = 0.03
+TIER_EPOCHS = 3
+# mlp_epoch vs plain: the dense params (W_l, b_l, h) sum every row of a
+# step through one atomic per element per block, against cuBLAS products
+# in the plain version, and Adam normalises that rounding into each next
+# step; the loss depends on them.
+DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 
 
 class SmokeError(Exception):
@@ -127,6 +152,14 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(moved, flops):
+    """The least time of a function that moves ``moved`` bytes and does
+    ``flops`` FP32 operations: the larger of the two at the peak rates."""
+    t_bytes, t_ops = moved / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def config(dataset: str, **overrides) -> Config:
@@ -350,15 +383,13 @@ def kernel_rows(name, shapes, launches, ref, kernel, replaces):
                            else -(-n_items // 32))
         moved = 4 * (u.numel() + q.numel() + bits.numel() + out_elems)
         flops = 2 * bsz * n_items * d
-        t_bytes, t_ops = moved / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
         timings.append({
             "shape": tag, "B": bsz, "I": n_items, "d": d,
             "ms": time_ms(lambda: kernel(u, q, bits)),
             "ms_bias": time_ms(lambda: kernel(u, q, bits, bias)),
             "plain_ms": time_ms(lambda: ref(u, q, bits)),
             "library_ms": time_ms(lambda: torch.matmul(u, q.T)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            **bound(moved, flops)})
     main = timings[0]
     row.update({key: main[key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")})
@@ -392,15 +423,16 @@ class Records(logging.Handler):
             self.best = record.best
 
 
-def drive_cli(tag, **overrides):
-    """Run the port's CLI on the default recipe, on the rebuilt ml-100k,
-    with ``overrides``; its log goes to build/logs/<tag>.log.  Returns
-    the run's numbers and its kernel launches (counts set to 0 first)."""
+def drive_cli(tag, model="BPR", epochs=EPOCHS, **overrides):
+    """Run the port's CLI on ``model``'s recipe (CleverRec.properties and
+    its conf), on the rebuilt ml-100k, for ``epochs`` epochs with
+    ``overrides``; its log goes to build/logs/<tag>.log.  Returns the
+    run's numbers and its kernel launches (counts set to 0 first)."""
     values = {"data.root_dir": DATA, "data.file_name": "ratings.csv",
-              "data.sep": ",", "log.dir": LOGS}
+              "data.sep": ",", "log.dir": LOGS, "epoches": epochs}
     values.update(overrides)
     argv = ["--config", os.path.join(ROOT, "CleverRec.properties"),
-            "--conf-dir", os.path.join(ROOT, "conf")]
+            "--conf-dir", os.path.join(ROOT, "conf"), "--model", model]
     for k, v in values.items():
         argv += ["--set", f"{k}={v}"]
     os.makedirs(LOGS, exist_ok=True)
@@ -408,7 +440,7 @@ def drive_cli(tag, **overrides):
     log_file = logging.FileHandler(os.path.join(LOGS, f"{tag}.log"))
     log_file.setFormatter(logging.Formatter("%(asctime)s  %(message)s"))
     # Handlers set before the CLI's get_logger keep its log off stdout.
-    logger = logging.getLogger("cleverrec_tpu_torch.BPR")
+    logger = logging.getLogger(f"cleverrec_tpu_torch.{model}")
     logger.setLevel(logging.INFO)
     logger.propagate = False
     for h in (records, log_file):
@@ -423,7 +455,7 @@ def drive_cli(tag, **overrides):
         log_file.close()
     launches = {**scores.launches, **train_ops.launches}
     check(rc == 0, f"{tag}: cli exit code {rc}")
-    check(len(records.train) == EPOCHS == len(records.eval)
+    check(len(records.train) == epochs == len(records.eval)
           and records.best is not None,
           f"{tag}: {len(records.train)} epochs, {len(records.eval)} evals")
     losses = [r["losses"][-1] for r in records.train]
@@ -436,7 +468,7 @@ def drive_cli(tag, **overrides):
           f"{tag}: best metrics {best}")
     return {"wall_s": wall, "launches": launches,
             "epoch_first_ms": train_ms[0],
-            "epoch_ms_median": statistics.median(train_ms[1:]),
+            "epoch_ms_median": statistics.median(train_ms[1:] or train_ms),
             "eval_ms_median": statistics.median(eval_ms),
             "loss_first": losses[0], "loss_last": losses[-1],
             "best_epoch": records.best["epoch"], "best": best,
@@ -480,24 +512,213 @@ def phase_d():
             **runs}
 
 
+def phase_e():
+    """The NCF family at its confs' widths, 30 epochs each through the
+    fused tier; then 3 epochs of each through both tiers on identical
+    draws."""
+    runs, tiers = {}, {}
+    for name in NCF:
+        res = runs[name] = drive_cli(f"E_{name}", model=name)
+        kernel = NCF_KERNEL[name]
+        check(res["launches"][kernel] == EPOCHS
+              and sum(res["launches"].values()) == EPOCHS,
+              f"E {name}: launches {res['launches']}")
+        check(res["loss_last"] < res["loss_first"],
+              f"E {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        floor = JAX_HR10[name] - JAX_BAND
+        check(res["best"]["HR@10"] >= floor,
+              f"E {name}: best HR@10 {res['best']['HR@10']} < {floor}")
+        pair = {"fused": drive_cli(f"E_{name}_fused", model=name,
+                                   epochs=TIER_EPOCHS),
+                "scan": drive_cli(f"E_{name}_scan", model=name,
+                                  epochs=TIER_EPOCHS,
+                                  **{"train.fused_kernel": "False"})}
+        check(pair["fused"]["launches"][kernel] == TIER_EPOCHS
+              and sum(pair["scan"]["launches"].values()) == 0,
+              f"E {name}: tier launches {pair['fused']['launches']}, "
+              f"{pair['scan']['launches']}")
+        for key, band in TIER_BAND.items():
+            a, b = pair["fused"]["best"][key], pair["scan"]["best"][key]
+            check(abs(a - b) <= band, f"E {name}: {key} fused {a} vs scan {b}")
+        tiers[name] = pair
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("gmf_epoch", "mlp_epoch")}
+    check(launches == {"gmf_epoch": EPOCHS, "mlp_epoch": 2 * EPOCHS},
+          f"E: launches {launches}")
+    return {"runs": runs, "tiers": tiers, "launches": launches}
+
+
+def one_epoch_in(name):
+    """The main path's trainer for ``name`` on ml-100k, its state after
+    one trained epoch, and the next epoch's draw."""
+    cfg = config("ml-100k", recommender=name)
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    check(trainer.fused, f"{name}: the recipe must take the fused tier")
+    params, state = trainer.init_state()
+    params, state, _ = trainer.train_epoch(params, state)
+    return cfg, data, model, trainer, params, state, trainer.sample_epoch()
+
+
+def sentinel_ids(data, tensors, names):
+    u_sent, i_sent = (n - 1 for n in train_ops.sentinel_dims(
+        data.user_nums, data.item_nums))
+    inval = tensors["w"] == 0
+    return [torch.where(inval, u_sent if k == "u" else i_sent, tensors[k])
+            .to(torch.int32).contiguous() for k in names]
+
+
+def hold(tag, pairs, atol, rtol):
+    """Each (name, got, want) within atol + rtol |want|; the max errors."""
+    errors = {}
+    for name, g, w in pairs:
+        check(bool(torch.isfinite(g).all()), f"{tag} {name}: non-finite")
+        errors[name] = (g - w).abs().max().item()
+        check(bool(((g - w).abs() <= atol + rtol * w.abs()).all()),
+              f"{tag} {name}: max error {errors[name]}")
+    return errors
+
+
+def gmf_row(launches, profiles):
+    """gmf_epoch against its plain version at GMF's main shape (ml-100k,
+    embed 64, B 6144) on the state one epoch in and the next draw."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in("GMF")
+    ids = sentinel_ids(data, tensors, ("u", "i"))
+    y = tensors["y"].contiguous()
+    names = ("P", "Q", "h_gmf")
+    base = [params[n].detach() for n in names] + [
+        t[n] for n in names for t in (state.mu, state.nu)]
+    opts = {"lr": cfg.lr, "reg": model.reg}
+    got, want = [x.clone() for x in base], [x.clone() for x in base]
+    loss = train_ops.fused_gmf_epoch(*got, *ids, y, state.count, **opts)
+    ref = train_ops.fused_gmf_epoch_ref(*want, *ids, y, state.count, **opts)
+    torch.cuda.synchronize()
+    labels = ("P", "Q", "h", "mP", "vP", "mQ", "vQ", "mh", "vh")
+    errors = hold("gmf_epoch", zip(labels, got, want), EPOCH_ATOL,
+                  EPOCH_RTOL)
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL, f"gmf_epoch loss: rel error {loss_rel}")
+    k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
+    steps, b = ids[0].shape
+    u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = (u_n + i_n + 1) * d
+    # Each input read once and each output written once: nine state
+    # tensors in and out, the u, i and y planes, the per-step loss.
+    moved = 4 * (18 * n_state + 3 * steps * b + steps)
+    # FP32 operations: 19 d per real slot (the product, the dot with h,
+    # two squared norms, two row grads, dh, two scatter-adds) and 14 per
+    # element of P, Q and h per step for Adam.
+    flops = 19 * d * n_real + 14 * n_state * steps
+    row = {"name": "gmf_epoch", "route": "cuda",
+           "source": "cleverrec_tpu_torch/csrc/gmf_epoch.cu",
+           "replaces": "cleverrec_tpu/ops/pallas_train.py:440",
+           "launches": launches, "max_abs_err": max(errors.values()),
+           "ms": time_ms(lambda: train_ops.fused_gmf_epoch(
+               *k_state, *ids, y, state.count, **opts)),
+           "plain_ms": time_ms(lambda: train_ops.fused_gmf_epoch_ref(
+               *r_state, *ids, y, state.count, **opts), iters=5),
+           **bound(moved, flops),
+           # No single PyTorch call trains an epoch.
+           "library_ms": None,
+           "errors": errors, "loss_rel_err": loss_rel,
+           "shape": {"U": u_n, "I": i_n, "d": d, "B": b, "steps": steps,
+                     "real_slots": n_real, "bytes": moved, "flops": flops}}
+    profiles["E_GMF_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    return row
+
+
+def mlp_timing(name, profiles):
+    """mlp_epoch against its plain version at ``name``'s main shape on the
+    state one epoch in and the next draw: errors, times, bound."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in(name)
+    spec = model.fused_mlp_spec()
+    ids = sentinel_ids(data, tensors, ("u", "i"))
+    cols = [tensors[k].to(torch.float32).contiguous() for k in ("y", "w")]
+
+    def groups():
+        out = []
+        for t in (params, state.mu, state.nu):
+            out += [torch.cat([t[n].detach() for n in spec["u"]], 1),
+                    torch.cat([t[n].detach() for n in spec["i"]], 1),
+                    [t[n].detach().clone() for n in spec["dense"]]]
+        return out
+
+    got, want = groups(), groups()
+    loss = train_ops.fused_mlp_epoch(*got, *ids, *cols, state.count,
+                                     spec=spec, lr=cfg.lr)
+    ref = train_ops.fused_mlp_epoch_ref(*want, *ids, *cols, state.count,
+                                        row_loss=spec["row_loss"], lr=cfg.lr)
+    torch.cuda.synchronize()
+    errors = {}
+    for k, part in enumerate(("", "m_", "v_")):
+        errors.update(hold("mlp_epoch", ((part + n, got[3 * k + j],
+                                          want[3 * k + j])
+                                         for j, n in enumerate(("PU", "QI"))),
+                           EPOCH_ATOL, EPOCH_RTOL))
+        errors.update(hold("mlp_epoch", zip((part + n for n in spec["dense"]),
+                                            got[3 * k + 2], want[3 * k + 2]),
+                           DENSE_ATOL, DENSE_RTOL))
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= MLP_LOSS_RTOL, f"mlp_epoch loss: rel error {loss_rel}")
+    k_state, r_state = groups(), groups()
+    steps, b = ids[0].shape
+    n_layers = (len(spec["dense"]) - 1) // 2
+    shapes = [tuple(getattr(model, n).shape) for n in spec["dense"][:n_layers]]
+    macs = sum(i * o for i, o in shapes)
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = sum(x.numel() for x in got[0:2]) + sum(
+        x.numel() for x in got[2])
+    # Each input read once and each output written once: the params and
+    # both moments in and out, the u, i, y and w planes, the loss.
+    moved = 4 * (6 * n_state + 4 * steps * b + steps)
+    # FP32 operations: the tower's products, 2 sum(in out) a real row
+    # forward and 4 sum(in out) backward (dW and dx), and 14 per element
+    # of every param per step for Adam; the O(width) terms of a row
+    # (gather, GMF product, logit, regularisers, scatter) are left out,
+    # so the bound is lower than the work.
+    flops = 6 * macs * n_real + 14 * n_state * steps
+    out = {"shape": name, "U": data.user_nums, "I": data.item_nums,
+           "tw": got[0].shape[1], "layers": shapes, "B": b, "steps": steps,
+           "real_rows": n_real,
+           "tile_rows": train_ops.mlp_epoch_plan(spec["gmf_width"],
+                                                 shapes)["rows"],
+           "bytes": moved, "flops": flops, "errors": errors,
+           "loss_rel_err": loss_rel,
+           "ms": time_ms(lambda: train_ops.fused_mlp_epoch(
+               *k_state, *ids, *cols, state.count, spec=spec, lr=cfg.lr)),
+           "plain_ms": time_ms(lambda: train_ops.fused_mlp_epoch_ref(
+               *r_state, *ids, *cols, state.count,
+               row_loss=spec["row_loss"], lr=cfg.lr), iters=3),
+           **bound(moved, flops), "library_ms": None}
+    profiles[f"E_{name}_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    return out
+
+
+def mlp_row(launches, profiles):
+    """The mlp_epoch row: NeuMF's shape first (the main one), MLP's."""
+    timings = [mlp_timing(name, profiles) for name in ("NeuMF", "MLP")]
+    main = timings[0]
+    return {"name": "mlp_epoch", "route": "cuda",
+            "source": "cleverrec_tpu_torch/csrc/mlp_epoch.cu",
+            "replaces": "cleverrec_tpu/ops/pallas_train.py:631",
+            "launches": launches,
+            "max_abs_err": max(max(t["errors"].values()) for t in timings),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "timings": timings}
+
+
 def epoch_row(launches, profiles):
     """bpr_epoch against its plain version on one state and one sampled
     epoch at the main shape (ml-100k, embed 128, B 6144): the state after
     one trained epoch, the next epoch's draw.  Times both and the card's
     least time for the same work."""
-    cfg = config("ml-100k")
-    data = load_ranking_data(cfg)
-    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
-    trainer = Trainer(model, data, cfg)
-    check(trainer.fused, "the recipe must take the fused tier on the card")
-    params, state = trainer.init_state()
-    params, state, _ = trainer.train_epoch(params, state)
-    tensors = trainer.sample_epoch()
-    u_sent, i_sent = (n - 1 for n in train_ops.sentinel_dims(
-        data.user_nums, data.item_nums))
-    inval = tensors["w"] == 0
-    ids = [torch.where(inval, sent, tensors[k]).to(torch.int32).contiguous()
-           for k, sent in (("u", u_sent), ("i", i_sent), ("j", i_sent))]
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in("BPR")
+    ids = sentinel_ids(data, tensors, ("u", "i", "j"))
     names = ("P", "Q", "mP", "vP", "mQ", "vQ")
     base = (params["P"].detach(), params["Q"].detach(), state.mu["P"],
             state.nu["P"], state.mu["Q"], state.nu["Q"])
@@ -506,19 +727,14 @@ def epoch_row(launches, profiles):
     loss = train_ops.fused_bpr_epoch(*got, *ids, state.count, **opts)
     ref = train_ops.fused_bpr_epoch_ref(*want, *ids, state.count, **opts)
     torch.cuda.synchronize()
-    errors = {}
-    for name, g, w in zip(names, got, want):
-        check(bool(torch.isfinite(g).all()), f"bpr_epoch {name}: non-finite")
-        errors[name] = (g - w).abs().max().item()
-        check(bool(((g - w).abs() <= EPOCH_ATOL + EPOCH_RTOL * w.abs()).all()),
-              f"bpr_epoch {name}: max error {errors[name]}")
+    errors = hold("bpr_epoch", zip(names, got, want), EPOCH_ATOL, EPOCH_RTOL)
     loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
     check(loss_rel <= EPOCH_LOSS_RTOL, f"bpr_epoch loss: rel error {loss_rel}")
 
     k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
     steps, b = ids[0].shape
     u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
-    n_real = int((~inval).sum())
+    n_real = int((tensors["w"] != 0).sum())
     # Each input read once and each output written once: six state
     # tables in and out, the three id planes, the per-step loss.
     moved = 4 * (12 * (u_n + i_n) * d + 3 * steps * b + steps)
@@ -526,7 +742,6 @@ def epoch_row(launches, profiles):
     # squared norms, three row grads, three scatter-adds) and 14 per
     # element of P and Q per step for Adam.
     flops = 21 * d * n_real + 14 * (u_n + i_n) * d * steps
-    t_bytes, t_ops = moved / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
     row = {"name": "bpr_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/bpr_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:276",
@@ -535,8 +750,7 @@ def epoch_row(launches, profiles):
                *k_state, *ids, state.count, **opts)),
            "plain_ms": time_ms(lambda: train_ops.fused_bpr_epoch_ref(
                *r_state, *ids, state.count, **opts), iters=5),
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           **bound(moved, flops),
            # No single PyTorch call trains an epoch.
            "library_ms": None,
            "errors": errors, "loss_rel_err": loss_rel,
@@ -604,7 +818,18 @@ def main() -> int:
         {"jax_on_u_data": train["D"]["jax_on_u_data"],
          **{t: train["D"][t]["best"] for t in ("fused", "scan")}}),
           flush=True)
+    train["E"] = phase_e()
+    print("phase E: " + json.dumps(
+        {name: {"best": run["best"], "loss_first": run["loss_first"],
+                "loss_last": run["loss_last"],
+                "epoch_ms_median": run["epoch_ms_median"],
+                "jax_hr10": JAX_HR10[name],
+                "tiers": {t: train["E"]["tiers"][name][t]["best"]
+                          for t in ("fused", "scan")}}
+         for name, run in train["E"]["runs"].items()}), flush=True)
     rows.append(epoch_row(train["C"]["launches"]["bpr_epoch"], profiles))
+    rows.append(gmf_row(train["E"]["launches"]["gmf_epoch"], profiles))
+    rows.append(mlp_row(train["E"]["launches"]["mlp_epoch"], profiles))
     for row in rows:
         print(f"kernel {row['name']}: launches {row['launches']}, "
               f"max_abs_err {row['max_abs_err']}, ms {row['ms']}, "

@@ -57,6 +57,21 @@ def bpr_loss(diff, weight=None):
     return _weighted_sum(-torch.nn.functional.logsigmoid(diff), weight)
 
 
+def sigmoid_xent(logits, labels):
+    """Per-row sigmoid cross-entropy in the stable form
+    max(x, 0) - x*z + log1p(exp(-|x|)) of
+    tf.nn.sigmoid_cross_entropy_with_logits."""
+    x, z = logits, labels
+    return torch.clamp(x, min=0.0) - x * z + torch.log1p(
+        torch.exp(-torch.abs(x)))
+
+
+def sigmoid_xent_loss(labels, logits, weight=None):
+    """Summed sigmoid cross-entropy; reference 'cross_entropy'
+    (utils/tools.py:69-70)."""
+    return _weighted_sum(sigmoid_xent(logits, labels), weight)
+
+
 def hinge_loss(diff, margin: float, weight=None):
     """sum(max(diff + margin, 0)); reference 'hinge' (utils/tools.py:73-74)."""
     return _weighted_sum(torch.clamp(diff + margin, min=0.0), weight)

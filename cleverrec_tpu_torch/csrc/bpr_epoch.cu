@@ -30,7 +30,8 @@
 //              go into the dP/dQ scratch by atomicAdd (RED); a block adds
 //              its slots' loss to loss[s] with one atomic.
 //   adam_dense one grid-stride pass over P then Q and their moments,
-//              reading dP/dQ and zeroing them for the next step.
+//              reading dP/dQ and zeroing them for the next step
+//              (epoch.cuh, shared with the other epoch kernels).
 //
 // What bounds it on an H100: per step, the slots read and scatter 3 B
 // rows and Adam makes ~9 passes over (U + I) d floats; at ml-100k's
@@ -47,16 +48,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "epoch.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;            // slots per block of bpr_slots
-constexpr int ADAM_THREADS = 256;
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 __global__ void __launch_bounds__(32 * WARPS)
 bpr_slots(const float* __restrict__ P, const float* __restrict__ Q,
@@ -111,31 +107,6 @@ bpr_slots(const float* __restrict__ P, const float* __restrict__ Q,
   }
 }
 
-__global__ void __launch_bounds__(ADAM_THREADS)
-adam_dense(float* __restrict__ P, float* __restrict__ mP, float* __restrict__ vP,
-           float* __restrict__ dP, int64_t nP, float* __restrict__ Q,
-           float* __restrict__ mQ, float* __restrict__ vQ, float* __restrict__ dQ,
-           int64_t nQ, float lr, float b1, float c1, float b2, float c2,
-           float eps, float bc1, float bc2) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; k < nP + nQ;
-       k += stride) {
-    const bool in_p = k < nP;
-    const int64_t e = in_p ? k : k - nP;
-    float* p = in_p ? P : Q;
-    float* m = in_p ? mP : mQ;
-    float* v = in_p ? vP : vQ;
-    float* g = in_p ? dP : dQ;
-    const float gk = g[e];
-    const float mk = b1 * m[e] + c1 * gk;
-    const float vk = b2 * v[e] + c2 * (gk * gk);
-    m[e] = mk;
-    v[e] = vk;
-    p[e] = p[e] - lr * (mk / bc1) / (sqrtf(vk / bc2) + eps);
-    g[e] = 0.f;
-  }
-}
-
 }  // namespace
 
 // All pointers are device pointers.  P [U, d], Q [I, d] and their Adam
@@ -151,11 +122,10 @@ extern "C" int bpr_epoch(float* P, float* Q, float* mP, float* vP, float* mQ,
                          float* loss, int U, int I, int d, int steps, int B,
                          int t0, float lr, float reg, double b1, double b2,
                          float eps, cudaStream_t stream) {
-  const int64_t nP = (int64_t)U * d, nQ = (int64_t)I * d;
   const int slot_blocks = (B + WARPS - 1) / WARPS;
-  const int64_t adam_want = (nP + nQ + ADAM_THREADS - 1) / ADAM_THREADS;
-  const int adam_blocks = (int)(adam_want < 65535 ? adam_want : 65535);
-  const float log_b1 = (float)log(b1), log_b2 = (float)log(b2);
+  AdamSegs segs = {};
+  adam_add(segs, P, mP, vP, dP, (int64_t)U * d);
+  adam_add(segs, Q, mQ, vQ, dQ, (int64_t)I * d);
   for (int s = 0; s < steps; ++s) {
     if (B > 0) {
       const size_t off = (size_t)s * B;
@@ -165,15 +135,8 @@ extern "C" int bpr_epoch(float* P, float* Q, float* mP, float* vP, float* mQ,
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    if (adam_blocks > 0) {
-      const float t = (float)(t0 + s + 1);
-      const float bc1 = 1.f - expf(t * log_b1), bc2 = 1.f - expf(t * log_b2);
-      adam_dense<<<adam_blocks, ADAM_THREADS, 0, stream>>>(
-          P, mP, vP, dP, nP, Q, mQ, vQ, dQ, nQ, lr, (float)b1,
-          (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), eps, bc1, bc2);
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
+    const int err = adam_launch(segs, t0 + s + 1, lr, b1, b2, eps, stream);
+    if (err != 0) return err;
   }
   return 0;
 }

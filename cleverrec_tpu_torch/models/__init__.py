@@ -1,4 +1,4 @@
-"""Model registry.  This slice of the port holds BPR only."""
+"""Model registry: BPR and the NCF family (GMF, MLP, NeuMF)."""
 
 from __future__ import annotations
 
@@ -8,12 +8,12 @@ from cleverrec_tpu_torch.common import resolve_device
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.models.base import DataMeta, RecModel
 from cleverrec_tpu_torch.models.bpr import BPR
+from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 
-_REGISTRY: dict[str, type] = {BPR.name: BPR}
+_REGISTRY: dict[str, type] = {m.name: m for m in (BPR, GMF, MLP, NeuMF)}
 
 # Where each model of the JAX package's zoo arrives in the port.
 _LATER_SLICES = {
-    "GMF": "NCF", "MLP": "NCF", "NeuMF": "NCF",
     "SBPR": "social", "TBPR": "social", "CUNE_BPR": "social",
     "SAMN": "social", "SAMN_single": "social",
     "CML": "metric-learning", "LRML": "metric-learning",

@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into ``build/kernels/lib<name>.so`` at the root of the
 checkout (a directory ``.gitignore`` lists) on first use, and ``load``
-opens the library with ctypes.  A library older than its source is
-rebuilt.  ``build`` starts one ``nvcc`` per stale source, all at once,
-so a script that needs every kernel pays for the slowest build only.
+opens the library with ctypes.  A library older than its source, or than
+a shared header ``csrc/*.cuh``, is rebuilt.  ``build`` starts one
+``nvcc`` per stale source, all at once, so a script that needs every
+kernel pays for the slowest build only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -19,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("dot_scores", "bpr_epoch")
+SOURCES = ("dot_scores", "bpr_epoch", "gmf_epoch", "mlp_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,8 +49,10 @@ def paths(name: str) -> tuple[str, str, str]:
 
 def _stale(name: str) -> bool:
     src, lib, _ = paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    inputs = [src, *glob.glob(os.path.join(CSRC, "*.cuh"))]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, inputs))
 
 
 def build(names=SOURCES) -> None:

@@ -1,23 +1,34 @@
-"""One BPR training epoch with dense Adam: the CUDA kernel and its plain
-version.
+"""Whole training epochs with dense Adam: the CUDA kernels and their plain
+versions.
 
-``fused_bpr_epoch`` replaces the TPU kernel ``fused_bpr_epoch`` of
-``cleverrec_tpu/ops/pallas_train.py``: the whole epoch's pre-sampled
-(u, i, j) rows, one BPR step each (gather, loss, row grads, scatter-add
-with duplicate ids summed) followed by dense Adam over all of P and Q at
-step ``t0 + s + 1``.  Invalid slots carry the sentinel ids
+- ``fused_bpr_epoch`` replaces the TPU kernel ``fused_bpr_epoch`` of
+  ``cleverrec_tpu/ops/pallas_train.py``: the whole epoch's pre-sampled
+  (u, i, j) rows, one BPR step each (gather, loss, row grads, scatter-add
+  with duplicate ids summed) followed by dense Adam over all of P and Q
+  at step ``t0 + s + 1``.  Kernel: ``csrc/bpr_epoch.cu``.
+- ``fused_gmf_epoch`` replaces ``fused_gmf_epoch``: the same for GMF's
+  pointwise rows (u, i, y), sigmoid cross-entropy over <h, P[u] * Q[i]>,
+  dense Adam over P, Q and h.  Kernel: ``csrc/gmf_epoch.cu``.
+- ``fused_mlp_epoch`` replaces ``fused_mlp_epoch``: the pointwise tower
+  epoch of MLP and NeuMF over feature-concatenated tables and the dense
+  tower params, as a model's ``fused_mlp_spec`` describes it, with rows
+  masked by their weight w.  Kernel: ``csrc/mlp_epoch.cu``.
+
+In the BPR and GMF epochs invalid slots carry the sentinel ids
 ``U_pad - 1`` / ``I_pad - 1`` of ``sentinel_dims``; an id outside its
 table reads a zero row and receives no gradient, so such a slot adds
-``LOG2`` to the loss and changes nothing else.
+``LOG2`` to the loss and changes nothing else.  The tower epoch masks
+rows by w instead (a tower with biases scores a zero row), so its loss
+needs no correction.
 
-Unlike the JAX function, both versions update the six state tensors IN
+Unlike the JAX functions, both versions update the state tensors IN
 PLACE and return only the summed per-step loss, sentinel slots' log 2
 included: the caller subtracts ``n_sentinel * LOG2``.  The tables are not
 padded, so no padding of the wrapper's own enters the loss.
 
-A wrapper given CPU tensors runs ``fused_bpr_epoch_ref``; given CUDA
-tensors it launches the kernel in ``csrc/bpr_epoch.cu`` or raises; it
-never falls back.  ``launches`` counts kernel launches (one per epoch).
+A wrapper given CPU tensors runs its ``*_ref`` plain version; given CUDA
+tensors it launches its kernel or raises; it never falls back.
+``launches`` counts kernel launches (one per epoch each).
 """
 
 from __future__ import annotations
@@ -28,11 +39,12 @@ import math
 import numpy as np
 import torch
 
-from cleverrec_tpu_torch.common import ADAM_B1, ADAM_B2, ADAM_EPS
+from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS,
+                                        sigmoid_xent)
 
 LOG2 = math.log(2.0)   # -log(sigmoid(0)): the loss of one sentinel slot
 
-launches = {"bpr_epoch": 0}
+launches = {"bpr_epoch": 0, "gmf_epoch": 0, "mlp_epoch": 0}
 
 
 def reset_launches() -> None:
@@ -55,6 +67,15 @@ def _bias_corrections(t: int, b1: float, b2: float):
             np.float32(1) - np.exp(t32 * np.float32(math.log(b2))))
 
 
+def _adam_dense(state, t: int, lr: float, b1: float, b2: float, eps: float):
+    """Adam at step t over (param, m, v, grad) quadruples, in place."""
+    bc1, bc2 = _bias_corrections(t, b1, b2)
+    for x, m, v, g in state:
+        m.copy_(b1 * m + (1.0 - b1) * g)
+        v.copy_(b2 * v + (1.0 - b2) * (g * g))
+        x.copy_(x - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+
+
 def _rows(table, ids):
     """Rows of ``table`` at ``ids`` [B], zero where an id is outside the
     table; also the in-table ids, with the others sent to a spare row
@@ -67,6 +88,54 @@ def _rows(table, ids):
     return rows, torch.where(real, ids, torch.full_like(ids, n))
 
 
+def _scatter(table, *pairs):
+    """[len(table), d] zeros with each (ids, rows) pair added in turn
+    (duplicates sum; ids at the spare row ``len(table)`` are dropped)."""
+    out = torch.zeros((table.shape[0] + 1, table.shape[1]),
+                      dtype=table.dtype, device=table.device)
+    for ids, rows in pairs:
+        out.index_add_(0, ids, rows)
+    return out[:-1]
+
+
+def _check_same(tensors, ids, floats=()):
+    """One device for all; float32 state and columns, int32 ids."""
+    everything = (*tensors, *ids, *floats)
+    if len({t.device for t in everything}) != 1:
+        raise ValueError("state and ids must be on one device")
+    if any(t.dtype != torch.float32 for t in (*tensors, *floats)) or any(
+            t.dtype != torch.int32 for t in ids):
+        raise TypeError("tables, moments and columns must be float32, ids "
+                        "int32")
+    if ids[0].dim() != 2 or any(t.shape != ids[0].shape
+                                for t in (*ids, *floats)):
+        raise ValueError("ids and columns must be [steps, B] of one shape")
+
+
+def _check_moments(pairs):
+    for name, m, like in pairs:
+        if m.shape != like.shape:
+            raise ValueError(f"{name} {tuple(m.shape)} must match its "
+                             f"parameter {tuple(like.shape)}")
+
+
+def _launch_ok(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+    launches[name] += 1
+
+
+def _contiguous(name: str, tensors) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- BPR ------------------------------------------------------------------
+
 @torch.no_grad()
 def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
                         *, lr: float, reg: float, b1: float = ADAM_B1,
@@ -75,7 +144,6 @@ def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
     in PyTorch ops, ``index_add_`` for the scatter.  Same arguments and
     result; updates the state in place."""
     steps = u_idx.shape[0]
-    d = p.shape[1]
     losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
     for s in range(steps):
         pe, u = _rows(p, u_idx[s].long())
@@ -86,16 +154,9 @@ def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
         losses[s] = (-torch.nn.functional.logsigmoid(diff)).sum() + (
             0.5 * reg * ((pe * pe).sum() + (qi * qi).sum() + (qj * qj).sum()))
         g = -torch.sigmoid(-diff)[:, None]
-        dp = torch.zeros((p.shape[0] + 1, d), dtype=p.dtype, device=p.device)
-        dq = torch.zeros((q.shape[0] + 1, d), dtype=q.dtype, device=q.device)
-        dp.index_add_(0, u, g * qd + reg * pe)
-        dq.index_add_(0, i, g * pe + reg * qi)
-        dq.index_add_(0, j, -g * pe + reg * qj)
-        bc1, bc2 = _bias_corrections(t0 + s + 1, b1, b2)
-        for x, m, v, gx in ((p, mp, vp, dp[:-1]), (q, mq, vq, dq[:-1])):
-            m.copy_(b1 * m + (1.0 - b1) * gx)
-            v.copy_(b2 * v + (1.0 - b2) * (gx * gx))
-            x.copy_(x - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        dq = _scatter(q, (i, g * pe + reg * qi), (j, -g * pe + reg * qj))
+        _adam_dense(((p, mp, vp, _scatter(p, (u, g * qd + reg * pe))),
+                     (q, mq, vq, dq)), t0 + s + 1, lr, b1, b2, eps)
     return losses.sum()
 
 
@@ -103,20 +164,9 @@ def _check(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx):
     if p.dim() != 2 or q.dim() != 2 or p.shape[1] != q.shape[1]:
         raise ValueError(f"p {tuple(p.shape)} and q {tuple(q.shape)} must "
                          "be [U, d] and [I, d]")
-    for name, m, like in (("mp", mp, p), ("vp", vp, p), ("mq", mq, q),
-                          ("vq", vq, q)):
-        if m.shape != like.shape:
-            raise ValueError(f"{name} {tuple(m.shape)} must match its table "
-                             f"{tuple(like.shape)}")
-    if u_idx.dim() != 2 or not (u_idx.shape == i_idx.shape == j_idx.shape):
-        raise ValueError("u_idx, i_idx and j_idx must be [steps, B] of one "
-                         "shape")
-    tensors = (p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx)
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("state and ids must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors[:6]) or any(
-            t.dtype != torch.int32 for t in tensors[6:]):
-        raise TypeError("tables and moments must be float32, ids int32")
+    _check_moments((("mp", mp, p), ("vp", vp, p), ("mq", mq, q),
+                    ("vq", vq, q)))
+    _check_same((p, q, mp, vp, mq, vq), (u_idx, i_idx, j_idx))
 
 
 def fused_bpr_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
@@ -136,14 +186,13 @@ def fused_bpr_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
         return fused_bpr_epoch_ref(*args, **opts)
     if p.device.type != "cuda":
         raise ValueError(f"fused_bpr_epoch: no kernel for device {p.device}")
-    return _launch(*args, **opts)
+    return _launch_bpr(*args, **opts)
 
 
-def _launch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg, b1,
-            b2, eps):
-    tensors = (p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_bpr_epoch: inputs must be contiguous")
+def _launch_bpr(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg,
+                b1, b2, eps):
+    _contiguous("fused_bpr_epoch", (p, q, mp, vp, mq, vq, u_idx, i_idx,
+                                    j_idx))
     steps, b = u_idx.shape
     if max(*p.shape, q.shape[0], steps, b, t0 + steps) >= 2 ** 31:
         raise ValueError("fused_bpr_epoch: a size or step count past the "
@@ -157,12 +206,303 @@ def _launch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg, b1,
     dp, dq = torch.zeros_like(p), torch.zeros_like(q)
     loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
     with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
         err = fn(*(t.data_ptr() for t in (p, q, mp, vp, mq, vq, dp, dq,
                                           u_idx, i_idx, j_idx, loss)),
                  p.shape[0], q.shape[0], p.shape[1], steps, b, t0,
-                 lr, reg, b1, b2, eps, stream)
-    if err != 0:
-        raise RuntimeError(f"bpr_epoch: kernel launch failed, cudaError {err}")
-    launches["bpr_epoch"] += 1
+                 lr, reg, b1, b2, eps, _stream(p.device))
+    _launch_ok("bpr_epoch", err)
+    return loss.sum()
+
+
+# -- GMF ------------------------------------------------------------------
+
+@torch.no_grad()
+def fused_gmf_epoch_ref(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y,
+                        t0: int, *, lr: float, reg: float,
+                        b1: float = ADAM_B1, b2: float = ADAM_B2,
+                        eps: float = ADAM_EPS):
+    """Plain version of ``fused_gmf_epoch``: the same per-step arithmetic
+    in PyTorch ops.  Same arguments and result; updates the state in
+    place."""
+    steps = u_idx.shape[0]
+    losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    for s in range(steps):
+        pe, u = _rows(p, u_idx[s].long())
+        qi, i = _rows(q, i_idx[s].long())
+        prod = pe * qi
+        x = (prod * h).sum(dim=1)
+        losses[s] = sigmoid_xent(x, y[s]).sum() + 0.5 * reg * (
+            (pe * pe).sum() + (qi * qi).sum())
+        g = (torch.sigmoid(x) - y[s])[:, None]
+        _adam_dense(((p, mp, vp, _scatter(p, (u, g * (qi * h) + reg * pe))),
+                     (q, mq, vq, _scatter(q, (i, g * (pe * h) + reg * qi))),
+                     (h, mh, vh, (g * prod).sum(dim=0))),
+                    t0 + s + 1, lr, b1, b2, eps)
+    return losses.sum()
+
+
+def _check_gmf(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y):
+    if (p.dim() != 2 or q.dim() != 2 or h.dim() != 1
+            or not p.shape[1] == q.shape[1] == h.shape[0]):
+        raise ValueError(f"p {tuple(p.shape)}, q {tuple(q.shape)} and h "
+                         f"{tuple(h.shape)} must be [U, d], [I, d] and [d]")
+    _check_moments((("mp", mp, p), ("vp", vp, p), ("mq", mq, q),
+                    ("vq", vq, q), ("mh", mh, h), ("vh", vh, h)))
+    _check_same((p, q, h, mp, vp, mq, vq, mh, vh), (u_idx, i_idx), (y,))
+
+
+def fused_gmf_epoch(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y,
+                    t0: int, *, lr: float, reg: float, b1: float = ADAM_B1,
+                    b2: float = ADAM_B2, eps: float = ADAM_EPS):
+    """One GMF epoch with dense Adam, in place.
+
+    p [U, d], q [I, d], h [d] f32 (h is not regularised); mp .. vh their
+    Adam moments; u_idx, i_idx [steps, B] int32 sampled rows, invalid
+    slots at the sentinel ids; y [steps, B] f32 labels; t0 the Adam step
+    count so far.  Updates the nine state tensors in place and returns
+    the summed per-step loss (a 0-dim f32 tensor) that still includes
+    log 2 per sentinel slot."""
+    _check_gmf(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y)
+    args = (p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y, int(t0))
+    opts = dict(lr=lr, reg=reg, b1=b1, b2=b2, eps=eps)
+    if p.device.type == "cpu":
+        return fused_gmf_epoch_ref(*args, **opts)
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_gmf_epoch: no kernel for device {p.device}")
+    return _launch_gmf(*args, **opts)
+
+
+def _launch_gmf(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y, t0, *, lr,
+                reg, b1, b2, eps):
+    state = (p, q, h, mp, vp, mq, vq, mh, vh)
+    _contiguous("fused_gmf_epoch", (*state, u_idx, i_idx, y))
+    steps, b = u_idx.shape
+    d = p.shape[1]
+    if d > 4096:
+        raise ValueError(f"fused_gmf_epoch: d {d} past the kernel's 4096 "
+                         "(h and its gradient sit in shared memory)")
+    if max(*p.shape, q.shape[0], steps, b, t0 + steps) >= 2 ** 31:
+        raise ValueError("fused_gmf_epoch: a size or step count past the "
+                         "kernel's int32 arguments")
+    from cleverrec_tpu_torch.ops.build import load
+    fn = load("gmf_epoch").gmf_epoch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 2 + [ctypes.c_double] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    grads = [torch.zeros_like(x) for x in (p, q, h)]
+    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        err = fn(*(t.data_ptr() for t in (*state, *grads, u_idx, i_idx, y,
+                                          loss)),
+                 p.shape[0], q.shape[0], d, steps, b, t0, lr, reg, b1, b2,
+                 eps, _stream(p.device))
+    _launch_ok("gmf_epoch", err)
+    return loss.sum()
+
+
+# -- MLP / NeuMF tower ----------------------------------------------------
+
+MLP_MAX_LAYERS = 4
+# Dynamic shared memory a block may use on an H100 (227 KB).
+SMEM_LIMIT = 232448
+_TILE_ROWS = (32, 16, 8)
+_MAX_T = 3 + 2 * MLP_MAX_LAYERS
+
+
+class _MlpArgs(ctypes.Structure):
+    """``MlpArgs`` of csrc/mlp_epoch.cu, field for field."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in ("L", "dg", "hm", "tw", "U", "I",
+                                             "B", "rows")]
+                + [(n, ctypes.c_int * MLP_MAX_LAYERS)
+                   for n in ("n_in", "n_out", "ld_w", "off_w", "off_b")]
+                + [("off_h", ctypes.c_int),
+                   ("off_x", ctypes.c_int * (MLP_MAX_LAYERS + 1)),
+                   ("ld_x", ctypes.c_int * (MLP_MAX_LAYERS + 1))]
+                + [(n, ctypes.c_int) for n in ("off_ug", "off_ig", "off_d0",
+                                               "off_d1", "ld_d", "off_row",
+                                               "smem_bytes")]
+                + [("reg_g", ctypes.c_float), ("reg_m", ctypes.c_float),
+                   ("p", ctypes.c_void_p * _MAX_T),
+                   ("g", ctypes.c_void_p * _MAX_T)])
+
+
+def _mlp_layout(rows: int, dg: int, w_shapes) -> dict:
+    """csrc/mlp_epoch.cu's shared memory for a tile of ``rows`` rows, in
+    floats: W_l (rows padded to an odd stride), b_l, h, the activations
+    x_0..x_L, the GMF slices, two gradient buffers, five per-row words."""
+    n_in = [s[0] for s in w_shapes]
+    n_out = [s[1] for s in w_shapes]
+    widths = [n_in[0]] + n_out
+    lay = {"n_in": n_in, "n_out": n_out, "ld_w": [o + 1 for o in n_out],
+           "ld_x": [wd + 1 for wd in widths], "ld_d": max(widths) + 1,
+           "off_w": [], "off_b": [], "off_x": [], "rows": rows}
+    off = 0
+    for l, n in enumerate(n_in):
+        lay["off_w"].append(off)
+        off += n * lay["ld_w"][l]
+    for o in n_out:
+        lay["off_b"].append(off)
+        off += o
+    lay["off_h"] = off
+    off += dg + n_out[-1]
+    for ld in lay["ld_x"]:
+        lay["off_x"].append(off)
+        off += rows * ld
+    for name, size in (("off_ug", dg), ("off_ig", dg),
+                       ("off_d0", lay["ld_d"]), ("off_d1", lay["ld_d"]),
+                       ("off_row", 5)):
+        lay[name] = off
+        off += rows * size
+    lay["smem_bytes"] = 4 * off
+    return lay
+
+
+def mlp_epoch_plan(dg: int, w_shapes) -> dict:
+    """The tower kernel's shared-memory layout for W_l shapes
+    ``w_shapes`` and GMF width ``dg``, at the largest tile of 32, 16 or 8
+    rows that fits; raises ValueError on a shape the kernel does not
+    take (more than 4 layers, or no tile fits)."""
+    if not 1 <= len(w_shapes) <= MLP_MAX_LAYERS:
+        raise ValueError(f"fused_mlp_epoch: {len(w_shapes)} layers; the "
+                         f"kernel takes 1 to {MLP_MAX_LAYERS}")
+    for rows in _TILE_ROWS:
+        lay = _mlp_layout(rows, dg, w_shapes)
+        if lay["smem_bytes"] <= SMEM_LIMIT:
+            return lay
+    raise ValueError(f"fused_mlp_epoch: a tile of {_TILE_ROWS[-1]} rows "
+                     f"needs {lay['smem_bytes']} bytes of shared memory, "
+                     f"past the {SMEM_LIMIT} a block may have")
+
+
+@torch.no_grad()
+def fused_mlp_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
+                        u_idx, i_idx, y, w, t0: int, *, row_loss, lr: float,
+                        b1: float = ADAM_B1, b2: float = ADAM_B2,
+                        eps: float = ADAM_EPS):
+    """Plain version of ``fused_mlp_epoch``: per step, the gathered rows
+    through the model's ``row_loss``, differentiated with autograd, the
+    row grads scattered with ``index_add_``, then dense Adam.  Same
+    arguments as the wrapper, with ``row_loss`` for its ``spec``."""
+    steps = u_idx.shape[0]
+    losses = torch.zeros(steps, dtype=torch.float32, device=pu.device)
+    for s in range(steps):
+        pe, u = _rows(pu, u_idx[s].long())
+        qe, i = _rows(qi, i_idx[s].long())
+        with torch.enable_grad():
+            leaves = [pe.requires_grad_(), qe.requires_grad_()] + [
+                x.detach().requires_grad_() for x in dense]
+            loss = row_loss(pe, qe, leaves[2:], y[s][:, None], w[s][:, None])
+            grads = torch.autograd.grad(loss, leaves)
+        losses[s] = loss
+        _adam_dense(((pu, mpu, vpu, _scatter(pu, (u, grads[0]))),
+                     (qi, mqi, vqi, _scatter(qi, (i, grads[1]))),
+                     *zip(dense, mdense, vdense, grads[2:])),
+                    t0 + s + 1, lr, b1, b2, eps)
+    return losses.sum()
+
+
+def _check_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
+               i_idx, y, w, dg):
+    """The form of ``fused_mlp_spec``: dense = W_0..W_{L-1}, b_0..b_{L-1},
+    h with W_l [in_l, out_l], in_{l+1} = out_l, in_0 = 2 (tw - dg),
+    b_l [out_l] and h [dg + out_{L-1}]."""
+    n_layers, odd = divmod(len(dense) - 1, 2)
+    if (odd or n_layers < 1 or len(mdense) != len(dense)
+            or len(vdense) != len(dense)):
+        raise ValueError("dense must be W_0..W_{L-1}, b_0..b_{L-1}, h, "
+                         "with a moment for each")
+    if pu.dim() != 2 or qi.dim() != 2 or pu.shape[1] != qi.shape[1]:
+        raise ValueError(f"pu {tuple(pu.shape)} and qi {tuple(qi.shape)} "
+                         "must be [U, tw] and [I, tw]")
+    ws, bs, h = dense[:n_layers], dense[n_layers:-1], dense[-1]
+    want = 2 * (pu.shape[1] - dg)
+    for l, (wl, bl) in enumerate(zip(ws, bs)):
+        if (wl.dim() != 2 or wl.shape[0] != want
+                or tuple(bl.shape) != (wl.shape[1],)):
+            raise ValueError(f"W_{l} {tuple(wl.shape)} and b_{l} "
+                             f"{tuple(bl.shape)} must be [{want}, n] and [n]")
+        want = wl.shape[1]
+    if tuple(h.shape) != (dg + want,):
+        raise ValueError(f"h {tuple(h.shape)} must be [{dg + want}]")
+    _check_moments([("mpu", mpu, pu), ("vpu", vpu, pu), ("mqi", mqi, qi),
+                    ("vqi", vqi, qi)]
+                   + [(f"moment of dense[{k}]", m, x)
+                      for k, x in enumerate(dense)
+                      for m in (mdense[k], vdense[k])])
+    _check_same((pu, qi, *dense, mpu, mqi, *mdense, vpu, vqi, *vdense),
+                (u_idx, i_idx), (y, w))
+
+
+def fused_mlp_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
+                    u_idx, i_idx, y, w, t0: int, *, spec: dict, lr: float,
+                    b1: float = ADAM_B1, b2: float = ADAM_B2,
+                    eps: float = ADAM_EPS):
+    """One pointwise tower epoch (MLP, NeuMF) with dense Adam, in place.
+
+    pu [U, tw], qi [I, tw] f32 feature-concatenated user and item tables
+    (``spec["u"]``, ``spec["i"]``); dense the tower params in
+    ``spec["dense"]`` order, in their own shapes; m*, v* their Adam
+    moments (dense ones as sequences in the same order); u_idx, i_idx
+    [steps, B] int32 rows; y, w [steps, B] f32 labels and weights
+    (w = 0 masks a row); t0 the Adam step count so far.  ``spec`` is the
+    model's ``fused_mlp_spec()``: the kernel takes its ``gmf_width``,
+    ``reg_gmf`` and ``reg_mlp``, the plain version its ``row_loss``.
+    Updates every state tensor in place and returns the summed per-step
+    loss (a 0-dim f32 tensor); no correction is due."""
+    dense, mdense, vdense = tuple(dense), tuple(mdense), tuple(vdense)
+    dg = int(spec["gmf_width"])
+    _check_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
+               i_idx, y, w, dg)
+    args = (pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx, i_idx,
+            y, w, int(t0))
+    if pu.device.type == "cpu":
+        return fused_mlp_epoch_ref(*args, row_loss=spec["row_loss"], lr=lr,
+                                   b1=b1, b2=b2, eps=eps)
+    if pu.device.type != "cuda":
+        raise ValueError(f"fused_mlp_epoch: no kernel for device {pu.device}")
+    return _launch_mlp(*args, dg=dg, reg_g=float(spec["reg_gmf"]),
+                       reg_m=float(spec["reg_mlp"]), lr=lr, b1=b1, b2=b2,
+                       eps=eps)
+
+
+def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
+                i_idx, y, w, t0, *, dg, reg_g, reg_m, lr, b1, b2, eps):
+    params = (pu, qi, *dense)
+    _contiguous("fused_mlp_epoch", (*params, mpu, mqi, *mdense, vpu, vqi,
+                                    *vdense, u_idx, i_idx, y, w))
+    n_layers = (len(dense) - 1) // 2
+    lay = mlp_epoch_plan(dg, [tuple(x.shape) for x in dense[:n_layers]])
+    steps, b = u_idx.shape
+    if max(pu.numel(), qi.numel(), steps, b, t0 + steps) >= 2 ** 31:
+        raise ValueError("fused_mlp_epoch: a size or step count past the "
+                         "kernel's int32 arguments")
+    grads = [torch.zeros_like(x) for x in params]
+    a = _MlpArgs(L=n_layers, dg=dg, hm=pu.shape[1] - dg, tw=pu.shape[1],
+                 U=pu.shape[0], I=qi.shape[0], B=b, rows=lay["rows"],
+                 reg_g=reg_g, reg_m=reg_m)
+    for key in ("n_in", "n_out", "ld_w", "off_w", "off_b", "off_x", "ld_x"):
+        getattr(a, key)[:len(lay[key])] = lay[key]
+    for key in ("off_h", "off_ug", "off_ig", "off_d0", "off_d1", "ld_d",
+                "off_row", "smem_bytes"):
+        setattr(a, key, lay[key])
+    a.p[:len(params)] = [x.data_ptr() for x in params]
+    a.g[:len(grads)] = [x.data_ptr() for x in grads]
+    ptrs = lambda ts: (ctypes.c_void_p * _MAX_T)(  # noqa: E731
+        *(x.data_ptr() for x in ts))
+    m_arr, v_arr = ptrs((mpu, mqi, *mdense)), ptrs((vpu, vqi, *vdense))
+    from cleverrec_tpu_torch.ops.build import load
+    fn = load("mlp_epoch").mlp_epoch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                   + [ctypes.c_float] + [ctypes.c_double] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    loss = torch.zeros(steps, dtype=torch.float32, device=pu.device)
+    with torch.cuda.device(pu.device):
+        err = fn(ctypes.addressof(a), ctypes.addressof(m_arr),
+                 ctypes.addressof(v_arr), u_idx.data_ptr(), i_idx.data_ptr(),
+                 y.data_ptr(), w.data_ptr(), loss.data_ptr(), steps, t0, lr,
+                 b1, b2, eps, _stream(pu.device))
+    _launch_ok("mlp_epoch", err)
     return loss.sum()

@@ -1,6 +1,6 @@
-"""Per-entity membership tables and the pairwise negative sampler: the
-parts of ``cleverrec_tpu/sampling.py`` that ranking and BPR training
-need.
+"""Per-entity membership tables and the pairwise and pointwise negative
+samplers: the parts of ``cleverrec_tpu/sampling.py`` that ranking, BPR
+training and NCF training need.
 
 Bitmaps are int32 with the bit pattern of the JAX package's uint32
 ``MemberTable.bits``: id ``i`` is bit ``i & 31`` of word ``i >> 5``.
@@ -10,7 +10,9 @@ read the words as ``uint32_t``.
 One pairwise epoch is the reference's layout (utils/sampler.py:46-74):
 every train pair repeated ``neg_ratio`` times, each with a uniform
 negative drawn from the user's unseen items, globally shuffled and
-padded with weight-0 rows to whole batches.  Ranks are drawn with an
+padded with weight-0 rows to whole batches.  A pointwise epoch
+(utils/sampler.py:10-43) holds each train pair once as a positive and
+``neg_ratio`` times with a uniform negative.  Ranks are drawn with an
 explicit ``torch.Generator`` on the tables' device and resolved to ids
 by ``unseen_by_rank``, which returns exactly the JAX complement table's
 entry ``complement[e, r]``, so no complement table is built.
@@ -139,6 +141,29 @@ def pairwise_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
     return {"ord_u": u, "ord_i": i, "ord_nun": n_un}
 
 
+def pointwise_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
+                           lens: np.ndarray, item_nums: int, padded: int,
+                           neg_ratio: int) -> dict[str, np.ndarray]:
+    """Host-side per-run constants of ``pointwise_epoch_tensors``: the
+    epoch's rows in GROUP order (pair p occupies rows p*(1+neg_ratio) ..,
+    slot 0 the positive with y = 1, the rest negatives with y = 0; the
+    reference's utils/sampler.py:10-43 layout), padded to the step grid,
+    with each row's unseen count.  As in ``pairwise_epoch_static``, the
+    weight column is left out: ``epoch_permutation`` gives it."""
+    grp = 1 + neg_ratio
+    rows_total = len(pos_u) * grp
+    u = np.zeros(padded, np.int32)
+    i = np.zeros(padded, np.int32)
+    u[:rows_total] = np.repeat(pos_u, grp)
+    i[:rows_total] = np.repeat(pos_i, grp)
+    y = np.zeros(padded, np.float32)
+    y[np.arange(0, rows_total, grp)] = 1.0
+    n_un = np.ones(padded, np.int32)
+    n_un[:rows_total] = np.maximum(
+        item_nums - np.asarray(lens)[u[:rows_total]], 1)
+    return {"ord_u": u, "ord_i": i, "ord_y": y, "ord_nun": n_un}
+
+
 def epoch_negatives(gen: torch.Generator, static: dict, rows: torch.Tensor,
                     lens: torch.Tensor) -> torch.Tensor:
     """One uniform negative per row of the static layout: a rank drawn
@@ -165,4 +190,22 @@ def pairwise_epoch_tensors(gen: torch.Generator, static: dict,
     return {"u": static["ord_u"][perm].reshape(steps, b),
             "i": static["ord_i"][perm].reshape(steps, b),
             "j": j[perm].reshape(steps, b),
+            "w": w.reshape(steps, b)}
+
+
+def pointwise_epoch_tensors(gen: torch.Generator, static: dict,
+                            rows: torch.Tensor, lens: torch.Tensor,
+                            rows_total: int, steps: int,
+                            b: int) -> dict[str, torch.Tensor]:
+    """The whole epoch's (u, i, y, w) as [steps, b] tensors: one negative
+    draw over ``pointwise_epoch_static``'s group-order layout (positive
+    slots keep their item), then one shuffle of the columns together.
+    u, i are int32; y is 1 on positive slots; w is 1 on real rows and 0
+    on padding."""
+    j = epoch_negatives(gen, static, rows, lens)
+    i = torch.where(static["ord_y"] > 0, static["ord_i"], j)
+    perm, w = epoch_permutation(gen, rows_total, steps * b)
+    return {"u": static["ord_u"][perm].reshape(steps, b),
+            "i": i[perm].reshape(steps, b),
+            "y": static["ord_y"][perm].reshape(steps, b),
             "w": w.reshape(steps, b)}

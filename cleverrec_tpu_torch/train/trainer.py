@@ -1,15 +1,21 @@
 """The training loop: the main-path parts of
 ``cleverrec_tpu/train/trainer.py``.
 
-An epoch is the pairwise sampler's whole (u, i, j, w) [steps, B], drawn
-in one pass from an explicit generator on the trainer's device, then
-trained through one of two tiers:
+An epoch is the model's sampler's whole epoch as [steps, B] tensors,
+drawn in one pass from an explicit generator on the trainer's device:
+(u, i, j, w) for the pairwise protocol (BPR), (u, i, y, w) for the
+pointwise one (GMF, MLP, NeuMF).  It is trained through one of two
+tiers:
 
-- the fused tier (``fused_protocol == "pairwise_bpr"``, Adam, the bpr
-  loss, ``train.fused_kernel`` on; it defaults on for a CUDA device and
-  off on the CPU): invalid slots go to the sentinel ids and one call of
-  ``ops.train.fused_bpr_epoch`` trains the epoch, the CUDA kernel on the
-  card and its plain version on the CPU;
+- the fused tier (Adam and ``train.fused_kernel`` on; it defaults on for
+  a CUDA device and off on the CPU), one call of an ``ops.train`` epoch
+  function, the CUDA kernel on the card and its plain version on the
+  CPU, chosen by the model's ``fused_protocol``:
+  ``pairwise_bpr`` (the bpr loss only) runs ``fused_bpr_epoch`` and
+  ``pointwise_bce`` runs ``fused_gmf_epoch``, both with invalid slots at
+  the sentinel ids and ``n_sent * LOG2`` taken off the loss;
+  ``pointwise_mlp`` runs ``fused_mlp_epoch`` over the model's
+  ``fused_mlp_spec``, masked by w in the kernel, with no correction;
 - the scan tier: per step, autograd of ``model.loss``, the optax-semantics
   update of ``common.make_optimizer``, then ``model.postprocess``.
 
@@ -32,7 +38,9 @@ from cleverrec_tpu_torch.data.arrays import DeviceData, build_device_data
 from cleverrec_tpu_torch.data.dataset import RankingData
 from cleverrec_tpu_torch.evalx import Evaluator
 from cleverrec_tpu_torch.models.base import RecModel
-from cleverrec_tpu_torch.ops.train import LOG2, fused_bpr_epoch, sentinel_dims
+from cleverrec_tpu_torch.ops.train import (LOG2, fused_bpr_epoch,
+                                           fused_gmf_epoch, fused_mlp_epoch,
+                                           mlp_epoch_plan, sentinel_dims)
 
 # Options of the JAX trainer that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
@@ -65,6 +73,25 @@ def _refuse_unported(cfg: Config) -> None:
             f"{cfg.str('neg_sampling')} waits (ROADMAP.md queue 1, item 7)")
 
 
+def _joined(tensors, names):
+    """The named [N, w_k] tensors side by side, [N, sum w_k]; a single
+    one is the tensor itself."""
+    if len(names) == 1:
+        return tensors[names[0]].detach()
+    return torch.cat([tensors[n].detach() for n in names], dim=1)
+
+
+def _split_back(tensors, names, joined):
+    """Copy each slice of ``joined`` back into the tensor it came from."""
+    if len(names) == 1:
+        return
+    off = 0
+    for n in names:
+        width = tensors[n].shape[1]
+        tensors[n].detach().copy_(joined[:, off:off + width])
+        off += width
+
+
 class Trainer:
     """Trains ``model`` on ``data`` on ``device`` (default ``cuda``; the
     model is moved there) and evaluates it with the ``Evaluator``."""
@@ -75,10 +102,11 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
         _refuse_unported(cfg)
-        if model.sampler != "pairwise":
+        if model.sampler not in ("pairwise", "pointwise"):
             raise NotImplementedError(
                 f"sampler {model.sampler!r} is not ported yet: the port "
-                "trains the pairwise protocol (ROADMAP.md queue 1)")
+                "trains the pairwise and pointwise protocols (ROADMAP.md "
+                "queue 1)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -87,7 +115,10 @@ class Trainer:
         self.n_pairs = self.dd.num_pairs
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
-        self._epoch_rows = self.n_pairs * self.neg_ratio
+        self._pointwise = model.sampler == "pointwise"
+        # A pointwise pair is one positive row and neg_ratio negatives.
+        self._epoch_rows = self.n_pairs * (self.neg_ratio + 1 if self._pointwise
+                                           else self.neg_ratio)
         self.steps_per_epoch = cdiv(self._epoch_rows, self.batch_size)
         padded = self.steps_per_epoch * self.batch_size
         self._n_sent = padded - self._epoch_rows
@@ -95,7 +126,9 @@ class Trainer:
         def put(a):
             return torch.as_tensor(a, device=self.device)
 
-        self._static = {k: put(v) for k, v in sampling.pairwise_epoch_static(
+        static_fn = (sampling.pointwise_epoch_static if self._pointwise
+                     else sampling.pairwise_epoch_static)
+        self._static = {k: put(v) for k, v in static_fn(
             self.dd.pos_u, self.dd.pos_i, self.dd.seen.lens,
             self.dd.item_nums, padded, self.neg_ratio).items()}
         self._seen_rows = put(self.dd.seen.rows)
@@ -107,26 +140,47 @@ class Trainer:
         self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
 
     def _fused_epoch_eligible(self) -> bool:
-        """The fused epoch kernel hard-codes BPR's {P, Q} dot-product
-        form, the -log sigmoid objective and Adam; ``train.fused_kernel``
-        turns it on or off (default: on for a CUDA device)."""
-        return (getattr(self.model, "fused_protocol", None) == "pairwise_bpr"
-                and self.cfg.optimizer == "Adam"
-                and self.cfg.loss_func == "bpr"
-                and self.cfg.bool("train.fused_kernel",
-                                  self.device.type == "cuda"))
+        """The fused epoch kernels hard-code their model's form and Adam;
+        the BPR kernel also the -log sigmoid objective (GMF's sigmoid
+        cross-entropy is its only objective, as in the JAX trainer).
+        ``train.fused_kernel`` turns the tier on or off (default: on for
+        a CUDA device).  A tower the kernel does not take (more than 4
+        layers, or shared memory short) is declined here, with a log
+        line, and trains through the scan tier."""
+        proto = getattr(self.model, "fused_protocol", None)
+        if (proto is None or self.cfg.optimizer != "Adam"
+                or (proto == "pairwise_bpr" and self.cfg.loss_func != "bpr")
+                or not self.cfg.bool("train.fused_kernel",
+                                     self.device.type == "cuda")):
+            return False
+        if proto == "pointwise_mlp":
+            spec = self.model.fused_mlp_spec()
+            n_layers = (len(spec["dense"]) - 1) // 2
+            shapes = [tuple(getattr(self.model, n).shape)
+                      for n in spec["dense"][:n_layers]]
+            try:
+                mlp_epoch_plan(spec["gmf_width"], shapes)
+            except ValueError as e:
+                if self.logger:
+                    self.logger.info("fused epoch kernel skipped (%s); "
+                                     "using the scan tier", e)
+                return False
+        return True
 
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict[str, torch.Tensor]:
-        """The next epoch's (u, i, j, w), each [steps, B] on the device."""
+        """The next epoch's (u, i, j, w) or (u, i, y, w), each [steps, B]
+        on the device."""
         if self._gen is None:
             raise RuntimeError("call init_state first")
-        return sampling.pairwise_epoch_tensors(
+        tensors_fn = (sampling.pointwise_epoch_tensors if self._pointwise
+                      else sampling.pairwise_epoch_tensors)
+        return tensors_fn(
             self._gen, self._static, self._seen_rows, self._seen_lens,
             self._epoch_rows, self.steps_per_epoch, self.batch_size)
 
     def _run_epoch(self, params, opt_state, tensors):
-        """Train one epoch on given sampled tensors (u, i, j, w [steps, B]);
+        """Train one epoch on given sampled tensors ([steps, B] each);
         returns (params, opt_state, mean per-step loss as a 0-dim tensor).
         ``params`` must be the model's own parameters."""
         if self.fused:
@@ -141,7 +195,12 @@ class Trainer:
         for s in range(steps):
             batch = {k: v[s] for k, v in tensors.items()}
             loss = self.model.loss(batch, self.aux)
-            grads = torch.autograd.grad(loss, leaves)
+            # A parameter outside the loss (NeuMF's h_gmf and h_mlp, kept
+            # for the warm start) gets a zero gradient, as under JAX:
+            # Adam then leaves it and its moments as they were.
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, torch.autograd.grad(
+                         loss, leaves, allow_unused=True))]
             opt_state = self.optimizer.update(params, dict(zip(names, grads)),
                                               opt_state)
             self.model.postprocess()
@@ -157,17 +216,53 @@ class Trainer:
             return torch.where(inval, sentinel, tensors[name]).to(
                 torch.int32).contiguous()
 
+        def col(name):
+            return tensors[name].to(torch.float32).contiguous()
+
         steps = tensors["u"].shape[0]
-        state = (params["P"].detach(), params["Q"].detach(),
-                 opt_state.mu["P"], opt_state.nu["P"],
-                 opt_state.mu["Q"], opt_state.nu["Q"])
-        raw = fused_bpr_epoch(*state, ids("u", u_sent), ids("i", i_sent),
-                              ids("j", i_sent), opt_state.count,
-                              lr=self.cfg.lr, reg=self.model.reg)
+        proto, t0, lr = self.model.fused_protocol, opt_state.count, self.cfg.lr
+
+        def with_moments(name):
+            return (params[name].detach(), opt_state.mu[name],
+                    opt_state.nu[name])
+
+        if proto == "pairwise_bpr":
+            (p, mp, vp), (q, mq, vq) = map(with_moments, ("P", "Q"))
+            raw = fused_bpr_epoch(p, q, mp, vp, mq, vq, ids("u", u_sent),
+                                  ids("i", i_sent), ids("j", i_sent), t0,
+                                  lr=lr, reg=self.model.reg)
+            loss = raw - self._n_sent * LOG2
+        elif proto == "pointwise_bce":
+            (p, mp, vp), (q, mq, vq), (h, mh, vh) = map(
+                with_moments, ("P", "Q", "h_gmf"))
+            raw = fused_gmf_epoch(p, q, h, mp, vp, mq, vq, mh, vh,
+                                  ids("u", u_sent), ids("i", i_sent),
+                                  col("y"), t0, lr=lr, reg=self.model.reg)
+            loss = raw - self._n_sent * LOG2
+        else:
+            loss = self._fused_mlp(params, opt_state, ids("u", u_sent),
+                                   ids("i", i_sent), col("y"), col("w"))
         # Adam's count advances by the padded step count, as in the JAX
         # trainer: padded steps are Adam steps too.
         opt_state.count += steps
-        return params, opt_state, (raw - self._n_sent * LOG2) / steps
+        return params, opt_state, loss / steps
+
+    def _fused_mlp(self, params, opt_state, u, i, y, w):
+        """The tower epoch over the model's spec: each side's tables joined
+        on the feature axis (NeuMF: [P_gmf | P_mlp]) for the epoch, then
+        split back; the dense params are updated where they are.  Params
+        outside the spec pass through unchanged."""
+        spec = self.model.fused_mlp_spec()
+        state = []
+        for t in (params, opt_state.mu, opt_state.nu):
+            state += [_joined(t, spec["u"]), _joined(t, spec["i"]),
+                      [t[n].detach() for n in spec["dense"]]]
+        raw = fused_mlp_epoch(*state, u, i, y, w, opt_state.count, spec=spec,
+                              lr=self.cfg.lr)
+        for k, t in enumerate((params, opt_state.mu, opt_state.nu)):
+            _split_back(t, spec["u"], state[3 * k])
+            _split_back(t, spec["i"], state[3 * k + 1])
+        return raw
 
     # -- public API -----------------------------------------------------
     def init_state(self, seed: int | None = None):

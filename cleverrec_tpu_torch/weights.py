@@ -1,10 +1,12 @@
 """Parameters and Adam state carried across from the JAX package.
 
 The JAX models keep a flat ``{name: array}`` pytree whose names match the
-port's ``nn.Parameter`` names (BPR: ``P``, ``Q``), and optax's Adam keeps
-``opt_state[0]`` = (count, mu, nu) over the same names.  Convert the
-arrays to numpy on the JAX side (``np.asarray``); nothing here imports
-JAX.
+port's ``nn.Parameter`` names (BPR: ``P``, ``Q``; GMF: ``P``, ``Q``,
+``h_gmf``; MLP and NeuMF: their tables, ``W_l``, ``b_l`` and ``h_*``),
+and optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
+names.  Shapes are the JAX shapes too, so nothing is transposed.
+Convert the arrays to numpy on the JAX side (``np.asarray``); nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -22,26 +24,38 @@ def params_from_jax(params: dict[str, np.ndarray],
             for name, value in params.items()}
 
 
+def _check_like(own: dict, arrays: dict, what: str) -> None:
+    """Every name of ``own`` in ``arrays`` and no other, each with its
+    shape; raises otherwise."""
+    if set(own) != set(arrays):
+        raise KeyError(f"{what} names differ: model {sorted(own)}, "
+                       f"given {sorted(arrays)}")
+    for name, value in arrays.items():
+        if tuple(np.shape(value)) != tuple(own[name].shape):
+            raise ValueError(f"{what} {name}: shape {tuple(np.shape(value))}"
+                             f" != {tuple(own[name].shape)}")
+
+
 @torch.no_grad()
 def load_params(model: torch.nn.Module, params: dict[str, np.ndarray]) -> None:
     """Copy JAX parameters into ``model``'s parameters of the same names;
     every name must match, and every shape."""
     own = dict(model.named_parameters())
-    if set(own) != set(params):
-        raise KeyError(f"parameter names differ: model {sorted(own)}, "
-                       f"given {sorted(params)}")
+    _check_like(own, params, "parameter")
     for name, value in params_from_jax(params, "cpu").items():
-        if tuple(value.shape) != tuple(own[name].shape):
-            raise ValueError(f"{name}: shape {tuple(value.shape)} != "
-                             f"{tuple(own[name].shape)}")
         own[name].copy_(value)
 
 
 def adam_state_from_jax(count, mu: dict[str, np.ndarray],
-                        nu: dict[str, np.ndarray], device) -> AdamState:
+                        nu: dict[str, np.ndarray], device,
+                        model: torch.nn.Module | None = None) -> AdamState:
     """optax's ``ScaleByAdamState`` (``opt_state[0].count``, ``.mu``,
-    ``.nu``, as numpy) -> the port's ``AdamState`` on ``device``."""
-    if set(mu) != set(nu):
-        raise KeyError(f"mu {sorted(mu)} and nu {sorted(nu)} differ")
+    ``.nu``, as numpy) -> the port's ``AdamState`` on ``device``.  Given
+    ``model``, both moments must hold exactly its parameters' names and
+    shapes; without it, mu and nu must agree with each other."""
+    own = (dict(model.named_parameters()) if model is not None
+           else {k: torch.empty(np.shape(v)) for k, v in mu.items()})
+    _check_like(own, mu, "mu")
+    _check_like(own, nu, "nu")
     return AdamState(int(np.asarray(count)), params_from_jax(mu, device),
                      params_from_jax(nu, device))
