@@ -39,6 +39,17 @@ width of ``conf/BPR.properties`` (embed_size 128):
   the best HR@10 is at least the JAX package's on the same data less
   ``JAX_BAND``.  Then each model 3 epochs through the fused and the scan
   tier on identical draws, held to each other as phase D holds BPR's.
+- Phase F, the social-triple family (kernel ``rows_epoch``): a trust
+  graph over the rebuilt ml-100k's users, generated from a seed
+  (``write_trusts``), then the same CLI with ``--model SBPR`` and
+  ``TBPR`` on it and ``CUNE_BPR`` (latent friends, no trust file) on
+  ml-100k alone, at the widths of their confs, 50 epochs each (the
+  confs' count) through the fused tier: the kernel launches once per
+  epoch, the loss falls, and the best HR@10 is at least the JAX
+  package's on the same files less ``JAX_BAND``.  Then each model 3
+  epochs through the fused tier, the scan tier and the fused tier with
+  ``train.fused_stream=True`` (the same kernel), held to each other as
+  phase D holds BPR's.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -84,7 +95,10 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "cleverrec_tpu_torch/csrc/mlp_epoch.cu",
           "cleverrec_tpu_torch/csrc/epoch.cuh", "CleverRec.properties",
           "conf/BPR.properties", "conf/GMF.properties", "conf/MLP.properties",
-          "conf/NeuMF.properties", "benchmarks/UIRT/ml100k.train.libfm",
+          "conf/NeuMF.properties", "conf/SBPR.properties",
+          "conf/TBPR.properties", "conf/CUNE_BPR.properties",
+          "cleverrec_tpu_torch/csrc/rows_epoch.cu",
+          "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
 # NVIDIA H100 SXM data sheet: FP32 on the CUDA cores, HBM3 bandwidth.
@@ -119,6 +133,20 @@ TIER_EPOCHS = 3
 # in the plain version, and Adam normalises that rounding into each next
 # step; the loss depends on them.
 DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
+# mlp_epoch is held over the first MLP_HELD_STEPS steps of the main
+# path's next epoch, not all 81: a ReLU whose input lies within rounding
+# of 0 in one version and not in the other sends one row's gradient
+# through that unit in one version only, and over a whole epoch the two
+# trajectories of a tower then part past the tolerances above in a few
+# percent of the states one epoch in (tools/mlp_states.py on the card).
+MLP_HELD_STEPS = 4
+SOCIAL = ("SBPR", "TBPR", "CUNE_BPR")
+SOCIAL_EPOCHS = 50    # the epoches of conf/{SBPR,TBPR,CUNE_BPR}.properties
+TRUST_SEED = 2026
+# Phase F: the JAX package's best HR@10 on the same rebuilt ml-100k and the
+# trust graph of write_trusts(TRUST_SEED), each conf's recipe, 50 epochs
+# (the JAX CLI on the CPU; the command is in PERF.md).
+JAX_SOCIAL_HR10 = {"SBPR": 0.7391, "TBPR": 0.6819, "CUNE_BPR": 0.7635}
 
 
 class SmokeError(Exception):
@@ -187,6 +215,41 @@ def write_ml100k() -> None:
     np.savetxt(os.path.join(DATA, "ml-100k", "ratings.csv"), table,
                fmt="%d", delimiter=",", header="u_id,i_id,rating,time",
                comments="")
+
+
+def write_trusts(seed: int = TRUST_SEED) -> int:
+    """A trust graph over the raw user ids of the rebuilt ml-100k (call
+    ``write_ml100k`` first), written beside its ratings as
+    ``trusts.csv`` (``u_id,v_id``, comma-separated like the ratings);
+    returns the edge count.  Each user gets 1 + min(Geometric(0.15), 39)
+    out-edges: each, with probability 0.8, to one of its 50 highest
+    co-consumption users, else to any user; no self edges, no
+    duplicates.  Friends so drawn share tastes (homophily) and, drawn
+    from overlapping top-50 lists, friends (shared neighbourhoods)."""
+    path = os.path.join(DATA, "ml-100k")
+    table = np.loadtxt(os.path.join(path, "ratings.csv"), delimiter=",",
+                       skiprows=1, dtype=np.int64)
+    users, u_idx = np.unique(table[:, 0], return_inverse=True)
+    _, i_idx = np.unique(table[:, 1], return_inverse=True)
+    seen = np.zeros((len(users), i_idx.max() + 1), np.float32)
+    seen[u_idx, i_idx] = 1.0
+    co = seen @ seen.T
+    np.fill_diagonal(co, -1.0)
+    top = np.argsort(-co, axis=1, kind="stable")[:, :50]
+    rng = np.random.default_rng(seed)
+    lines = ["u_id,v_id"]
+    for u in range(len(users)):
+        want = 1 + min(int(rng.geometric(0.15)), 39)
+        chosen: list[int] = []
+        while len(chosen) < want:
+            v = int(top[u, rng.integers(50)] if rng.random() < 0.8
+                    else rng.integers(len(users)))
+            if v != u and v not in chosen:
+                chosen.append(v)
+        lines += [f"{users[u]},{users[v]}" for v in chosen]
+    with open(os.path.join(path, "trusts.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(lines) - 1
 
 
 def write_catalog(n_items: int, n_users: int = 49152,
@@ -548,6 +611,65 @@ def phase_e():
     return {"runs": runs, "tiers": tiers, "launches": launches}
 
 
+def social_stats(edges):
+    """The trust graph's edge count and how many users have SPu, and both
+    tie classes, in the split SBPR and TBPR train on."""
+    from cleverrec_tpu_torch.data.social import (build_spu,
+                                                 build_tie_partitioned_spu)
+    cfg = config("ml-100k", recommender="TBPR")
+    data = load_ranking_data(cfg)
+    spu, _ = build_spu(data.ui_train, data.user_friends)
+    strong, weak = build_tie_partitioned_spu(
+        data.ui_train, data.user_friends, cfg.float("strong_ratio", 0.5))
+    return {"edges": edges, "users": data.user_nums,
+            "users_with_friends": len(data.user_friends),
+            "users_with_spu": len(spu),
+            "users_with_both_tie_classes": len(set(strong) & set(weak))}
+
+
+def phase_f():
+    """The social-triple family at its confs' widths, 50 epochs each
+    through the fused tier; then 3 epochs of each through the fused tier,
+    the scan tier and the streamed option, on identical draws."""
+    stats = social_stats(write_trusts())
+    print("phase F trust graph: " + json.dumps(stats), flush=True)
+    runs, tiers = {}, {}
+    for name in SOCIAL:
+        res = runs[name] = drive_cli(f"F_{name}", model=name,
+                                     epochs=SOCIAL_EPOCHS)
+        check(res["launches"]["rows_epoch"] == SOCIAL_EPOCHS
+              and sum(res["launches"].values()) == SOCIAL_EPOCHS,
+              f"F {name}: launches {res['launches']}")
+        check(res["loss_last"] < res["loss_first"],
+              f"F {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        floor = JAX_SOCIAL_HR10[name] - JAX_BAND
+        check(res["best"]["HR@10"] >= floor,
+              f"F {name}: best HR@10 {res['best']['HR@10']} < {floor}")
+        trio = {"fused": drive_cli(f"F_{name}_fused", model=name,
+                                   epochs=TIER_EPOCHS),
+                "scan": drive_cli(f"F_{name}_scan", model=name,
+                                  epochs=TIER_EPOCHS,
+                                  **{"train.fused_kernel": "False"}),
+                "stream": drive_cli(f"F_{name}_stream", model=name,
+                                    epochs=TIER_EPOCHS,
+                                    **{"train.fused_stream": "True"})}
+        got = {t: r["launches"]["rows_epoch"] for t, r in trio.items()}
+        check(got == {"fused": TIER_EPOCHS, "scan": 0, "stream": TIER_EPOCHS}
+              and sum(trio["scan"]["launches"].values()) == 0,
+              f"F {name}: tier launches {got}")
+        for other in ("scan", "stream"):
+            for key, band in TIER_BAND.items():
+                a, b = trio["fused"]["best"][key], trio[other]["best"][key]
+                check(abs(a - b) <= band,
+                      f"F {name}: {key} fused {a} vs {other} {b}")
+        tiers[name] = trio
+    launches = sum(r["launches"]["rows_epoch"] for r in runs.values())
+    check(launches == len(SOCIAL) * SOCIAL_EPOCHS,
+          f"F: rows_epoch launched {launches} times in the conf runs")
+    return {"trust_graph": stats, "runs": runs, "tiers": tiers,
+            "launches": {"rows_epoch": launches}}
+
+
 def one_epoch_in(name):
     """The main path's trainer for ``name`` on ml-100k, its state after
     one trained epoch, and the next epoch's draw."""
@@ -630,14 +752,10 @@ def gmf_row(launches, profiles):
     return row
 
 
-def mlp_timing(name, profiles):
-    """mlp_epoch against its plain version at ``name``'s main shape on the
-    state one epoch in and the next draw: errors, times, bound."""
-    cfg, data, model, trainer, params, state, tensors = one_epoch_in(name)
-    spec = model.fused_mlp_spec()
-    ids = sentinel_ids(data, tensors, ("u", "i"))
-    cols = [tensors[k].to(torch.float32).contiguous() for k in ("y", "w")]
-
+def mlp_run(cfg, spec, params, state, ids, cols):
+    """mlp_epoch and its plain version from one state on one draw: (the
+    kernel's state, the plain version's, their losses, a function that
+    makes fresh copies of the starting state)."""
     def groups():
         out = []
         for t in (params, state.mu, state.nu):
@@ -652,6 +770,12 @@ def mlp_timing(name, profiles):
     ref = train_ops.fused_mlp_epoch_ref(*want, *ids, *cols, state.count,
                                         row_loss=spec["row_loss"], lr=cfg.lr)
     torch.cuda.synchronize()
+    return got, want, loss, ref, groups
+
+
+def mlp_hold(spec, got, want, loss, ref):
+    """``mlp_run``'s two results held to each other: (max errors, loss
+    relative error)."""
     errors = {}
     for k, part in enumerate(("", "m_", "v_")):
         errors.update(hold("mlp_epoch", ((part + n, got[3 * k + j],
@@ -663,14 +787,28 @@ def mlp_timing(name, profiles):
                            DENSE_ATOL, DENSE_RTOL))
     loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
     check(loss_rel <= MLP_LOSS_RTOL, f"mlp_epoch loss: rel error {loss_rel}")
+    return errors, loss_rel
+
+
+def mlp_timing(name, profiles):
+    """mlp_epoch against its plain version at ``name``'s main shape on the
+    state one epoch in and the next draw: errors, times, bound."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in(name)
+    spec = model.fused_mlp_spec()
+    ids = sentinel_ids(data, tensors, ("u", "i"))
+    cols = [tensors[k].to(torch.float32).contiguous() for k in ("y", "w")]
+    got, want, loss, ref, groups = mlp_run(
+        cfg, spec, params, state, [x[:MLP_HELD_STEPS] for x in ids],
+        [x[:MLP_HELD_STEPS] for x in cols])
+    errors, loss_rel = mlp_hold(spec, got, want, loss, ref)
     k_state, r_state = groups(), groups()
     steps, b = ids[0].shape
     n_layers = (len(spec["dense"]) - 1) // 2
     shapes = [tuple(getattr(model, n).shape) for n in spec["dense"][:n_layers]]
     macs = sum(i * o for i, o in shapes)
     n_real = int((tensors["w"] != 0).sum())
-    n_state = sum(x.numel() for x in got[0:2]) + sum(
-        x.numel() for x in got[2])
+    n_state = sum(x.numel() for x in k_state[0:2]) + sum(
+        x.numel() for x in k_state[2])
     # Each input read once and each output written once: the params and
     # both moments in and out, the u, i, y and w planes, the loss.
     moved = 4 * (6 * n_state + 4 * steps * b + steps)
@@ -681,8 +819,8 @@ def mlp_timing(name, profiles):
     # so the bound is lower than the work.
     flops = 6 * macs * n_real + 14 * n_state * steps
     out = {"shape": name, "U": data.user_nums, "I": data.item_nums,
-           "tw": got[0].shape[1], "layers": shapes, "B": b, "steps": steps,
-           "real_rows": n_real,
+           "tw": k_state[0].shape[1], "layers": shapes, "B": b,
+           "steps": steps, "real_rows": n_real,
            "tile_rows": train_ops.mlp_epoch_plan(spec["gmf_width"],
                                                  shapes)["rows"],
            "bytes": moved, "flops": flops, "errors": errors,
@@ -705,6 +843,82 @@ def mlp_row(launches, profiles):
     return {"name": "mlp_epoch", "route": "cuda",
             "source": "cleverrec_tpu_torch/csrc/mlp_epoch.cu",
             "replaces": "cleverrec_tpu/ops/pallas_train.py:631",
+            "launches": launches,
+            "max_abs_err": max(max(t["errors"].values()) for t in timings),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "timings": timings}
+
+
+def rows_timing(name, profiles):
+    """rows_epoch against its plain version at ``name``'s main shape on
+    the state one epoch in and the next draw: errors, times, bound."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in(name)
+    spec = model.fused_rows_spec()
+    names = [n for n, _ in spec["planes"]]
+    planes = sentinel_ids(data, tensors, names)
+    floats = [tensors[n].to(torch.float32).contiguous()
+              for n in spec["floats"]]
+    opts = {"sides": [sd for _, sd in spec["planes"]], "lr": cfg.lr}
+
+    def packed():
+        return [tuple(x.clone() for x in group)
+                for t in (params, state.mu, state.nu)
+                for group in spec["pack"](t)]
+
+    got, want = packed(), packed()
+    loss = train_ops.fused_rows_epoch(*got, planes, floats, state.count,
+                                      spec=spec, **opts)
+    ref = train_ops.fused_rows_epoch_ref(*want, planes, floats, state.count,
+                                         row_loss=spec["row_loss"], **opts)
+    torch.cuda.synchronize()
+    labels = [f"{part}{n}" for part in ("", "m_", "v_")
+              for n in ("P", "Q", "bias") + spec["dense"]]
+    errors = hold(f"rows_epoch {name}",
+                  zip(labels, (x for g in got for x in g),
+                      (x for g in want for x in g)), EPOCH_ATOL, EPOCH_RTOL)
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL,
+          f"rows_epoch {name} loss: rel error {loss_rel}")
+    k_state, r_state = packed(), packed()
+    steps, b = planes[0].shape
+    u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
+    items = len(planes) - 1
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = (u_n + i_n) * d + i_n + len(spec["dense"])
+    # Each input read once and each output written once: the params and
+    # both moments in and out, the id planes and float columns, the loss.
+    moved = 4 * (6 * n_state + (len(planes) + len(floats)) * steps * b
+                 + steps)
+    # FP32 operations per real row and element of d: |P[u]|^2 (2), each
+    # item's dot and |Q|^2 (4 L), P's grad (1 + 2 L), each item's grad
+    # (3 L) and the scatter-adds (L + 1); and 14 per element of P, Q,
+    # bias and s per step for Adam.  The O(L) terms of a row (biases,
+    # links, loss) are left out, so the bound is below the work.
+    flops = (10 * items + 4) * d * n_real + 14 * n_state * steps
+    out = {"shape": name, "U": u_n, "I": i_n, "d": d, "items": items,
+           "B": b, "steps": steps, "real_rows": n_real, "bytes": moved,
+           "flops": flops, "errors": errors, "loss_rel_err": loss_rel,
+           "ms": time_ms(lambda: train_ops.fused_rows_epoch(
+               *k_state, planes, floats, state.count, spec=spec, **opts)),
+           "plain_ms": time_ms(lambda: train_ops.fused_rows_epoch_ref(
+               *r_state, planes, floats, state.count,
+               row_loss=spec["row_loss"], **opts), iters=3),
+           **bound(moved, flops), "library_ms": None}
+    profiles[f"F_{name}_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    return out
+
+
+def rows_row(launches, profiles):
+    """The rows_epoch row: SBPR's shape first (the main one), TBPR's and
+    CUNE_BPR's."""
+    timings = [rows_timing(name, profiles) for name in SOCIAL]
+    main = timings[0]
+    return {"name": "rows_epoch", "route": "cuda",
+            "source": "cleverrec_tpu_torch/csrc/rows_epoch.cu",
+            "replaces": "cleverrec_tpu/ops/pallas_train.py:847",
+            "also_replaces": "cleverrec_tpu/ops/pallas_train.py:1153",
             "launches": launches,
             "max_abs_err": max(max(t["errors"].values()) for t in timings),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -827,9 +1041,19 @@ def main() -> int:
                 "tiers": {t: train["E"]["tiers"][name][t]["best"]
                           for t in ("fused", "scan")}}
          for name, run in train["E"]["runs"].items()}), flush=True)
+    train["F"] = phase_f()
+    print("phase F: " + json.dumps(
+        {name: {"best": run["best"], "loss_first": run["loss_first"],
+                "loss_last": run["loss_last"],
+                "epoch_ms_median": run["epoch_ms_median"],
+                "jax_hr10": JAX_SOCIAL_HR10[name],
+                "tiers": {t: train["F"]["tiers"][name][t]["best"]
+                          for t in ("fused", "scan", "stream")}}
+         for name, run in train["F"]["runs"].items()}), flush=True)
     rows.append(epoch_row(train["C"]["launches"]["bpr_epoch"], profiles))
     rows.append(gmf_row(train["E"]["launches"]["gmf_epoch"], profiles))
     rows.append(mlp_row(train["E"]["launches"]["mlp_epoch"], profiles))
+    rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
     for row in rows:
         print(f"kernel {row['name']}: launches {row['launches']}, "
               f"max_abs_err {row['max_abs_err']}, ms {row['ms']}, "

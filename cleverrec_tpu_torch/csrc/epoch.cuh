@@ -1,5 +1,6 @@
-// What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu)
-// share: a warp's shuffle sum, and dense Adam over a list of f32 tensors.
+// What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu,
+// rows_epoch.cu) share: a warp's shuffle sum, and dense Adam over a list
+// of f32 tensors.
 //
 // The TPU epoch kernels apply optax's Adam (b1, b2, eps) to every element
 // of every resident parameter after each step (_adam_apply of

@@ -4,7 +4,8 @@
 - the flattened positive pairs (every (u, i) in train),
 - a per-user SORTED seen-items table padded with the sentinel
   ``item_nums``, plus its packed bitmap,
-- the test-side candidate matrix with ground truth at the tail.
+- the test-side candidate matrix with ground truth at the tail,
+- the social data's padded friend matrix, when the dataset has one.
 
 The arrays stay on the host; the evaluator and the serving functions
 move what they read to their device once.
@@ -37,6 +38,7 @@ class DeviceData:
     cand: np.ndarray | None      # [T, C] int32, pad == 0 (masked) — candidate eval
     cand_mask: np.ndarray | None  # [T, C] bool
     real_padded: np.ndarray      # [T, Tmax] int32, PAD_ITEM-padded (host metrics)
+    friends_padded: np.ndarray | None = None  # [U, F] int32, sentinel user_nums
 
     @property
     def num_pairs(self) -> int:
@@ -73,5 +75,5 @@ def build_device_data(data: RankingData) -> DeviceData:
         user_nums=data.user_nums, item_nums=data.item_nums,
         pos_u=pos_u, pos_i=pos_i, seen=seen,
         test_users=test_users, cand=cand, cand_mask=cand_mask,
-        real_padded=real_padded,
+        real_padded=real_padded, friends_padded=data.friends_padded,
     )

@@ -19,7 +19,15 @@ of a DataFrame:
 
 Every random draw is the same ``numpy.random.Generator`` call, in the
 same order, as in the JAX package's loader, so one seed gives identical
-splits and candidate lists.  Social data comes with the social slice.
+splits and candidate lists.
+
+With ``social_file`` (a ``u_id,v_id`` trust list in the dataset's
+directory, header line first, the ratings' separator) the edges whose
+endpoints both survive the filters are reindexed with the user map:
+``user_friends`` is ``{u: [v, ...]}`` with users ascending and each
+user's friends in file order, and ``friends_padded`` the same lists as
+a [U, F] matrix padded with the sentinel ``user_nums``, F capped by
+``social.max_friends`` (the first F friends are kept).
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ class RankingData:
     ratings_num: int
     candidate_eval: bool
     neg_samples: int
+    user_friends: dict[int, list[int]] | None = None
+    friends_padded: np.ndarray | None = None  # [U, F] int32, pad user_nums
 
     def stats_line(self) -> str:
         return (f"user_nums={self.user_nums}, item_nums={self.item_nums}, "
@@ -146,19 +156,41 @@ def _sample_candidates(ui_train: dict, ui_test: dict, item_nums: int,
     return out
 
 
+def _read_social(cfg: Config, user_ids: np.ndarray):
+    """(user_friends, friends_padded) of ``social_file`` over the sorted
+    original user ids ``user_ids`` (RankingPreprocess.py:52-67)."""
+    from cleverrec_tpu_torch.data import fastcsv
+    path = os.path.join(cfg.str("data.root_dir"), cfg.str("data.dataset"),
+                        cfg.str("social_file"))
+    u, v = (c.astype(np.int64) for c in fastcsv.read_columns(
+        path, cfg.str("data.sep", ","), 2))
+    keep = np.isin(u, user_ids) & np.isin(v, user_ids)
+    user_friends = _group_lists(np.searchsorted(user_ids, u[keep]),
+                                np.searchsorted(user_ids, v[keep]))
+    max_f = max((len(fs) for fs in user_friends.values()), default=1)
+    cap = cfg.int("social.max_friends", 0)
+    if cap and max_f > cap:
+        max_f = cap
+    n = len(user_ids)
+    friends_padded = np.full((n, max_f), n, dtype=np.int32)
+    for uu, fs in user_friends.items():
+        friends_padded[uu, : min(len(fs), max_f)] = fs[:max_f]
+    return user_friends, friends_padded
+
+
 def load_ranking_data(cfg: Config, rng: np.random.Generator | None = None,
                       logger=None) -> RankingData:
-    if "social_file" in cfg:
-        raise NotImplementedError(
-            "social data comes with the port's social slice (SBPR, TBPR, "
-            "CUNE_BPR, SAMN)")
     rng = rng if rng is not None else np.random.default_rng(cfg.seed)
     df = _read_interactions(cfg)
     df = _filter_min_counts(df, cfg.int("data.user_min", 0),
                             cfg.int("data.item_min", 0))
+    user_ids = np.unique(df["u_id"])
     df["u_id"], user_nums = _reindex(df["u_id"])
     df["i_id"], item_nums = _reindex(df["i_id"])
     ratings_num = len(df["u_id"])
+    user_friends = friends_padded = None
+    if "social_file" in cfg:
+        user_friends, friends_padded = _read_social(cfg, user_ids)
 
     if cfg.bool("data.split_by_time", False) and "time" in df:
         df = _take(df, np.lexsort((df["time"], df["u_id"])))
@@ -181,6 +213,7 @@ def load_ranking_data(cfg: Config, rng: np.random.Generator | None = None,
         user_nums=user_nums, item_nums=item_nums,
         ui_train=ui_train, ui_test=ui_test, ratings_num=ratings_num,
         candidate_eval=candidate_eval, neg_samples=neg_samples,
+        user_friends=user_friends, friends_padded=friends_padded,
     )
     if logger is not None:
         logger.info(" Data: dataset=%s, split_way=%s, neg_samples=%d, %s",

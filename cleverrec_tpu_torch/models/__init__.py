@@ -1,4 +1,5 @@
-"""Model registry: BPR and the NCF family (GMF, MLP, NeuMF)."""
+"""Model registry: BPR, the NCF family (GMF, MLP, NeuMF) and the
+social-triple family (SBPR, TBPR, CUNE_BPR)."""
 
 from __future__ import annotations
 
@@ -9,12 +10,13 @@ from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.models.base import DataMeta, RecModel
 from cleverrec_tpu_torch.models.bpr import BPR
 from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
+from cleverrec_tpu_torch.models.social import CUNE_BPR, SBPR, TBPR
 
-_REGISTRY: dict[str, type] = {m.name: m for m in (BPR, GMF, MLP, NeuMF)}
+_REGISTRY: dict[str, type] = {m.name: m for m in (BPR, GMF, MLP, NeuMF, SBPR,
+                                                  TBPR, CUNE_BPR)}
 
 # Where each model of the JAX package's zoo arrives in the port.
 _LATER_SLICES = {
-    "SBPR": "social", "TBPR": "social", "CUNE_BPR": "social",
     "SAMN": "social", "SAMN_single": "social",
     "CML": "metric-learning", "LRML": "metric-learning",
     "TransCF": "metric-learning",

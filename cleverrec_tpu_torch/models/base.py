@@ -12,9 +12,14 @@ The JAX package's models are stateless objects over a params pytree
 - ``score_all(u, aux) -> [B, I]``        (full-catalog protocol)
 - ``postprocess()``                      (in place after each optimizer
   step, e.g. CML's unit clipping; nothing by default)
+- ``build_aux(dd, data)``                (once per run, before the epoch
+  layout: host-side structures the model's sampler needs, such as the
+  social models' SPu lists and exclusion tables; none by default)
+- ``epoch_pairs(dd)``                    (the (pos_u, pos_i) pairs an
+  epoch is built over; all train pairs by default)
 
-``aux`` is a dict of tensors built once per run from the dataset; BPR
-reads none.  ``sampler`` names the batch protocol the trainer drives and
+``aux`` is a dict of tensors that the losses and scorers read; none of
+the ported models reads any.  ``sampler`` names the batch protocol the trainer drives and
 ``fused_protocol`` the whole-epoch kernel a model can train through
 (None: none).  Scores are higher-is-better: distance models, which rank
 ascending, come with the metric-learning slice.
@@ -67,6 +72,16 @@ class RecModel(nn.Module):
     # -- optional overrides ----------------------------------------------
     def postprocess(self) -> None:
         """In-place hook run after each optimizer step."""
+
+    def build_aux(self, dd, data) -> dict:
+        """Host-side structures the model's sampler needs, built once per
+        run from the ``DeviceData`` and the ``RankingData``; none here."""
+        return {}
+
+    def epoch_pairs(self, dd):
+        """(pos_u, pos_i) numpy arrays an epoch is built over: every train
+        pair here."""
+        return dd.pos_u, dd.pos_i
 
     def score_candidates(self, u, cand, aux: Aux) -> torch.Tensor:
         """[B, C] scores for per-user candidate lists.  Default flattens to

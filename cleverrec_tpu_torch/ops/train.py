@@ -13,13 +13,22 @@ versions.
   epoch of MLP and NeuMF over feature-concatenated tables and the dense
   tower params, as a model's ``fused_mlp_spec`` describes it, with rows
   masked by their weight w.  Kernel: ``csrc/mlp_epoch.cu``.
+- ``fused_rows_epoch`` replaces ``fused_rows_epoch`` and
+  ``fused_rows_epoch_stream`` (the same epoch with the state in HBM; on
+  the card the state stays in device memory either way, so
+  ``fused_rows_epoch_stream`` is the same function): the multi-plane
+  epoch of the social-triple family, id planes on the user or the item
+  side plus float columns, a model's ``row_loss`` over the gathered
+  rows, dense Adam.  A row whose plane-0 (user) id is outside the user
+  table is masked (w = 0).  Kernel: ``csrc/rows_epoch.cu``, for the
+  social BPR chain of ``rows_epoch_plan``.
 
 In the BPR and GMF epochs invalid slots carry the sentinel ids
 ``U_pad - 1`` / ``I_pad - 1`` of ``sentinel_dims``; an id outside its
 table reads a zero row and receives no gradient, so such a slot adds
 ``LOG2`` to the loss and changes nothing else.  The tower epoch masks
-rows by w instead (a tower with biases scores a zero row), so its loss
-needs no correction.
+rows by w instead (a tower with biases scores a zero row), and so does
+the rows epoch: their losses need no correction.
 
 Unlike the JAX functions, both versions update the state tensors IN
 PLACE and return only the summed per-step loss, sentinel slots' log 2
@@ -44,7 +53,7 @@ from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS,
 
 LOG2 = math.log(2.0)   # -log(sigmoid(0)): the loss of one sentinel slot
 
-launches = {"bpr_epoch": 0, "gmf_epoch": 0, "mlp_epoch": 0}
+launches = {"bpr_epoch": 0, "gmf_epoch": 0, "mlp_epoch": 0, "rows_epoch": 0}
 
 
 def reset_launches() -> None:
@@ -505,4 +514,226 @@ def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
                  y.data_ptr(), w.data_ptr(), loss.data_ptr(), steps, t0, lr,
                  b1, b2, eps, _stream(pu.device))
     _launch_ok("mlp_epoch", err)
+    return loss.sum()
+
+
+# -- social-triple rows ----------------------------------------------------
+
+ROWS_MAX_ITEMS = 4
+
+
+def _side(t) -> tuple:
+    """A table side as a tuple of tensors; one tensor is a side of one."""
+    return tuple(t) if isinstance(t, (tuple, list)) else (t,)
+
+
+def _cols(t):
+    """A 1-D table as an [N, 1] view."""
+    return t if t.dim() == 2 else t.unsqueeze(1)
+
+
+@torch.no_grad()
+def fused_rows_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
+                         planes, floats, t0: int, *, sides, row_loss,
+                         lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
+                         eps: float = ADAM_EPS):
+    """Plain version of ``fused_rows_epoch``: per step, each plane's rows
+    gathered (its side's tables side by side, zero past a table), the
+    model's ``row_loss`` over them differentiated with autograd, the row
+    grads scattered back with ``index_add_``, then dense Adam.  Same
+    arguments as the wrapper, with ``row_loss`` for its ``spec``."""
+    pu, qi, mpu, mqi, vpu, vqi = map(_side, (pu, qi, mpu, mqi, vpu, vqi))
+    tables = {"u": (pu, mpu, vpu), "i": (qi, mqi, vqi)}
+    n_planes, n_users = len(planes), pu[0].shape[0]
+    steps = planes[0].shape[0]
+    losses = torch.zeros(steps, dtype=torch.float32, device=pu[0].device)
+    for s in range(steps):
+        u_ids = planes[0][s].long()
+        w = ((u_ids >= 0) & (u_ids < n_users)).to(torch.float32)[:, None]
+        rows, spare = [], []
+        for p, sd in enumerate(sides):
+            parts = [_rows(_cols(t), planes[p][s].long())
+                     for t in tables[sd][0]]
+            rows.append(torch.cat([r for r, _ in parts], dim=1))
+            spare.append(parts[0][1])
+        with torch.enable_grad():
+            leaves = [r.requires_grad_() for r in rows] + [
+                x.detach().requires_grad_() for x in dense]
+            loss = row_loss(tuple(leaves[:n_planes]),
+                            tuple(f[s][:, None] for f in floats),
+                            tuple(leaves[n_planes:]), w)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        losses[s] = loss
+        quads = []
+        for sd, (params, ms, vs) in tables.items():
+            off = 0
+            for x, m, v in zip(params, ms, vs):
+                width = _cols(x).shape[1]
+                g = _scatter(_cols(x), *(
+                    (spare[p], grads[p][:, off:off + width])
+                    for p in range(n_planes) if sides[p] == sd))
+                quads.append((x, m, v, g.reshape(x.shape)))
+                off += width
+        quads += [(x, m, v, torch.zeros_like(x) if g is None else g)
+                  for x, m, v, g in zip(dense, mdense, vdense,
+                                        grads[n_planes:])]
+        _adam_dense(quads, t0 + s + 1, lr, b1, b2, eps)
+    return losses.sum()
+
+
+def rows_epoch_plan(spec: dict) -> dict:
+    """The rows kernel's view of a model's ``fused_rows_spec``: the
+    social BPR chain over one user plane and L item planes (2 <= L <=
+    ``ROWS_MAX_ITEMS``), x_m = <P[u], Q[m]> + bias[m], links
+    z_t = (x_t - x_{t+1}) / c_t with c_t = max(f, 1) on the float column's
+    link, s + 1 on the dense scalar's link and 1 elsewhere, loss
+    sum_t -log sigmoid(z_t) plus reg (|P[u]|^2 + sum_m |Q[m]|^2 +
+    bias[m]^2) / 2 a valid row.  Returns {"items", "float_link",
+    "dense_link", "reg"} (-1 for no link); raises ValueError for a spec
+    outside that form, whose backward the kernel does not have."""
+    chain = spec.get("chain")
+    if chain is None:
+        raise ValueError("fused_rows_epoch: the spec's row_loss is not the "
+                         "social BPR chain (no 'chain' entry): the kernel "
+                         "has no backward for it")
+    sides = tuple(sd for _, sd in spec["planes"])
+    items = len(sides) - 1
+    if sides != ("u",) + ("i",) * items or not 2 <= items <= ROWS_MAX_ITEMS:
+        raise ValueError(f"fused_rows_epoch: planes on sides {sides}; the "
+                         f"kernel takes one user plane then 2 to "
+                         f"{ROWS_MAX_ITEMS} item planes")
+    links = {}
+    for key, names in (("float_link", spec["floats"]),
+                       ("dense_link", spec["dense"])):
+        link = chain.get(key)
+        if (link is None) != (len(names) == 0) or len(names) > 1 or (
+                link is not None and not 0 <= link < items - 1):
+            raise ValueError(f"fused_rows_epoch: {key} {link} with "
+                             f"{len(names)} {key.split('_')[0]} inputs over "
+                             f"{items - 1} links")
+        links[key] = -1 if link is None else int(link)
+    if links["float_link"] >= 0 and links["float_link"] == links["dense_link"]:
+        raise ValueError("fused_rows_epoch: one link cannot take both "
+                         "divisors")
+    return {"items": items, **links, "reg": float(chain["reg"])}
+
+
+def _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
+                floats, sides):
+    if not planes or len(sides) != len(planes) or sides[0] != "u" or any(
+            sd not in ("u", "i") for sd in sides):
+        raise ValueError(f"sides {sides} must name 'u' (first) or 'i' for "
+                         f"each of the {len(planes)} planes")
+    for name, side, moments in (("pu", pu, (mpu, vpu)), ("qi", qi, (mqi, vqi)),
+                                ("dense", dense, (mdense, vdense))):
+        if name != "dense" and (not side or any(
+                t.dim() not in (1, 2) for t in side) or len(
+                {t.shape[0] for t in side}) != 1):
+            raise ValueError(f"{name}: tables of one height, 1-D or 2-D")
+        if any(len(mo) != len(side) for mo in moments):
+            raise ValueError(f"{name}: a moment for each tensor")
+        _check_moments([(f"moment of {name}[{k}]", m, x) for mo in moments
+                        for k, (x, m) in enumerate(zip(side, mo))])
+    _check_same((*pu, *qi, *dense, *mpu, *mqi, *mdense, *vpu, *vqi, *vdense),
+                planes, floats)
+
+
+def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
+                     planes, floats, t0: int, *, sides, spec: dict,
+                     lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
+                     eps: float = ADAM_EPS):
+    """One multi-plane (social-triple) epoch with dense Adam, in place.
+
+    pu, qi: the user and item sides, each a tensor or a tuple of tensors
+    of one height that a gathered row joins on the feature axis (a 1-D
+    tensor is one column): SBPR's (P,) and (Q, bias[:I]); dense: the
+    model's dense params (CUNE_BPR's 0-d s); m*, v*: their Adam moments
+    in the same layout; planes: [steps, B] int32 id streams, plane p on
+    the user side when ``sides[p]`` is 'u' (plane 0 must be, and a row
+    whose plane-0 id is outside the user table is masked) else the item
+    side; floats: [steps, B] f32 columns; t0 the Adam step count so far.
+    ``spec`` is the model's ``fused_rows_spec()``: the kernel takes its
+    chain (``rows_epoch_plan``), the plain version its ``row_loss``.
+    Updates every state tensor in place and returns the summed per-step
+    loss (a 0-dim f32 tensor); no correction is due."""
+    pu, qi, mpu, mqi, vpu, vqi = map(_side, (pu, qi, mpu, mqi, vpu, vqi))
+    dense, mdense, vdense = tuple(dense), tuple(mdense), tuple(vdense)
+    planes, floats, sides = tuple(planes), tuple(floats), tuple(sides)
+    _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
+                floats, sides)
+    args = (pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
+            floats, int(t0))
+    if pu[0].device.type == "cpu":
+        return fused_rows_epoch_ref(*args, sides=sides,
+                                    row_loss=spec["row_loss"], lr=lr, b1=b1,
+                                    b2=b2, eps=eps)
+    if pu[0].device.type != "cuda":
+        raise ValueError(f"fused_rows_epoch: no kernel for device "
+                         f"{pu[0].device}")
+    plan = rows_epoch_plan(spec)
+    if sides != ("u",) + ("i",) * plan["items"]:
+        raise ValueError(f"fused_rows_epoch: sides {sides} differ from the "
+                         "spec's planes")
+    return _launch_rows(*args, plan=plan, lr=lr, b1=b1, b2=b2, eps=eps)
+
+
+# On the card the state stays in device memory whatever its size: the
+# TPU's streamed variant is the same function here.
+fused_rows_epoch_stream = fused_rows_epoch
+
+
+class _RowsArgs(ctypes.Structure):
+    """``RowsArgs`` of csrc/rows_epoch.cu, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p * 4) for n in ("p", "m", "v", "g")]
+                + [("plane", ctypes.c_void_p * (1 + ROWS_MAX_ITEMS)),
+                   ("fcol", ctypes.c_void_p), ("loss", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in ("U", "I", "d", "B", "items",
+                                               "steps", "t0", "float_link",
+                                               "dense_link")]
+                + [(n, ctypes.c_float) for n in ("reg", "lr", "eps")]
+                + [("b1", ctypes.c_double), ("b2", ctypes.c_double)])
+
+
+def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
+                 floats, t0, *, plan, lr, b1, b2, eps):
+    if (len(pu) != 1 or pu[0].dim() != 2 or len(qi) != 2
+            or qi[0].dim() != 2 or qi[1].dim() != 1
+            or qi[0].shape[1] != pu[0].shape[1]):
+        raise ValueError("fused_rows_epoch: the kernel takes pu = (P [U, d],)"
+                         " and qi = (Q [I, d], bias [I])")
+    n_dense = int(plan["dense_link"] >= 0)
+    if len(dense) != n_dense or any(x.numel() != 1 for x in dense):
+        raise ValueError("fused_rows_epoch: the kernel takes the dense "
+                         "scalar of the chain's dense link and nothing else")
+    if len(floats) != int(plan["float_link"] >= 0):
+        raise ValueError("fused_rows_epoch: one float column for the "
+                         "chain's float link, none without")
+    params = (*pu, *qi, *dense)
+    _contiguous("fused_rows_epoch", (*params, *mpu, *mqi, *mdense, *vpu,
+                                     *vqi, *vdense, *planes, *floats))
+    steps, b = planes[0].shape
+    (p, q, bias), d = params[:3], pu[0].shape[1]
+    if max(p.numel(), q.numel(), steps, b, t0 + steps) >= 2 ** 31:
+        raise ValueError("fused_rows_epoch: a size or step count past the "
+                         "kernel's int32 arguments")
+    grads = [torch.zeros_like(x) for x in params]
+    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    a = _RowsArgs(U=p.shape[0], I=q.shape[0], d=d, B=b, items=plan["items"],
+                  steps=steps, t0=t0, float_link=plan["float_link"],
+                  dense_link=plan["dense_link"], reg=plan["reg"], lr=lr,
+                  eps=eps, b1=b1, b2=b2,
+                  fcol=floats[0].data_ptr() if floats else None,
+                  loss=loss.data_ptr())
+    for key, group in (("p", params), ("m", (*mpu, *mqi, *mdense)),
+                       ("v", (*vpu, *vqi, *vdense)), ("g", grads)):
+        getattr(a, key)[:len(group)] = [x.data_ptr() for x in group]
+    a.plane[:len(planes)] = [x.data_ptr() for x in planes]
+    from cleverrec_tpu_torch.ops.build import load
+    fn = load("rows_epoch").rows_epoch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(p.device):
+        err = fn(ctypes.addressof(a), _stream(p.device))
+    _launch_ok("rows_epoch", err)
     return loss.sum()

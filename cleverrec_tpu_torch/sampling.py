@@ -1,6 +1,6 @@
-"""Per-entity membership tables and the pairwise and pointwise negative
-samplers: the parts of ``cleverrec_tpu/sampling.py`` that ranking, BPR
-training and NCF training need.
+"""Per-entity membership tables and the pairwise, pointwise and social
+samplers: the parts of ``cleverrec_tpu/sampling.py`` that ranking and the
+training of BPR, the NCF family and the social-triple family need.
 
 Bitmaps are int32 with the bit pattern of the JAX package's uint32
 ``MemberTable.bits``: id ``i`` is bit ``i & 31`` of word ``i >> 5``.
@@ -16,6 +16,12 @@ padded with weight-0 rows to whole batches.  A pointwise epoch
 explicit ``torch.Generator`` on the tables' device and resolved to ids
 by ``unseen_by_rank``, which returns exactly the JAX complement table's
 entry ``complement[e, r]``, so no complement table is built.
+
+The social epochs (SBPR and CUNE_BPR: rows (u, i, k, j, suk); TBPR:
+(u, i, s, t, j)) keep the pairwise layout over the pairs the model keeps.
+Their negative avoids the union of the user's seen items and social
+items, drawn by rank from that union's ``MemberTable``; k, s and t are
+uniform picks from CSR-flat per-user lists (``build_csr_lists``).
 """
 
 from __future__ import annotations
@@ -209,3 +215,119 @@ def pointwise_epoch_tensors(gen: torch.Generator, static: dict,
             "i": i[perm].reshape(steps, b),
             "y": static["ord_y"][perm].reshape(steps, b),
             "w": w.reshape(steps, b)}
+
+
+# -- the social-triple samplers -------------------------------------------
+
+def build_csr_lists(sets: dict[int, list[int]], n_entities: int,
+                    aux: dict[int, list[float]] | None = None
+                    ) -> dict[str, np.ndarray]:
+    """CSR-flat per-entity lists for uniform draws: {"flat": [nnz + 1]
+    int32 (one pad at the end), "off": [N] int32 start offsets, "suk":
+    [nnz + 1] float32 aux values aligned with flat (zeros without
+    ``aux``)}.  Each entity's ids come as given (``build_spu``'s lists
+    are sorted and unique), so a draw sees the same id at the same slot
+    as the JAX sampler."""
+    lens = np.zeros(n_entities, np.int64)
+    for e, ids in sets.items():
+        lens[e] = len(ids)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    order = sorted(e for e, ids in sets.items() if ids)
+    flat = np.concatenate([np.asarray(sets[e], np.int32) for e in order]
+                          + [np.zeros(1, np.int32)])
+    suk = np.zeros(len(flat), np.float32)
+    if aux is not None and order:
+        suk[:-1] = np.concatenate([np.asarray(aux[e], np.float32)
+                                   for e in order])
+    return {"flat": flat, "off": off, "suk": suk}
+
+
+def csr_lens(csr: dict[str, np.ndarray]) -> np.ndarray:
+    """Each entity's list length in a ``build_csr_lists`` dict."""
+    return np.diff(np.append(csr["off"], len(csr["flat"]) - 1)).astype(
+        np.int32)
+
+
+def sbpr_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
+                      social_lens: np.ndarray, spu_lens: np.ndarray,
+                      spu_off: np.ndarray, item_nums: int, padded: int,
+                      neg_ratio: int) -> dict[str, np.ndarray]:
+    """Host-side per-run constants of ``sbpr_epoch_tensors``: the pairwise
+    layout of ``pairwise_epoch_static``, each row's unseen count against
+    the seen-union-SPu set (``social_lens``, utils/sampler.py:117-119),
+    and its SPu list's offset and length (at least 1)."""
+    rows_total = len(pos_u) * neg_ratio
+    out = pairwise_epoch_static(pos_u, pos_i, social_lens, item_nums, padded,
+                                neg_ratio)
+    u = out["ord_u"][:rows_total]
+    spulen = np.ones(padded, np.int32)
+    spulen[:rows_total] = np.maximum(np.asarray(spu_lens)[u], 1)
+    spuoff = np.zeros(padded, np.int32)
+    spuoff[:rows_total] = np.asarray(spu_off)[u]
+    return {**out, "ord_spulen": spulen, "ord_spuoff": spuoff}
+
+
+def tbpr_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
+                      social_lens: np.ndarray, ts_lens: np.ndarray,
+                      ts_off: np.ndarray, tw_lens: np.ndarray,
+                      tw_off: np.ndarray, item_nums: int, padded: int,
+                      neg_ratio: int) -> dict[str, np.ndarray]:
+    """``sbpr_epoch_static`` over the strong-tie lists, plus the weak-tie
+    lists' offsets and lengths; ``social_lens`` counts seen, strong and
+    weak items together."""
+    out = sbpr_epoch_static(pos_u, pos_i, social_lens, ts_lens, ts_off,
+                            item_nums, padded, neg_ratio)
+    rows_total = len(pos_u) * neg_ratio
+    u = out["ord_u"][:rows_total]
+    twlen = np.ones(padded, np.int32)
+    twlen[:rows_total] = np.maximum(np.asarray(tw_lens)[u], 1)
+    twoff = np.zeros(padded, np.int32)
+    twoff[:rows_total] = np.asarray(tw_off)[u]
+    return {**out, "ord_twlen": twlen, "ord_twoff": twoff}
+
+
+def _list_pick(gen: torch.Generator, off: torch.Tensor,
+               length: torch.Tensor) -> torch.Tensor:
+    """Per row, the flat index of a uniform pick from its CSR list."""
+    raw = torch.randint(0, 2 ** 31 - 1, off.shape, generator=gen,
+                        device=off.device, dtype=torch.int64)
+    return off + raw % length
+
+
+def sbpr_epoch_tensors(gen: torch.Generator, static: dict,
+                       rows: torch.Tensor, lens: torch.Tensor,
+                       spu_csr: dict, rows_total: int, steps: int,
+                       b: int) -> dict[str, torch.Tensor]:
+    """The whole epoch's (u, i, k, j, suk, w) as [steps, b] tensors: the
+    negative j by rank from the union table (``rows``, ``lens``), the
+    social item k and its suk from the user's SPu list, then one shuffle
+    of the columns together (utils/sampler.py:102-141).  ``static`` holds
+    ``sbpr_epoch_static``'s arrays and ``spu_csr`` the ``flat`` and
+    ``suk`` of ``build_csr_lists``, as tensors on the generator's
+    device."""
+    j = epoch_negatives(gen, static, rows, lens)
+    sidx = _list_pick(gen, static["ord_spuoff"], static["ord_spulen"])
+    perm, w = epoch_permutation(gen, rows_total, steps * b)
+    cols = {"u": static["ord_u"], "i": static["ord_i"],
+            "k": spu_csr["flat"][sidx], "j": j, "suk": spu_csr["suk"][sidx]}
+    out = {key: v[perm].reshape(steps, b) for key, v in cols.items()}
+    out["w"] = w.reshape(steps, b)
+    return out
+
+
+def tbpr_epoch_tensors(gen: torch.Generator, static: dict,
+                       rows: torch.Tensor, lens: torch.Tensor, ts_csr: dict,
+                       tw_csr: dict, rows_total: int, steps: int,
+                       b: int) -> dict[str, torch.Tensor]:
+    """The whole epoch's (u, i, s, t, j, w) as [steps, b] tensors: as
+    ``sbpr_epoch_tensors``, with a strong-tie item s and a weak-tie item
+    t for TBPR's chain i > s > t > j."""
+    j = epoch_negatives(gen, static, rows, lens)
+    s_idx = _list_pick(gen, static["ord_spuoff"], static["ord_spulen"])
+    t_idx = _list_pick(gen, static["ord_twoff"], static["ord_twlen"])
+    perm, w = epoch_permutation(gen, rows_total, steps * b)
+    cols = {"u": static["ord_u"], "i": static["ord_i"],
+            "s": ts_csr["flat"][s_idx], "t": tw_csr["flat"][t_idx], "j": j}
+    out = {key: v[perm].reshape(steps, b) for key, v in cols.items()}
+    out["w"] = w.reshape(steps, b)
+    return out

@@ -4,8 +4,11 @@
 An epoch is the model's sampler's whole epoch as [steps, B] tensors,
 drawn in one pass from an explicit generator on the trainer's device:
 (u, i, j, w) for the pairwise protocol (BPR), (u, i, y, w) for the
-pointwise one (GMF, MLP, NeuMF).  It is trained through one of two
-tiers:
+pointwise one (GMF, MLP, NeuMF), (u, i, k, j, suk, w) for ``sbpr``
+(SBPR, CUNE_BPR) and (u, i, s, t, j, w) for ``tbpr`` (TBPR).  The
+model's ``build_aux`` runs first (the social models' SPu lists and
+exclusion tables) and its ``epoch_pairs`` give the pairs the epoch
+covers.  It is trained through one of two tiers:
 
 - the fused tier (Adam and ``train.fused_kernel`` on; it defaults on for
   a CUDA device and off on the CPU), one call of an ``ops.train`` epoch
@@ -16,6 +19,10 @@ tiers:
   the sentinel ids and ``n_sent * LOG2`` taken off the loss;
   ``pointwise_mlp`` runs ``fused_mlp_epoch`` over the model's
   ``fused_mlp_spec``, masked by w in the kernel, with no correction;
+  ``rows`` runs ``fused_rows_epoch`` over the model's
+  ``fused_rows_spec``, invalid slots at the sentinel ids, masked in the
+  kernel, with no correction (``train.fused_stream`` selects the same
+  kernel: on the card the state stays in device memory either way);
 - the scan tier: per step, autograd of ``model.loss``, the optax-semantics
   update of ``common.make_optimizer``, then ``model.postprocess``.
 
@@ -40,7 +47,8 @@ from cleverrec_tpu_torch.evalx import Evaluator
 from cleverrec_tpu_torch.models.base import RecModel
 from cleverrec_tpu_torch.ops.train import (LOG2, fused_bpr_epoch,
                                            fused_gmf_epoch, fused_mlp_epoch,
-                                           mlp_epoch_plan, sentinel_dims)
+                                           fused_rows_epoch, mlp_epoch_plan,
+                                           rows_epoch_plan, sentinel_dims)
 
 # Options of the JAX trainer that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
@@ -49,7 +57,6 @@ _TIERS = "queue 1, item 17 (the trainer's VMEM-capacity tiers)"
 _UNPORTED = (
     ("train.fused_bf16", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_grouped", lambda c, k: c.bool(k), _TIERS),
-    ("train.fused_stream", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_groups", lambda c, k: c.int(k, 0) > 1, _TIERS),
     ("train.sparse_rows_force", lambda c, k: c.bool(k),
      "queue 1, item 9 (the lazy row-Adam tier)"),
@@ -102,42 +109,67 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
         _refuse_unported(cfg)
-        if model.sampler not in ("pairwise", "pointwise"):
+        if model.sampler not in ("pairwise", "pointwise", "sbpr", "tbpr"):
             raise NotImplementedError(
                 f"sampler {model.sampler!r} is not ported yet: the port "
-                "trains the pairwise and pointwise protocols (ROADMAP.md "
-                "queue 1)")
+                "trains the pairwise, pointwise, sbpr and tbpr protocols "
+                "(ROADMAP.md queue 1)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.logger = logger
         self.dd: DeviceData = build_device_data(data)
-        self.n_pairs = self.dd.num_pairs
+        # build_aux may restrict the epoch's pairs (the social family), so
+        # it runs before epoch_pairs.
+        self.model_aux = model.build_aux(self.dd, data)
+        pos_u, pos_i = model.epoch_pairs(self.dd)
+        self.n_pairs = len(pos_u)
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
-        self._pointwise = model.sampler == "pointwise"
         # A pointwise pair is one positive row and neg_ratio negatives.
-        self._epoch_rows = self.n_pairs * (self.neg_ratio + 1 if self._pointwise
-                                           else self.neg_ratio)
+        self._epoch_rows = self.n_pairs * (
+            self.neg_ratio + 1 if model.sampler == "pointwise"
+            else self.neg_ratio)
         self.steps_per_epoch = cdiv(self._epoch_rows, self.batch_size)
         padded = self.steps_per_epoch * self.batch_size
         self._n_sent = padded - self._epoch_rows
-
-        def put(a):
-            return torch.as_tensor(a, device=self.device)
-
-        static_fn = (sampling.pointwise_epoch_static if self._pointwise
-                     else sampling.pairwise_epoch_static)
-        self._static = {k: put(v) for k, v in static_fn(
-            self.dd.pos_u, self.dd.pos_i, self.dd.seen.lens,
-            self.dd.item_nums, padded, self.neg_ratio).items()}
-        self._seen_rows = put(self.dd.seen.rows)
-        self._seen_lens = put(self.dd.seen.lens)
+        self._build_layout(pos_u, pos_i, padded)
         self.aux: dict[str, torch.Tensor] = {}
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr)
         self.fused = self._fused_epoch_eligible()
         self._gen: torch.Generator | None = None
         self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
+
+    def _build_layout(self, pos_u, pos_i, padded: int) -> None:
+        """The sampler's per-run constants on the device: the static epoch
+        layout, the membership table its negatives avoid (the seen items,
+        or the social models' seen-union-social table), and the social
+        models' CSR lists."""
+        aux, dd, sampler = self.model_aux, self.dd, self.model.sampler
+        neg = aux.get("social_neg", dd.seen)
+        head = (pos_u, pos_i, neg.lens)
+        tail = (dd.item_nums, padded, self.neg_ratio)
+        if sampler == "sbpr":
+            spu = aux["spu_csr"]
+            static = sampling.sbpr_epoch_static(
+                *head, sampling.csr_lens(spu), spu["off"], *tail)
+        elif sampler == "tbpr":
+            ts, tw = aux["ts_csr"], aux["tw_csr"]
+            static = sampling.tbpr_epoch_static(
+                *head, sampling.csr_lens(ts), ts["off"], sampling.csr_lens(tw),
+                tw["off"], *tail)
+        elif sampler == "pointwise":
+            static = sampling.pointwise_epoch_static(*head, *tail)
+        else:
+            static = sampling.pairwise_epoch_static(*head, *tail)
+
+        def put(a):
+            return torch.as_tensor(a, device=self.device)
+
+        self._static = {k: put(v) for k, v in static.items()}
+        self._neg_rows, self._neg_lens = put(neg.rows), put(neg.lens)
+        self._csr = {name: {k: put(c[k]) for k in ("flat", "suk")}
+                     for name, c in aux.items() if name.endswith("_csr")}
 
     def _fused_epoch_eligible(self) -> bool:
         """The fused epoch kernels hard-code their model's form and Adam;
@@ -145,39 +177,53 @@ class Trainer:
         cross-entropy is its only objective, as in the JAX trainer).
         ``train.fused_kernel`` turns the tier on or off (default: on for
         a CUDA device).  A tower the kernel does not take (more than 4
-        layers, or shared memory short) is declined here, with a log
-        line, and trains through the scan tier."""
+        layers, or shared memory short) or a rows spec outside the
+        social BPR chain is declined here, with a log line, and trains
+        through the scan tier."""
         proto = getattr(self.model, "fused_protocol", None)
         if (proto is None or self.cfg.optimizer != "Adam"
                 or (proto == "pairwise_bpr" and self.cfg.loss_func != "bpr")
                 or not self.cfg.bool("train.fused_kernel",
                                      self.device.type == "cuda")):
             return False
-        if proto == "pointwise_mlp":
-            spec = self.model.fused_mlp_spec()
-            n_layers = (len(spec["dense"]) - 1) // 2
-            shapes = [tuple(getattr(self.model, n).shape)
-                      for n in spec["dense"][:n_layers]]
-            try:
-                mlp_epoch_plan(spec["gmf_width"], shapes)
-            except ValueError as e:
-                if self.logger:
-                    self.logger.info("fused epoch kernel skipped (%s); "
-                                     "using the scan tier", e)
-                return False
+        try:
+            if proto == "pointwise_mlp":
+                spec = self.model.fused_mlp_spec()
+                n_layers = (len(spec["dense"]) - 1) // 2
+                mlp_epoch_plan(spec["gmf_width"],
+                               [tuple(getattr(self.model, n).shape)
+                                for n in spec["dense"][:n_layers]])
+            elif proto == "rows":
+                rows_epoch_plan(self.model.fused_rows_spec())
+        except ValueError as e:
+            if self.logger:
+                self.logger.info("fused epoch kernel skipped (%s); using the "
+                                 "scan tier", e)
+            return False
+        if (proto == "rows" and self.logger
+                and self.cfg.bool("train.fused_stream", False)):
+            self.logger.info("train.fused_stream: the streamed rows epoch is "
+                             "the same kernel here (the state stays in "
+                             "device memory)")
         return True
 
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict[str, torch.Tensor]:
-        """The next epoch's (u, i, j, w) or (u, i, y, w), each [steps, B]
-        on the device."""
+        """The next epoch's draw of the model's sampler, each column
+        [steps, B] on the device."""
         if self._gen is None:
             raise RuntimeError("call init_state first")
-        tensors_fn = (sampling.pointwise_epoch_tensors if self._pointwise
-                      else sampling.pairwise_epoch_tensors)
-        return tensors_fn(
-            self._gen, self._static, self._seen_rows, self._seen_lens,
-            self._epoch_rows, self.steps_per_epoch, self.batch_size)
+        head = (self._gen, self._static, self._neg_rows, self._neg_lens)
+        lists = {"sbpr": ("spu_csr",), "tbpr": ("ts_csr", "tw_csr")}.get(
+            self.model.sampler, ())
+        tensors_fn = {"sbpr": sampling.sbpr_epoch_tensors,
+                      "tbpr": sampling.tbpr_epoch_tensors,
+                      "pointwise": sampling.pointwise_epoch_tensors,
+                      "pairwise": sampling.pairwise_epoch_tensors}[
+                          self.model.sampler]
+        return tensors_fn(*head, *(self._csr[n] for n in lists),
+                          self._epoch_rows, self.steps_per_epoch,
+                          self.batch_size)
 
     def _run_epoch(self, params, opt_state, tensors):
         """Train one epoch on given sampled tensors ([steps, B] each);
@@ -239,6 +285,16 @@ class Trainer:
                                   ids("u", u_sent), ids("i", i_sent),
                                   col("y"), t0, lr=lr, reg=self.model.reg)
             loss = raw - self._n_sent * LOG2
+        elif proto == "rows":
+            spec = self.model.fused_rows_spec()
+            sides = [sd for _, sd in spec["planes"]]
+            planes = [ids(name, u_sent if sd == "u" else i_sent)
+                      for name, sd in spec["planes"]]
+            state = [x for t in (params, opt_state.mu, opt_state.nu)
+                     for x in spec["pack"](t)]
+            loss = fused_rows_epoch(*state, planes,
+                                    [col(n) for n in spec["floats"]], t0,
+                                    sides=sides, spec=spec, lr=lr)
         else:
             loss = self._fused_mlp(params, opt_state, ids("u", u_sent),
                                    ids("i", i_sent), col("y"), col("w"))

@@ -102,7 +102,8 @@ def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
 
 def test_cli_lists_models(capsys):
     assert cli.main(["--list-models"]) == 0
-    assert capsys.readouterr().out.split() == ["BPR", "GMF", "MLP", "NeuMF"]
+    assert capsys.readouterr().out.split() == ["BPR", "CUNE_BPR", "GMF", "MLP",
+                                               "NeuMF", "SBPR", "TBPR"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):

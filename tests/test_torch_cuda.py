@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-dot_scores and dot_gmax, and the epoch kernels bpr_epoch, gmf_epoch and
-mlp_epoch.
+dot_scores and dot_gmax, and the epoch kernels bpr_epoch, gmf_epoch,
+mlp_epoch and rows_epoch.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -291,3 +291,142 @@ def test_mlp_epoch_rejects_bad_input(cuda):
                               *(torch.as_tensor(x).to(cuda) for x in cols),
                               0, spec=spec, lr=0.1)
         assert T.launches["mlp_epoch"] == before
+
+
+# rows_epoch: as bpr_epoch, f32 atomics sum duplicate ids in a
+# run-dependent order; CUNE_BPR's s sums every row of a step through one
+# atomic a block, and Adam normalises that rounding into each next step.
+ROWS_CASES = [(29, 41, 16, 4, 64, 0, 0.5), (37, 53, 40, 3, 37, 5, 0.5),
+              (943, 1682, 128, 3, 6144, 81, 0.15)]
+
+
+def _rows_model(name, u_n, i_n, d, seed=0):
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    cfg = Config({"recommender": name, "embed_size": str(d), "reg": "0.05",
+                  "stddev": "0.1", "seed": str(seed), "walk_count": "1",
+                  "walk_length": "2", "walk_dim": "4", "window_size": "1",
+                  "topk_f": "2"})
+    return make_model(cfg, DataMeta(u_n, i_n), device="cpu")
+
+
+def _rows_inputs(name, u_n, i_n, d, steps, b, t0, masked, seed=0):
+    """A social model's spec, one state of it (bias and s moved off zero,
+    moments nonzero unless t0 is 0) and a sampled epoch: a share
+    ``masked`` of rows at the sentinels and the first step all masked."""
+    model = _rows_model(name, u_n, i_n, d, seed)
+    spec = model.fused_rows_spec()
+    rng = np.random.default_rng(seed)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    params["bias"] = torch.as_tensor(
+        rng.normal(size=i_n + 1).astype(np.float32)) * 0.3
+    if "s" in params:
+        params["s"] = torch.tensor(0.4)
+
+    def moment(x, scale):
+        if not t0:
+            return torch.zeros_like(x)
+        m = torch.as_tensor(rng.normal(size=tuple(x.shape))
+                            .astype(np.float32)) * scale
+        return m.abs() * 1e-3 if scale < 1e-3 else m
+
+    state = [params] + [{n: moment(x, scale) for n, x in params.items()}
+                        for scale in (1e-3, 1e-4)]
+    u_pad, i_pad = T.sentinel_dims(u_n, i_n)
+    invalid = rng.random((steps, b)) < masked
+    invalid[0] = True
+    planes = [np.where(invalid, (u_pad if sd == "u" else i_pad) - 1,
+                       rng.integers(0, u_n if sd == "u" else i_n,
+                                    (steps, b))).astype(np.int32)
+              for _, sd in spec["planes"]]
+    floats = [rng.integers(0, 5, (steps, b)).astype(np.float32)
+              for _ in spec["floats"]]
+    return spec, state, planes, floats
+
+
+def _rows_state(spec, state, dev):
+    return [x for t in state
+            for x in spec["pack"]({n: v.to(dev) for n, v in t.items()})]
+
+
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0,masked", ROWS_CASES)
+@pytest.mark.parametrize("name", ["SBPR", "TBPR", "CUNE_BPR"])
+def test_rows_epoch_matches_plain(cuda, name, u_n, i_n, d, steps, b, t0,
+                                  masked):
+    spec, state, planes, floats = _rows_inputs(name, u_n, i_n, d, steps, b,
+                                               t0, masked)
+    got, want = _rows_state(spec, state, cuda), _rows_state(spec, state, cuda)
+    planes = [torch.as_tensor(x).to(cuda) for x in planes]
+    floats = [torch.as_tensor(x).to(cuda) for x in floats]
+    sides = [sd for _, sd in spec["planes"]]
+    before = T.launches["rows_epoch"]
+    loss = T.fused_rows_epoch(*got, planes, floats, t0, sides=sides,
+                              spec=spec, lr=0.01)
+    ref = T.fused_rows_epoch_ref(*want, planes, floats, t0, sides=sides,
+                                 row_loss=spec["row_loss"], lr=0.01)
+    torch.cuda.synchronize()
+    assert T.launches["rows_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for k, (g_side, w_side) in enumerate(zip(got, want)):
+        for g, w in zip(g_side, w_side):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=EPOCH_RTOL, atol=EPOCH_ATOL,
+                                       err_msg=f"part {k}")
+
+
+def test_rows_epoch_declines_what_it_has_no_backward_for(cuda):
+    spec, state, planes, floats = _rows_inputs("SBPR", 5, 7, 8, 2, 4, 0, 0.0)
+    args = (_rows_state(spec, state, cuda),
+            [torch.as_tensor(x).to(cuda) for x in planes],
+            [torch.as_tensor(x).to(cuda) for x in floats])
+    sides = [sd for _, sd in spec["planes"]]
+    before = T.launches["rows_epoch"]
+    with pytest.raises(ValueError, match="chain"):
+        T.fused_rows_epoch(*args[0], *args[1:], 0, sides=sides,
+                           spec={**spec, "chain": None}, lr=0.1)
+    packed = [(x[0],) if k % 3 == 1 else x for k, x in enumerate(args[0])]
+    with pytest.raises(ValueError, match="kernel takes"):
+        T.fused_rows_epoch(*packed, *args[1:], 0, sides=sides, spec=spec,
+                           lr=0.1)
+    with pytest.raises(ValueError, match="one device"):
+        T.fused_rows_epoch(*args[0], [args[1][0].cpu()] + args[1][1:],
+                           args[2], 0, sides=sides, spec=spec, lr=0.1)
+    assert T.launches["rows_epoch"] == before
+
+
+def test_fused_stream_launches_the_same_kernel(cuda, tmp_path):
+    """train.fused_stream=True trains SBPR through rows_epoch, as the
+    default fused tier does."""
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import load_ranking_data
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.train import Trainer
+    rng = np.random.default_rng(0)
+    ds = tmp_path / "toy"
+    ds.mkdir()
+    pairs = {(int(u), int(i)) for u, i in zip(rng.integers(0, 30, 500),
+                                              rng.integers(0, 40, 500))}
+    (ds / "ratings.csv").write_text("u_id,i_id,rating,time\n" + "".join(
+        f"{u},{i},5,{t}\n" for t, (u, i) in enumerate(sorted(pairs))))
+    (ds / "trusts.csv").write_text("u_id,v_id\n" + "".join(
+        f"{u},{v}\n" for u in range(30) for v in rng.choice(30, 3)
+        if v != u))
+    assert T.fused_rows_epoch_stream is T.fused_rows_epoch
+    for stream in ("False", "True"):
+        cfg = Config({"recommender": "SBPR", "data.root_dir": str(tmp_path),
+                      "data.dataset": "toy", "data.file_name": "ratings.csv",
+                      "data.format": "UIRT", "social_file": "trusts.csv",
+                      "embed_size": "16", "reg": "0.05", "batch_size": "64",
+                      "neg_ratio": "2", "lr": "0.01", "optimizer": "Adam",
+                      "topk": "[5]", "test.neg_samples": "10",
+                      "train.fused_stream": stream})
+        data = load_ranking_data(cfg)
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+        tr = Trainer(model, data, cfg)
+        assert tr.fused
+        params, state = tr.init_state()
+        before = T.launches["rows_epoch"]
+        tr.train_epochs(params, state, 2)
+        assert T.launches["rows_epoch"] == before + 2

@@ -41,7 +41,8 @@ def test_port_never_loads_jax_or_the_jax_package():
                          check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(report["imported"]) == set(_port_modules())
-    for name in ("ops.scores", "ops.train", "models.ncf"):
+    for name in ("ops.scores", "ops.train", "models.ncf", "models.social",
+                 "data.social"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]
@@ -71,7 +72,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 def test_unported_model_names_its_slice():
     from cleverrec_tpu_torch.models import make_model
-    cfg = Config({"recommender": "SBPR"})
+    cfg = Config({"recommender": "SAMN"})
     with pytest.raises(NotImplementedError, match="social slice"):
         make_model(cfg, DataMeta(4, 40), device="cpu")
 
