@@ -50,6 +50,19 @@ width of ``conf/BPR.properties`` (embed_size 128):
   epochs through the fused tier, the scan tier and the fused tier with
   ``train.fused_stream=True`` (the same kernel), held to each other as
   phase D holds BPR's.
+- Phase G, the metric-learning family (kernels ``cml_epoch`` and
+  ``rows_epoch_lrml``, LRML's form of the rows kernel): the same CLI
+  with ``--model CML``, ``LRML`` and ``TransCF`` at the widths of their
+  confs and their epoch counts (30, 100, 100): CML and LRML through the
+  fused tier (each kernel launches once per epoch), TransCF, which has
+  no fused tier, through the scan tier (no epoch kernel launches); the
+  loss falls and the best HR@10 is at least the JAX package's on the
+  same files less ``JAX_BAND``.  Then CML and LRML 3 epochs through the
+  fused and the scan tier on identical draws, held to each other as
+  phase D holds BPR's.  Then the distance-model trap: CML trained a few
+  epochs on a random split, whose ``full_fused`` eval (``dot_scores`` on
+  the negated decomposition) must equal its ``full`` eval, and whose
+  fused retrieval must give the dense retrieval's answers.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -98,6 +111,8 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "conf/NeuMF.properties", "conf/SBPR.properties",
           "conf/TBPR.properties", "conf/CUNE_BPR.properties",
           "cleverrec_tpu_torch/csrc/rows_epoch.cu",
+          "cleverrec_tpu_torch/csrc/cml_epoch.cu", "conf/CML.properties",
+          "conf/LRML.properties", "conf/TransCF.properties",
           "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
@@ -147,6 +162,15 @@ TRUST_SEED = 2026
 # trust graph of write_trusts(TRUST_SEED), each conf's recipe, 50 epochs
 # (the JAX CLI on the CPU; the command is in PERF.md).
 JAX_SOCIAL_HR10 = {"SBPR": 0.7391, "TBPR": 0.6819, "CUNE_BPR": 0.7635}
+METRIC = ("CML", "LRML", "TransCF")
+METRIC_EPOCHS = {"CML": 30, "LRML": 100, "TransCF": 100}   # the confs'
+METRIC_KERNEL = {"CML": "cml_epoch", "LRML": "rows_epoch_lrml",
+                 "TransCF": None}
+# Phase G: the JAX package's best HR@10 on the same rebuilt ml-100k, each
+# conf's recipe and epoch count (the JAX CLI on the CPU; the command is in
+# PERF.md).
+JAX_METRIC_HR10 = {"CML": 0.8017, "LRML": 0.8271, "TransCF": 0.8314}
+TRAP_EPOCHS = 5       # CML's epochs before the distance-model trap
 
 
 class SmokeError(Exception):
@@ -282,17 +306,23 @@ def seen_in(bits: np.ndarray, items: np.ndarray) -> np.ndarray:
     return ((words >> (safe & 31).astype(np.uint32)) & 1).astype(bool)
 
 
-def check_answer(tag, got, want, bits, k, item_nums):
-    """Fused answer vs dense answer: same shape, scores within SERVE_RTOL,
-    ids equal except among near-tied scores, no seen or out-of-range id."""
+def check_answer(tag, got, want, bits, k, item_nums, offset=None):
+    """Fused answer vs dense answer: same shape, scores within SERVE_RTOL
+    (of the largest score, for a distance model, whose fused scores leave
+    out each user's ``offset`` |u|^2), ids equal except among near-tied
+    scores, no seen or out-of-range id."""
     (gi, gv), (wi, wv) = [(i.cpu().numpy(), v.cpu().numpy())
                           for i, v in (got, want)]
+    atol = 0.0
+    if offset is not None:
+        wv = wv + offset[:, None]
+        atol = SERVE_RTOL * np.abs(wv[np.isfinite(wv)]).max(initial=0.0)
     check(gi.shape == wi.shape == gv.shape == (bits.shape[0], k),
           f"{tag}: shape {gi.shape}")
     check(bool(np.isfinite(gv[gi >= 0]).all()), f"{tag}: non-finite score")
     check(bool(((gi >= -1) & (gi < item_nums)).all()), f"{tag}: id range")
     check(not seen_in(bits, gi)[gi >= 0].any(), f"{tag}: seen item served")
-    check(bool(np.allclose(gv, wv, rtol=SERVE_RTOL, atol=0)),
+    check(bool(np.allclose(gv, wv, rtol=SERVE_RTOL, atol=atol)),
           f"{tag}: scores differ by {np.nanmax(np.abs(gv - wv))}")
     tol = SERVE_RTOL * np.abs(wv[np.isfinite(wv)]).max(initial=0.0)
     for r, j in zip(*np.nonzero(gi != wi)):
@@ -926,6 +956,217 @@ def rows_row(launches, profiles):
             "timings": timings}
 
 
+def distance_trap():
+    """CML trained TRAP_EPOCHS epochs on a random split: its full_fused
+    eval (dot_scores on the negated decomposition) equals its full eval,
+    and fused retrieval gives the dense retrieval's answers (scores up to
+    each user's |u|^2, which the fused path leaves out)."""
+    from cleverrec_tpu_torch.common import clip_rows_by_norm
+    cfg = config("ml-100k", recommender="CML",
+                 **{"test.neg_samples": "0", "data.split_way": "rs"})
+    data = load_ranking_data(cfg)
+    dd = build_device_data(data)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    params, state = trainer.init_state()
+    trainer.train_epochs(params, state, TRAP_EPOCHS)
+    fused_ev = Evaluator(model, dd, cfg)
+    full_ev = Evaluator(model, dd, cfg.with_overrides(
+        **{"eval.fused_kernel": "False"}))
+    check((fused_ev.mode, full_ev.mode) == ("full_fused", "full"),
+          f"G trap: eval modes {fused_ev.mode}, {full_ev.mode}")
+    before = scores.launches["dot_scores"]
+    got, _ = evaluate("G full_fused", fused_ev)
+    want, _ = evaluate("G full", full_ev)
+    check(scores.launches["dot_scores"] > before,
+          "G trap: full_fused eval never launched dot_scores")
+    for k in cfg.topk:
+        check(bool(np.allclose(got[k], want[k], atol=METRIC_TOL, rtol=0)),
+              f"G trap @{k}: full_fused {got[k]} vs full {want[k]}")
+    fused = build_retrieval_fn(model, {}, dd, k=10, backend="fused")
+    dense = build_retrieval_fn(model, {}, dd, k=10, backend="dense")
+    with torch.no_grad():
+        offset = (clip_rows_by_norm(model.P) ** 2).sum(dim=1).cpu().numpy()
+    rng = np.random.default_rng(3)
+    swaps = 0
+    for _ in range(4):
+        u = np.sort(rng.choice(dd.user_nums, 256, replace=False))
+        swaps += check_answer("G trap", fused(u), dense(u), dd.seen.bits[u],
+                              10, dd.item_nums, offset=offset[u])
+    return {"full_fused": got, "full": want, "tied_id_swaps": swaps}
+
+
+def phase_g(profiles):
+    """The metric-learning family at its confs' widths and epoch counts
+    (CML and LRML fused, TransCF scan); then CML and LRML 3 epochs
+    through both tiers on identical draws; then the distance-model
+    trap."""
+    runs, tiers = {}, {}
+    for name in METRIC:
+        epochs, kernel = METRIC_EPOCHS[name], METRIC_KERNEL[name]
+        res = runs[name] = drive_cli(f"G_{name}", model=name, epochs=epochs)
+        want = {kernel: epochs} if kernel else {}
+        got = {k: n for k, n in res["launches"].items() if n}
+        got.pop("dot_scores", None)                 # no full-catalog eval
+        check(got == want, f"G {name}: launches {res['launches']}")
+        check(res["loss_last"] < res["loss_first"],
+              f"G {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        floor = JAX_METRIC_HR10[name] - JAX_BAND
+        check(res["best"]["HR@10"] >= floor,
+              f"G {name}: best HR@10 {res['best']['HR@10']} < {floor}")
+        if kernel is None:
+            continue
+        pair = {"fused": drive_cli(f"G_{name}_fused", model=name,
+                                   epochs=TIER_EPOCHS),
+                "scan": drive_cli(f"G_{name}_scan", model=name,
+                                  epochs=TIER_EPOCHS,
+                                  **{"train.fused_kernel": "False"})}
+        check(pair["fused"]["launches"][kernel] == TIER_EPOCHS
+              and sum(pair["scan"]["launches"].values()) == 0,
+              f"G {name}: tier launches {pair['fused']['launches']}, "
+              f"{pair['scan']['launches']}")
+        for key, band in TIER_BAND.items():
+            a, b = pair["fused"]["best"][key], pair["scan"]["best"][key]
+            check(abs(a - b) <= band, f"G {name}: {key} fused {a} vs scan {b}")
+        tiers[name] = pair
+    trap = distance_trap()
+    print("phase G trap: " + json.dumps(trap), flush=True)
+    cfg = config("ml-100k", recommender="TransCF")
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    params, state = trainer.init_state()
+    trainer.train_epoch(params, state)
+    profiles["G_TransCF_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    launches = {k: runs[name]["launches"][k] for name, k in
+                METRIC_KERNEL.items() if k}
+    return {"runs": runs, "tiers": tiers, "trap": trap,
+            "launches": launches}
+
+
+def cml_row(launches, profiles):
+    """cml_epoch against its plain version at CML's main shape (ml-100k,
+    embed 128, K 20, B 6144) on the state one epoch in and the next draw:
+    errors, times, bound."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in("CML")
+    u, i = sentinel_ids(data, tensors, ("u", "i"))
+    i_sent = train_ops.sentinel_dims(data.user_nums, data.item_nums)[1] - 1
+    negs = torch.where(tensors["w"][..., None] == 0, i_sent,
+                       tensors["negs"]).to(torch.int32).contiguous()
+    names = ("P", "Q")
+    base = [params[n].detach() for n in names] + [
+        t[n] for n in names for t in (state.mu, state.nu)]
+    opts = {"lr": cfg.lr, "reg": model.reg, "margin": model.margin,
+            "item_nums": data.item_nums}
+    got, want = [x.clone() for x in base], [x.clone() for x in base]
+    loss = train_ops.fused_cml_epoch(*got, u, i, negs, state.count, **opts)
+    ref = train_ops.fused_cml_epoch_ref(*want, u, i, negs, state.count,
+                                        **opts)
+    torch.cuda.synchronize()
+    labels = ("P", "Q", "mP", "vP", "mQ", "vQ")
+    errors = hold("cml_epoch", zip(labels, got, want), EPOCH_ATOL,
+                  EPOCH_RTOL)
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL, f"cml_epoch loss: rel error {loss_rel}")
+    k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
+    steps, b, k = negs.shape
+    u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = (u_n + i_n) * d
+    # Each input read once and each output written once: six state
+    # tensors in and out, the u, i and K negative planes, the loss.
+    moved = 4 * (12 * n_state + (2 + k) * steps * b + steps)
+    # FP32 operations: (K + 1) distances of 3 d a real row (difference,
+    # square, sum), and per state element per step 8 for the regulariser
+    # (column sum, centring, row sum, squares, its gradient) and 14 for
+    # Adam.  The hinge's row grads (9 d an active row) are left out, so
+    # the bound is below the work.
+    flops = (k + 1) * 3 * d * n_real + 22 * n_state * steps
+    row = {"name": "cml_epoch", "route": "cuda",
+           "source": "cleverrec_tpu_torch/csrc/cml_epoch.cu",
+           "replaces": "cleverrec_tpu/ops/pallas_train.py:1610",
+           "launches": launches, "max_abs_err": max(errors.values()),
+           "ms": time_ms(lambda: train_ops.fused_cml_epoch(
+               *k_state, u, i, negs, state.count, **opts)),
+           "plain_ms": time_ms(lambda: train_ops.fused_cml_epoch_ref(
+               *r_state, u, i, negs, state.count, **opts), iters=3),
+           **bound(moved, flops),
+           # No single PyTorch call trains an epoch.
+           "library_ms": None,
+           "errors": errors, "loss_rel_err": loss_rel,
+           "shape": {"U": u_n, "I": i_n, "d": d, "K": k, "B": b,
+                     "steps": steps, "real_rows": n_real, "bytes": moved,
+                     "flops": flops}}
+    profiles["G_CML_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    return row
+
+
+def lrml_row(launches, profiles):
+    """rows_epoch_lrml (LRML's form of the rows kernel) against the plain
+    rows epoch at LRML's main shape (ml-100k, embed 128, mem 50, B 6144)
+    on the state one epoch in and the next draw."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in("LRML")
+    spec = model.fused_rows_spec()
+    planes = sentinel_ids(data, tensors, [n for n, _ in spec["planes"]])
+    opts = {"sides": [sd for _, sd in spec["planes"]], "lr": cfg.lr}
+
+    def packed():
+        return [tuple(x.clone() for x in group)
+                for t in (params, state.mu, state.nu)
+                for group in spec["pack"](t)]
+
+    got, want = packed(), packed()
+    loss = train_ops.fused_rows_epoch(*got, planes, [], state.count,
+                                      spec=spec, **opts)
+    ref = train_ops.fused_rows_epoch_ref(*want, planes, [], state.count,
+                                         row_loss=spec["row_loss"], **opts)
+    torch.cuda.synchronize()
+    labels = [f"{part}{n}" for part in ("", "m_", "v_")
+              for n in ("P", "Q", "K", "M")]
+    errors = hold("rows_epoch_lrml", zip(labels, (x for g in got for x in g),
+                                         (x for g in want for x in g)),
+                  EPOCH_ATOL, EPOCH_RTOL)
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL,
+          f"rows_epoch_lrml loss: rel error {loss_rel}")
+    k_state, r_state = packed(), packed()
+    steps, b = planes[0].shape
+    u_n, i_n, d, mem = (data.user_nums, data.item_nums, model.embed_size,
+                        model.mem_size)
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = (u_n + i_n) * d + 2 * d * mem
+    # Each input read once and each output written once: P, Q, K, M and
+    # their moments in and out, the u, i, j planes, the loss.
+    moved = 4 * (6 * n_state + 3 * steps * b + steps)
+    # FP32 operations of the forward every real row needs, for each of
+    # its two items: the logits and r (4 d mem), a, e and |e|^2 (5 d);
+    # the L2 norms (6 d); and 14 per state element per step for Adam.  The
+    # backward of the rows whose hinge is active (~12 d mem more) is left
+    # out, so the bound is below the work.
+    flops = (8 * d * mem + 16 * d) * n_real + 14 * n_state * steps
+    row = {"name": "rows_epoch_lrml", "route": "cuda",
+           "source": "cleverrec_tpu_torch/csrc/rows_epoch.cu",
+           "replaces": "cleverrec_tpu/ops/pallas_train.py:847",
+           "also_replaces": "cleverrec_tpu/ops/pallas_train.py:1153",
+           "launches": launches, "max_abs_err": max(errors.values()),
+           "ms": time_ms(lambda: train_ops.fused_rows_epoch(
+               *k_state, planes, [], state.count, spec=spec, **opts)),
+           "plain_ms": time_ms(lambda: train_ops.fused_rows_epoch_ref(
+               *r_state, planes, [], state.count,
+               row_loss=spec["row_loss"], **opts), iters=3),
+           **bound(moved, flops), "library_ms": None,
+           "errors": errors, "loss_rel_err": loss_rel,
+           "shape": {"U": u_n, "I": i_n, "d": d, "mem": mem, "B": b,
+                     "steps": steps, "real_rows": n_real, "bytes": moved,
+                     "flops": flops,
+                     "warps": train_ops.rows_epoch_plan(spec)["warps"]}}
+    profiles["G_LRML_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    return row
+
+
 def epoch_row(launches, profiles):
     """bpr_epoch against its plain version on one state and one sampled
     epoch at the main shape (ml-100k, embed 128, B 6144): the state after
@@ -1053,7 +1294,21 @@ def main() -> int:
     rows.append(epoch_row(train["C"]["launches"]["bpr_epoch"], profiles))
     rows.append(gmf_row(train["E"]["launches"]["gmf_epoch"], profiles))
     rows.append(mlp_row(train["E"]["launches"]["mlp_epoch"], profiles))
+    train["G"] = phase_g(profiles)
+    print("phase G: " + json.dumps(
+        {name: {"best": run["best"], "loss_first": run["loss_first"],
+                "loss_last": run["loss_last"],
+                "epoch_ms_median": run["epoch_ms_median"],
+                "eval_ms_median": run["eval_ms_median"],
+                "jax_hr10": JAX_METRIC_HR10[name],
+                "tiers": {t: train["G"]["tiers"][name][t]["best"]
+                          for t in ("fused", "scan")}
+                if name in train["G"]["tiers"] else None}
+         for name, run in train["G"]["runs"].items()}), flush=True)
     rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
+    rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
+                         profiles))
+    rows.append(cml_row(train["G"]["launches"]["cml_epoch"], profiles))
     for row in rows:
         print(f"kernel {row['name']}: launches {row['launches']}, "
               f"max_abs_err {row['max_abs_err']}, ms {row['ms']}, "

@@ -1,5 +1,5 @@
-"""Shared numerics: the device rule, losses, initializers, optimizers and
-``cdiv`` (as ``cleverrec_tpu/common.py``).
+"""Shared numerics: the device rule, losses, initializers, optimizers,
+``cdiv`` and ``clip_rows_by_norm`` (as ``cleverrec_tpu/common.py``).
 
 - Losses are SUMS over the batch (the reference's ``reduce_sum``), with
   ``l2_loss(x) = 0.5 * sum(x**2)`` like ``tf.nn.l2_loss``, and an
@@ -39,6 +39,13 @@ def resolve_device(device) -> torch.device:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def clip_rows_by_norm(x: torch.Tensor, max_norm: float = 1.0) -> torch.Tensor:
+    """Row-wise norm clipping, as tf.clip_by_norm(..., axes=[1]) in the
+    metric-learning models' full-catalog scorers (CML.py:72-78)."""
+    norms = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+    return x * torch.clamp(max_norm / torch.clamp(norms, min=1e-12), max=1.0)
 
 
 # -- losses ---------------------------------------------------------------

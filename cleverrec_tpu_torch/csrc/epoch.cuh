@@ -1,6 +1,7 @@
 // What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu,
-// rows_epoch.cu) share: a warp's shuffle sum, and dense Adam over a list
-// of f32 tensors.
+// rows_epoch.cu, cml_epoch.cu) share: a warp's shuffle sum and max, and
+// dense Adam over a list of f32 tensors, or one element at a time inside
+// a kernel of their own (cml_epoch.cu fuses it with its regulariser).
 //
 // The TPU epoch kernels apply optax's Adam (b1, b2, eps) to every element
 // of every resident parameter after each step (_adam_apply of
@@ -29,6 +30,37 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// Adam's constants at one step: b1, 1 - b1, b2, 1 - b2 and the bias
+// corrections, each rounded to f32 once.
+struct AdamStep {
+  float lr, b1, c1, b2, c2, eps, bc1, bc2;
+};
+
+// One element of Adam: reads g, updates m, v and p in place.
+__device__ __forceinline__ void adam_elem(float* p, float* m, float* v,
+                                          float g, const AdamStep& a) {
+  const float mk = a.b1 * *m + a.c1 * g;
+  const float vk = a.b2 * *v + a.c2 * (g * g);
+  *m = mk;
+  *v = vk;
+  *p = *p - a.lr * (mk / a.bc1) / (sqrtf(vk / a.bc2) + a.eps);
+}
+
+// b1 and b2 come as doubles so that log b and 1 - b round to f32 once,
+// as in the JAX kernels.
+inline AdamStep adam_step(int t, float lr, double b1, double b2, float eps) {
+  const float t32 = (float)t;
+  return {lr, (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), eps,
+          1.f - expf(t32 * (float)log(b1)), 1.f - expf(t32 * (float)log(b2))};
+}
+
 struct AdamSegs {
   float* p[ADAM_MAX_SEGS];
   float* m[ADAM_MAX_SEGS];
@@ -39,8 +71,7 @@ struct AdamSegs {
 };
 
 __global__ void __launch_bounds__(ADAM_THREADS)
-adam_dense(AdamSegs s, float lr, float b1, float c1, float b2, float c2,
-           float eps, float bc1, float bc2) {
+adam_dense(AdamSegs s, AdamStep a) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   for (int k = 0; k < s.count; ++k) {
@@ -49,12 +80,7 @@ adam_dense(AdamSegs s, float lr, float b1, float c1, float b2, float c2,
     float* __restrict__ v = s.v[k];
     float* __restrict__ g = s.g[k];
     for (int64_t e = first; e < s.n[k]; e += stride) {
-      const float gk = g[e];
-      const float mk = b1 * m[e] + c1 * gk;
-      const float vk = b2 * v[e] + c2 * (gk * gk);
-      m[e] = mk;
-      v[e] = vk;
-      p[e] = p[e] - lr * (mk / bc1) / (sqrtf(vk / bc2) + eps);
+      adam_elem(p + e, m + e, v + e, g[e], a);
       g[e] = 0.f;
     }
   }
@@ -72,8 +98,7 @@ inline void adam_add(AdamSegs& s, float* p, float* m, float* v, float* g,
 }
 
 // Launches one Adam pass at step t on ``stream``; returns the launch's
-// cudaError_t.  b1 and b2 come as doubles so that log b and 1 - b round
-// to f32 once, as in the JAX kernels.
+// cudaError_t.
 inline int adam_launch(const AdamSegs& s, int t, float lr, double b1,
                        double b2, float eps, cudaStream_t stream) {
   int64_t longest = 0;
@@ -81,12 +106,8 @@ inline int adam_launch(const AdamSegs& s, int t, float lr, double b1,
   if (longest == 0) return 0;
   const int64_t want = (longest + ADAM_THREADS - 1) / ADAM_THREADS;
   const int blocks = (int)(want < 65535 ? want : 65535);
-  const float t32 = (float)t;
-  const float bc1 = 1.f - expf(t32 * (float)log(b1));
-  const float bc2 = 1.f - expf(t32 * (float)log(b2));
   adam_dense<<<blocks, ADAM_THREADS, 0, stream>>>(
-      s, lr, (float)b1, (float)(1.0 - b1), (float)b2, (float)(1.0 - b2), eps,
-      bc1, bc2);
+      s, adam_step(t, lr, b1, b2, eps));
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,10 @@ The test set is stacked once into padded user batches on the device; a
 Python loop ranks each batch and reduces it to per-K metric sums (the
 reference's HR/MRR/NDCG formulas, utils/metrics.py:9-19), so the host
 receives one [n_K, 3] array per eval.  The streaming and sharded modes
-come with later slices.
+come with later slices: the options that select them, or the JAX
+evaluator's test bitmaps, raise, and so does a full-catalog eval that
+the JAX evaluator would stream by default (past ``STREAM_THRESHOLD``
+items), where this one would build the whole [B, I] score matrix.
 """
 
 from __future__ import annotations
@@ -34,11 +37,32 @@ def _pad_masked(v, items):
                                                                  PAD_ITEM))
 
 
+_STREAM = "queue 1, item 5 (streaming and sharded ranking)"
+_BITMAPS = "queue 1, item 7 (the evaluator's test bitmaps)"
+# Options of the JAX evaluator that the port does not have yet, each with
+# the test that it is set and where ROADMAP.md queues it.  A set option
+# raises rather than be ignored.
+_UNPORTED = (
+    ("eval.stream", lambda c, k: c.bool(k, False), _STREAM),
+    ("eval.stream_threshold", lambda c, k: k in c, _STREAM),
+    ("eval.stream_chunk", lambda c, k: k in c, _STREAM),
+    ("eval.device_bitmaps", lambda c, k: not c.bool(k, True), _BITMAPS),
+    ("eval.test_bitmap_budget_mb", lambda c, k: k in c, _BITMAPS),
+)
+# The JAX evaluator streams a full-catalog eval past this many items
+# unless eval.fused_kernel is set (cleverrec_tpu/evalx.py:76-79).
+STREAM_THRESHOLD = 500_000
+
+
 class Evaluator:
     """Evaluates ``model`` on ``device`` (default ``cuda``; the model is
     moved there)."""
 
     def __init__(self, model, device_data: DeviceData, cfg, device="cuda"):
+        for key, is_set, where in _UNPORTED:
+            if is_set(cfg, key):
+                raise NotImplementedError(
+                    f"{key} is not ported yet (ROADMAP.md {where})")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dd = device_data
@@ -52,6 +76,14 @@ class Evaluator:
                     and hasattr(model, "dot_decomposition"))
         self._use_fused = fused_ok and cfg.bool(
             "eval.fused_kernel", self.device.type == "cuda")
+        fused_forced = self._use_fused and "eval.fused_kernel" in cfg
+        if not self.candidate_eval and cfg.bool(
+                "eval.stream", device_data.item_nums > STREAM_THRESHOLD
+                and not fused_forced):
+            raise NotImplementedError(
+                f"a full-catalog eval of {device_data.item_nums} items "
+                f"streams in the JAX package (past {STREAM_THRESHOLD}); "
+                f"streaming is not ported yet (ROADMAP.md {_STREAM})")
         if self.candidate_eval:
             self.mode = "candidate"
         elif self._use_fused:
@@ -63,6 +95,8 @@ class Evaluator:
     # -- rankers: [b, kmax] item ids, PAD_ITEM where masked -------------
     def _rank_candidates(self, aux, u, cand, mask):
         scores = self.model.score_candidates(u, cand, aux)
+        if self.model.cml_like:
+            scores = -scores          # ascending distance, descending score
         scores = scores.masked_fill(~mask, -torch.inf)
         v, idx = topk(scores, min(self.kmax, cand.shape[1]))
         return _pad_masked(v, torch.gather(cand, 1, idx))
@@ -121,7 +155,8 @@ class Evaluator:
         return {k: v[idx] for k, v in self._batches.items()}
 
     def _aux(self, aux):
-        return {k: v.to(self.device) for k, v in (aux or {}).items()}
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in (aux or {}).items()}
 
     # -- metrics --------------------------------------------------------------
     def _metric_sums(self, rec, real, row_w):

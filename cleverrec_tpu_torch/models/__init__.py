@@ -1,5 +1,6 @@
-"""Model registry: BPR, the NCF family (GMF, MLP, NeuMF) and the
-social-triple family (SBPR, TBPR, CUNE_BPR)."""
+"""Model registry: BPR, the NCF family (GMF, MLP, NeuMF), the
+social-triple family (SBPR, TBPR, CUNE_BPR) and the metric-learning
+family (CML, LRML, TransCF)."""
 
 from __future__ import annotations
 
@@ -9,18 +10,16 @@ from cleverrec_tpu_torch.common import resolve_device
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.models.base import DataMeta, RecModel
 from cleverrec_tpu_torch.models.bpr import BPR
+from cleverrec_tpu_torch.models.metric import CML, LRML, TransCF
 from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 from cleverrec_tpu_torch.models.social import CUNE_BPR, SBPR, TBPR
 
 _REGISTRY: dict[str, type] = {m.name: m for m in (BPR, GMF, MLP, NeuMF, SBPR,
-                                                  TBPR, CUNE_BPR)}
+                                                  TBPR, CUNE_BPR, CML, LRML,
+                                                  TransCF)}
 
 # Where each model of the JAX package's zoo arrives in the port.
-_LATER_SLICES = {
-    "SAMN": "social", "SAMN_single": "social",
-    "CML": "metric-learning", "LRML": "metric-learning",
-    "TransCF": "metric-learning",
-}
+_LATER_SLICES = {"SAMN": "social", "SAMN_single": "social"}
 
 
 def available_models() -> list[str]:

@@ -11,18 +11,23 @@ The JAX package's models are stateless objects over a params pytree
 - ``score_candidates(u, cand, aux)``     (default: flattened pairs)
 - ``score_all(u, aux) -> [B, I]``        (full-catalog protocol)
 - ``postprocess()``                      (in place after each optimizer
-  step, e.g. CML's unit clipping; nothing by default)
+  step; nothing by default, and no ported model has one: CML's unit
+  clipping never feeds back into training, metric.py)
 - ``build_aux(dd, data)``                (once per run, before the epoch
-  layout: host-side structures the model's sampler needs, such as the
-  social models' SPu lists and exclusion tables; none by default)
+  layout: host-side structures, such as the social models' SPu lists and
+  exclusion tables for their sampler, or TransCF's inverse degrees for
+  its loss; none by default)
 - ``epoch_pairs(dd)``                    (the (pos_u, pos_i) pairs an
   epoch is built over; all train pairs by default)
 
-``aux`` is a dict of tensors that the losses and scorers read; none of
-the ported models reads any.  ``sampler`` names the batch protocol the trainer drives and
-``fused_protocol`` the whole-epoch kernel a model can train through
-(None: none).  Scores are higher-is-better: distance models, which rank
-ascending, come with the metric-learning slice.
+``aux`` is the trainer's dict of device tensors that the losses and
+scorers read: the epoch pairs ``pos_u`` and ``pos_i`` and the arrays of
+``build_aux`` (TransCF's neighbour means read them; the sampler's tables
+are not in it).  ``sampler`` names the batch protocol the trainer drives
+and ``fused_protocol`` the whole-epoch kernel a model can train through
+(None: none).  Scores are higher-is-better unless ``cml_like`` is set:
+distance models (CML, LRML, TransCF) score a squared distance, lower is
+better, and every ranker negates it before it masks or selects.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ class RecModel(nn.Module):
     name: str = "base"
     sampler: str = "pairwise"
     fused_protocol: str | None = None
+    cml_like: bool = False         # distance model: lower score = better
 
     def __init__(self, cfg: Config, meta: DataMeta):
         super().__init__()

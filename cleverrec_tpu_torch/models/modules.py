@@ -1,0 +1,24 @@
+"""Shared model building blocks (as ``cleverrec_tpu/models/modules.py``).
+
+Only the neighbourhood mean that TransCF needs is here so far; the rest
+of the JAX module (history attention and the other layers) comes with
+the other ranking models.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def segment_mean_embeddings(ids_seg: torch.Tensor, ids_val: torch.Tensor,
+                            table: torch.Tensor, num_segments: int,
+                            inv_counts: torch.Tensor) -> torch.Tensor:
+    """out[s] = inv_counts[s] * sum_{k: ids_seg[k]==s} table[ids_val[k]].
+
+    With inv_counts = 1/|segment| this is the row-normalized incidence
+    matmul (TransCF's ui/iu matrices).  ``index_add`` out of place, so
+    the gradient flows into ``table``."""
+    out = torch.zeros((num_segments, table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    out = out.index_add(0, ids_seg.long(), table[ids_val.long()])
+    return out * inv_counts[:, None]

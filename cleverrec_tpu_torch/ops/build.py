@@ -21,7 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("dot_scores", "bpr_epoch", "gmf_epoch", "mlp_epoch", "rows_epoch")
+SOURCES = ("dot_scores", "bpr_epoch", "gmf_epoch", "mlp_epoch", "rows_epoch",
+           "cml_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

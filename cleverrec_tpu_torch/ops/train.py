@@ -17,23 +17,33 @@ versions.
   ``fused_rows_epoch_stream`` (the same epoch with the state in HBM; on
   the card the state stays in device memory either way, so
   ``fused_rows_epoch_stream`` is the same function): the multi-plane
-  epoch of the social-triple family, id planes on the user or the item
-  side plus float columns, a model's ``row_loss`` over the gathered
-  rows, dense Adam.  A row whose plane-0 (user) id is outside the user
-  table is masked (w = 0).  Kernel: ``csrc/rows_epoch.cu``, for the
-  social BPR chain of ``rows_epoch_plan``.
+  epoch of the social-triple family and LRML, id planes on the user or
+  the item side plus float columns, a model's ``row_loss`` over the
+  gathered rows, dense Adam.  A row whose plane-0 (user) id is outside the user
+  table is masked (w = 0).  Kernel: ``csrc/rows_epoch.cu``, with a
+  hand-written backward for each form ``rows_epoch_plan`` accepts: the
+  social BPR chain (SBPR, TBPR, CUNE_BPR; kernel ``rows_epoch``) and
+  LRML's memory-attention hinge over planes (u, i, j) with the dense K
+  [d, mem] and M [mem, d] (kernel ``rows_epoch_lrml``).
+- ``fused_cml_epoch`` replaces ``fused_cml_epoch``: CML's rows (u, i)
+  with K negatives each, the WARP-weighted hinge on the nearest
+  negative (ties to the lowest item id), the covariance regulariser
+  over concat(Q, P) on the tables before the step, dense Adam over P
+  and Q.  Kernel: ``csrc/cml_epoch.cu``.
 
-In the BPR and GMF epochs invalid slots carry the sentinel ids
-``U_pad - 1`` / ``I_pad - 1`` of ``sentinel_dims``; an id outside its
-table reads a zero row and receives no gradient, so such a slot adds
-``LOG2`` to the loss and changes nothing else.  The tower epoch masks
+In the BPR, GMF and CML epochs invalid slots carry the sentinel ids
+``U_pad - 1`` / ``I_pad - 1`` of ``sentinel_dims`` (in CML's every
+negative plane too); an id outside its table reads a zero row and
+receives no gradient, so such a slot adds ``LOG2`` to the loss (CML:
+``cml_sentinel_bias``) and changes nothing else.  The tower epoch masks
 rows by w instead (a tower with biases scores a zero row), and so does
 the rows epoch: their losses need no correction.
 
 Unlike the JAX functions, both versions update the state tensors IN
-PLACE and return only the summed per-step loss, sentinel slots' log 2
-included: the caller subtracts ``n_sentinel * LOG2``.  The tables are not
-padded, so no padding of the wrapper's own enters the loss.
+PLACE and return only the summed per-step loss, sentinel slots' terms
+included: the caller subtracts ``n_sentinel * LOG2`` (CML:
+``n_sentinel * cml_sentinel_bias``).  The tables are not padded, so no
+padding of the wrapper's own enters the loss.
 
 A wrapper given CPU tensors runs its ``*_ref`` plain version; given CUDA
 tensors it launches its kernel or raises; it never falls back.
@@ -53,7 +63,8 @@ from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS,
 
 LOG2 = math.log(2.0)   # -log(sigmoid(0)): the loss of one sentinel slot
 
-launches = {"bpr_epoch": 0, "gmf_epoch": 0, "mlp_epoch": 0, "rows_epoch": 0}
+launches = {"bpr_epoch": 0, "gmf_epoch": 0, "mlp_epoch": 0, "rows_epoch": 0,
+            "rows_epoch_lrml": 0, "cml_epoch": 0}
 
 
 def reset_launches() -> None:
@@ -517,7 +528,7 @@ def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
     return loss.sum()
 
 
-# -- social-triple rows ----------------------------------------------------
+# -- multi-plane rows (social-triple family, LRML) --------------------------
 
 ROWS_MAX_ITEMS = 4
 
@@ -581,21 +592,69 @@ def fused_rows_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
     return losses.sum()
 
 
+LRML_WARPS = (16, 8, 4)
+
+
+def _lrml_smem(d: int, mem: int, warps: int) -> int:
+    """csrc/rows_epoch.cu's shared memory for LRML's form, in bytes: K
+    [d, mem | 1] and M [mem, d | 1] (odd strides, no bank conflicts) and
+    their gradient sums, and per warp the rows ue, i, j, their grads, a
+    and e for i and j (10 d) and att for i and j and one scratch (3 mem)."""
+    return 4 * (2 * (d * (mem | 1) + mem * (d | 1))
+                + warps * (10 * d + 3 * mem))
+
+
+def _lrml_plan(spec: dict, lrml: dict) -> dict:
+    sides = tuple(sd for _, sd in spec["planes"])
+    if sides != ("u", "i", "i") or spec["floats"] or len(spec["dense"]) != 2:
+        raise ValueError("fused_rows_epoch: LRML's form takes the planes "
+                         "(u, i, j), no float column and the dense K and M")
+    if lrml["loss"] != "hinge":
+        raise ValueError("fused_rows_epoch: LRML's form has the hinge's "
+                         f"backward, not that of loss_func={lrml['loss']}")
+    d, mem = int(lrml["d"]), int(lrml["mem"])
+    for warps in LRML_WARPS:
+        smem = _lrml_smem(d, mem, warps)
+        if smem <= SMEM_LIMIT:
+            return {"form": "lrml", "items": 2, "float_link": -1,
+                    "dense_link": -1, "d": d, "mem": mem, "warps": warps,
+                    "smem_bytes": smem, "margin": float(lrml["margin"]),
+                    "reg": float(lrml["reg"])}
+    raise ValueError(f"fused_rows_epoch: LRML's form at d {d}, mem {mem} "
+                     f"needs {smem} bytes of shared memory for "
+                     f"{LRML_WARPS[-1]} warps, past the {SMEM_LIMIT} a "
+                     "block may have")
+
+
 def rows_epoch_plan(spec: dict) -> dict:
-    """The rows kernel's view of a model's ``fused_rows_spec``: the
-    social BPR chain over one user plane and L item planes (2 <= L <=
-    ``ROWS_MAX_ITEMS``), x_m = <P[u], Q[m]> + bias[m], links
-    z_t = (x_t - x_{t+1}) / c_t with c_t = max(f, 1) on the float column's
-    link, s + 1 on the dense scalar's link and 1 elsewhere, loss
-    sum_t -log sigmoid(z_t) plus reg (|P[u]|^2 + sum_m |Q[m]|^2 +
-    bias[m]^2) / 2 a valid row.  Returns {"items", "float_link",
-    "dense_link", "reg"} (-1 for no link); raises ValueError for a spec
-    outside that form, whose backward the kernel does not have."""
+    """The rows kernel's view of a model's ``fused_rows_spec``, one of
+    two forms whose backward the kernel has by hand:
+
+    - ``lrml`` (the spec's ``lrml`` entry): LRML over planes (u, i, j),
+      d = |P[u] + softmax((P[u] * x) K) M - x|^2 for x = Q[i], Q[j], loss
+      max(d_i - d_j + margin, 0) plus reg (|P[u]|^2 + |Q[i]|^2 +
+      |Q[j]|^2) / 2 a valid row.  Returns {"form": "lrml", "items": 2,
+      "float_link": -1, "dense_link": -1, "d", "mem", "warps",
+      "smem_bytes", "margin", "reg"}.
+    - ``chain`` (the spec's ``chain`` entry): the social BPR chain over
+      one user plane and L item planes (2 <= L <= ``ROWS_MAX_ITEMS``),
+      x_m = <P[u], Q[m]> + bias[m], links z_t = (x_t - x_{t+1}) / c_t
+      with c_t = max(f, 1) on the float column's link, s + 1 on the dense
+      scalar's link and 1 elsewhere, loss sum_t -log sigmoid(z_t) plus
+      reg (|P[u]|^2 + sum_m |Q[m]|^2 + bias[m]^2) / 2 a valid row.
+      Returns {"form": "chain", "items", "float_link", "dense_link",
+      "reg"} (-1 for no link).
+
+    Raises ValueError for a spec outside both forms."""
+    lrml = spec.get("lrml")
+    if lrml is not None:
+        return _lrml_plan(spec, lrml)
     chain = spec.get("chain")
     if chain is None:
-        raise ValueError("fused_rows_epoch: the spec's row_loss is not the "
-                         "social BPR chain (no 'chain' entry): the kernel "
-                         "has no backward for it")
+        raise ValueError("fused_rows_epoch: the spec's row_loss is neither "
+                         "the social BPR chain (no 'chain' entry) nor "
+                         "LRML's form (no 'lrml' entry): the kernel has no "
+                         "backward for it")
     sides = tuple(sd for _, sd in spec["planes"])
     items = len(sides) - 1
     if sides != ("u",) + ("i",) * items or not 2 <= items <= ROWS_MAX_ITEMS:
@@ -615,7 +674,8 @@ def rows_epoch_plan(spec: dict) -> dict:
     if links["float_link"] >= 0 and links["float_link"] == links["dense_link"]:
         raise ValueError("fused_rows_epoch: one link cannot take both "
                          "divisors")
-    return {"items": items, **links, "reg": float(chain["reg"])}
+    return {"form": "chain", "items": items, **links,
+            "reg": float(chain["reg"])}
 
 
 def _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
@@ -642,18 +702,20 @@ def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
                      planes, floats, t0: int, *, sides, spec: dict,
                      lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
                      eps: float = ADAM_EPS):
-    """One multi-plane (social-triple) epoch with dense Adam, in place.
+    """One multi-plane epoch (social-triple family, LRML) with dense Adam,
+    in place.
 
     pu, qi: the user and item sides, each a tensor or a tuple of tensors
     of one height that a gathered row joins on the feature axis (a 1-D
     tensor is one column): SBPR's (P,) and (Q, bias[:I]); dense: the
-    model's dense params (CUNE_BPR's 0-d s); m*, v*: their Adam moments
+    model's dense params (CUNE_BPR's 0-d s, LRML's K and M); m*, v*:
+    their Adam moments
     in the same layout; planes: [steps, B] int32 id streams, plane p on
     the user side when ``sides[p]`` is 'u' (plane 0 must be, and a row
     whose plane-0 id is outside the user table is masked) else the item
     side; floats: [steps, B] f32 columns; t0 the Adam step count so far.
     ``spec`` is the model's ``fused_rows_spec()``: the kernel takes its
-    chain (``rows_epoch_plan``), the plain version its ``row_loss``.
+    form (``rows_epoch_plan``), the plain version its ``row_loss``.
     Updates every state tensor in place and returns the summed per-step
     loss (a 0-dim f32 tensor); no correction is due."""
     pu, qi, mpu, mqi, vpu, vqi = map(_side, (pu, qi, mpu, mqi, vpu, vqi))
@@ -692,11 +754,16 @@ class _RowsArgs(ctypes.Structure):
                                                "steps", "t0", "float_link",
                                                "dense_link")]
                 + [(n, ctypes.c_float) for n in ("reg", "lr", "eps")]
-                + [("b1", ctypes.c_double), ("b2", ctypes.c_double)])
+                + [("b1", ctypes.c_double), ("b2", ctypes.c_double)]
+                + [(n, ctypes.c_int) for n in ("form", "mem", "warps",
+                                               "smem_bytes")]
+                + [("margin", ctypes.c_float)])
 
 
-def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
-                 floats, t0, *, plan, lr, b1, b2, eps):
+ROWS_FORMS = {"chain": 0, "lrml": 1}
+
+
+def _check_rows_chain(pu, qi, dense, floats, plan):
     if (len(pu) != 1 or pu[0].dim() != 2 or len(qi) != 2
             or qi[0].dim() != 2 or qi[1].dim() != 1
             or qi[0].shape[1] != pu[0].shape[1]):
@@ -709,11 +776,32 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
     if len(floats) != int(plan["float_link"] >= 0):
         raise ValueError("fused_rows_epoch: one float column for the "
                          "chain's float link, none without")
+
+
+def _check_rows_lrml(pu, qi, dense, floats, plan):
+    d, mem = plan["d"], plan["mem"]
+    if (len(pu) != 1 or len(qi) != 1 or floats
+            or tuple(pu[0].shape[1:]) != (d,)
+            or tuple(qi[0].shape[1:]) != (d,) or len(dense) != 2
+            or tuple(dense[0].shape) != (d, mem)
+            or tuple(dense[1].shape) != (mem, d)):
+        raise ValueError(f"fused_rows_epoch: LRML's form takes pu = (P [U, "
+                         f"{d}],), qi = (Q [I, {d}],), dense = (K [{d}, "
+                         f"{mem}], M [{mem}, {d}]) and no float column")
+
+
+def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
+                 floats, t0, *, plan, lr, b1, b2, eps):
+    lrml = plan["form"] == "lrml"
+    if lrml:
+        _check_rows_lrml(pu, qi, dense, floats, plan)
+    else:
+        _check_rows_chain(pu, qi, dense, floats, plan)
     params = (*pu, *qi, *dense)
     _contiguous("fused_rows_epoch", (*params, *mpu, *mqi, *mdense, *vpu,
                                      *vqi, *vdense, *planes, *floats))
     steps, b = planes[0].shape
-    (p, q, bias), d = params[:3], pu[0].shape[1]
+    (p, q), d = params[:2], pu[0].shape[1]
     if max(p.numel(), q.numel(), steps, b, t0 + steps) >= 2 ** 31:
         raise ValueError("fused_rows_epoch: a size or step count past the "
                          "kernel's int32 arguments")
@@ -724,7 +812,10 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
                   dense_link=plan["dense_link"], reg=plan["reg"], lr=lr,
                   eps=eps, b1=b1, b2=b2,
                   fcol=floats[0].data_ptr() if floats else None,
-                  loss=loss.data_ptr())
+                  loss=loss.data_ptr(), form=ROWS_FORMS[plan["form"]],
+                  mem=plan.get("mem", 0), warps=plan.get("warps", 0),
+                  smem_bytes=plan.get("smem_bytes", 0),
+                  margin=plan.get("margin", 0.0))
     for key, group in (("p", params), ("m", (*mpu, *mqi, *mdense)),
                        ("v", (*vpu, *vqi, *vdense)), ("g", grads)):
         getattr(a, key)[:len(group)] = [x.data_ptr() for x in group]
@@ -735,5 +826,146 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     with torch.cuda.device(p.device):
         err = fn(ctypes.addressof(a), _stream(p.device))
-    _launch_ok("rows_epoch", err)
+    _launch_ok("rows_epoch_lrml" if lrml else "rows_epoch", err)
+    return loss.sum()
+
+
+# -- CML ------------------------------------------------------------------
+
+def _lane_sq_dist(a, b):
+    """|a - b|^2 over the last axis, summed as csrc/cml_epoch.cu sums it:
+    lane l of a warp adds the squares of elements l, l + 32, .. in turn
+    (no FMA), then an xor butterfly adds the 32 lanes.  Each step is an
+    f32 product or sum rounded on its own, so both versions get the same
+    distances and pick the same negatives."""
+    diff = a - b
+    diff = torch.nn.functional.pad(diff, (0, (-diff.shape[-1]) % 32))
+    sq = diff * diff
+    sq = sq.reshape(*sq.shape[:-1], -1, 32)
+    acc = sq[..., 0, :]
+    for t in range(1, sq.shape[-2]):
+        acc = acc + sq[..., t, :]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    return acc[..., 0]
+
+
+def cml_sentinel_bias(margin: float, item_nums: int, neg_ratio: int) -> float:
+    """The loss of one sentinel row of ``fused_cml_epoch``: its rows are
+    zero, so its slack is ``margin`` and all K negatives are imposters,
+    and its WARP weight is log(item_nums / K + 1)."""
+    return margin * math.log(item_nums / neg_ratio + 1.0)
+
+
+@torch.no_grad()
+def fused_cml_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
+                        *, lr: float, reg: float, margin: float,
+                        item_nums: int, b1: float = ADAM_B1,
+                        b2: float = ADAM_B2, eps: float = ADAM_EPS):
+    """Plain version of ``fused_cml_epoch``: the same per-step arithmetic
+    in PyTorch ops, ``index_add_`` for the scatter.  Same arguments and
+    result; updates the state in place."""
+    steps, _, k = n_idx.shape
+    n_users, n_rows = p.shape[0], p.shape[0] + q.shape[0]
+    big = torch.iinfo(torch.int64).max
+    losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    for s in range(steps):
+        pe, u = _rows(p, u_idx[s].long())
+        qi, i = _rows(q, i_idx[s].long())
+        negs = n_idx[s].long()                               # [B, K]
+        qn = _rows(q, negs.reshape(-1))[0].reshape(*negs.shape, -1)
+        d_ui = _lane_sq_dist(pe, qi)
+        d_un = _lane_sq_dist(pe[:, None], qn)
+        d_min = d_un.min(dim=1).values
+        # The nearest negative; exact ties go to the lowest item id.
+        sel = torch.where(d_un == d_min[:, None], negs, big).min(dim=1).values
+        cnt = ((d_ui[:, None] + margin - d_un) > 0).sum(dim=1).float()
+        wlog = torch.log(cnt / k * item_nums / k + 1.0)
+        slack = d_ui + margin - d_min
+        c = (2.0 * wlog * (slack > 0))[:, None]
+        qs, sel = _rows(q, sel)
+        # The covariance regulariser over concat(Q, P), before the step.
+        x = torch.cat([q, p])
+        xc = x - x.sum(dim=0) / n_rows
+        s_r = xc.sum(dim=1, keepdim=True)
+        g_cov = (2.0 * reg / n_rows) * (s_r - xc)
+        losses[s] = torch.sum(wlog * torch.clamp(slack, min=0.0)) + reg * (
+            torch.sum(s_r * s_r) - torch.sum(xc * xc)) / n_rows
+        dp = _scatter(p, (u, c * (qs - qi))) + g_cov[-n_users:]
+        dq = _scatter(q, (i, -c * (pe - qi)), (sel, c * (pe - qs))) + (
+            g_cov[:-n_users])
+        _adam_dense(((p, mp, vp, dp), (q, mq, vq, dq)), t0 + s + 1, lr, b1,
+                    b2, eps)
+    return losses.sum()
+
+
+def _check_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx):
+    _check(p, q, mp, vp, mq, vq, u_idx, i_idx, i_idx)
+    if n_idx.device != p.device:
+        raise ValueError("state and ids must be on one device")
+    if n_idx.dtype != torch.int32:
+        raise TypeError("negative ids must be int32")
+    if n_idx.dim() != 3 or n_idx.shape[:2] != u_idx.shape or not (
+            n_idx.shape[2] >= 1):
+        raise ValueError(f"negatives {tuple(n_idx.shape)} must be [steps, B, "
+                         f"K >= 1] beside ids {tuple(u_idx.shape)}")
+
+
+def fused_cml_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
+                    *, lr: float, reg: float, margin: float, item_nums: int,
+                    b1: float = ADAM_B1, b2: float = ADAM_B2,
+                    eps: float = ADAM_EPS):
+    """One CML epoch with dense Adam, in place.
+
+    p [U, d], q [I, d] f32 tables; mp, vp, mq, vq their Adam moments;
+    u_idx, i_idx [steps, B] and n_idx [steps, B, K] int32 sampled rows,
+    invalid slots at the sentinel ids in all three; t0 the Adam step
+    count so far; ``item_nums`` the real catalog size of the WARP rank.
+    Per step: d_ui = |P[u] - Q[i]|^2, d_k = |P[u] - Q[n_k]|^2, the
+    nearest negative (ties to the lowest item id), the imposter count
+    cnt = #{k: d_ui + margin > d_k}, loss wlog * max(d_ui + margin -
+    d_min, 0) with wlog = log(cnt / K * item_nums / K + 1) (no gradient
+    through it); the covariance regulariser over concat(Q, P) on the
+    tables before the step; dense Adam at t0 + s + 1.  Updates the six
+    state tensors in place and returns the summed per-step loss (a 0-dim
+    f32 tensor) that still includes ``cml_sentinel_bias`` per sentinel
+    row."""
+    _check_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx)
+    args = (p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, int(t0))
+    opts = dict(lr=lr, reg=reg, margin=margin, item_nums=item_nums, b1=b1,
+                b2=b2, eps=eps)
+    if p.device.type == "cpu":
+        return fused_cml_epoch_ref(*args, **opts)
+    if p.device.type != "cuda":
+        raise ValueError(f"fused_cml_epoch: no kernel for device {p.device}")
+    return _launch_cml(*args, **opts)
+
+
+def _launch_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0, *, lr, reg,
+                margin, item_nums, b1, b2, eps):
+    _contiguous("fused_cml_epoch", (p, q, mp, vp, mq, vq, u_idx, i_idx,
+                                    n_idx))
+    steps, b, k = n_idx.shape
+    if max(p.numel(), q.numel(), n_idx.numel(), t0 + steps) >= 2 ** 31:
+        raise ValueError("fused_cml_epoch: a size or step count past the "
+                         "kernel's int32 arguments")
+    from cleverrec_tpu_torch.ops.build import load
+    fn = load("cml_epoch").cml_epoch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 4 + [ctypes.c_double] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    dp, dq = torch.zeros_like(p), torch.zeros_like(q)
+    colsum = torch.zeros((steps, p.shape[1]), dtype=torch.float32,
+                         device=p.device)
+    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        err = fn(*(t.data_ptr() for t in (p, q, mp, vp, mq, vq, dp, dq,
+                                          u_idx, i_idx, n_idx, colsum,
+                                          loss)),
+                 p.shape[0], q.shape[0], p.shape[1], steps, b, k, t0, lr,
+                 reg, margin, float(item_nums), b1, b2, eps,
+                 _stream(p.device))
+    _launch_ok("cml_epoch", err)
     return loss.sum()

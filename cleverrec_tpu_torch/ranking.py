@@ -4,9 +4,10 @@ One implementation of each ranker, used by both the Evaluator (evalx.py)
 and the serving module (serving.py).  Every ranker returns
 ``(values [B, k], items [B, k])`` with masked slots at exactly ``-inf``
 (the kernels' finite -3e38 sentinel is normalized here).  Scores are
-"higher is better" (distance models, which rank ascending, come with
-the metric-learning slice).  Selection breaks ties by the lowest item
-id, as ``lax.top_k``.
+"higher is better": a ``cml_like`` distance model's scores are negated
+inside each ranker, before masking (the fused path negates inside the
+dot, so the -3e38 seen mask stays the worst score).  Selection breaks
+ties by the lowest item id, as ``lax.top_k``.
 
 The dense ranker is plain PyTorch (plain XLA in the JAX package); the
 fused ranker runs the CUDA kernels of ops/scores.py on a CUDA device and
@@ -37,6 +38,8 @@ def masked_full_scores(model, aux, u, rows, filter_seen: bool = True):
     ``rows``: the batch users' sorted seen rows [B, L], padded with the
     sentinel id ``I``, which lands in a spill column that is cut off."""
     scores = model.score_all(u, aux)
+    if model.cml_like:
+        scores = -scores
     if not filter_seen:
         return scores
     b, item_nums = scores.shape
@@ -55,13 +58,16 @@ def rank_dense(model, aux, u, rows, k: int, filter_seen: bool = True):
 
 def fused_precompute(model, aux):
     """Batch-independent half of the fused path: the item table and the
-    item bias, contiguous float32.  Callers ranking many
+    item bias (negated for a ``cml_like`` model), contiguous float32.
+    Callers ranking many
     batches against one set of parameters compute it once and pass it to
     ``rank_fused`` as ``pre``.  The port scores in original item order, so
     unlike the JAX package nothing is permuted."""
     dev = next(model.parameters()).device
     _, table, bias = model.dot_decomposition(
         torch.zeros(1, dtype=torch.long, device=dev), aux)
+    if model.cml_like and bias is not None:
+        bias = -bias
     table = table.detach().float().contiguous()
     return table, None if bias is None else bias.detach().float().contiguous()
 
@@ -82,8 +88,13 @@ def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
     and at most k groups can, so the rescue is exact up to f32 rounding
     between the kernel's dot and the rescue's."""
     u_vecs, table, bias = model.dot_decomposition(u, aux)
+    if model.cml_like:
+        # Negate INSIDE the dot, (-u).q - bias, so the kernels' -3e38 seen
+        # mask stays the worst score; never negate after masking.
+        u_vecs = -u_vecs
+        bias = None if bias is None else -bias
     if pre is not None:
-        table, bias = pre
+        table, bias = pre       # fused_precompute negated its bias already
     u_vecs = u_vecs.float().contiguous()
     table = table.float().contiguous()
     seen_bits = seen_bits.to(torch.int32).contiguous()

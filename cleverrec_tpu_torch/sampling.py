@@ -1,6 +1,7 @@
-"""Per-entity membership tables and the pairwise, pointwise and social
-samplers: the parts of ``cleverrec_tpu/sampling.py`` that ranking and the
-training of BPR, the NCF family and the social-triple family need.
+"""Per-entity membership tables and the pairwise, pointwise, CML and
+social samplers: the parts of ``cleverrec_tpu/sampling.py`` that ranking
+and the training of BPR, the NCF, social-triple and metric-learning
+families need.
 
 Bitmaps are int32 with the bit pattern of the JAX package's uint32
 ``MemberTable.bits``: id ``i`` is bit ``i & 31`` of word ``i >> 5``.
@@ -12,7 +13,9 @@ every train pair repeated ``neg_ratio`` times, each with a uniform
 negative drawn from the user's unseen items, globally shuffled and
 padded with weight-0 rows to whole batches.  A pointwise epoch
 (utils/sampler.py:10-43) holds each train pair once as a positive and
-``neg_ratio`` times with a uniform negative.  Ranks are drawn with an
+``neg_ratio`` times with a uniform negative, and a CML epoch
+(utils/sampler.py:77-99) each train pair once with ``neg_ratio``
+uniform negatives.  Ranks are drawn with an
 explicit ``torch.Generator`` on the tables' device and resolved to ids
 by ``unseen_by_rank``, which returns exactly the JAX complement table's
 entry ``complement[e, r]``, so no complement table is built.
@@ -171,15 +174,18 @@ def pointwise_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
 
 
 def epoch_negatives(gen: torch.Generator, static: dict, rows: torch.Tensor,
-                    lens: torch.Tensor) -> torch.Tensor:
-    """One uniform negative per row of the static layout: a rank drawn
-    uniformly below the row's unseen count, resolved by
-    ``unseen_by_rank`` (the exact branch of the JAX sampler's
-    ``_epoch_negatives``)."""
+                    lens: torch.Tensor, k: int | None = None) -> torch.Tensor:
+    """One uniform negative per row of the static layout, or ``k`` of
+    them ([rows, k]; the CML protocol): a rank drawn uniformly below the
+    row's unseen count, resolved by ``unseen_by_rank`` (the exact branch
+    of the JAX sampler's ``_epoch_negatives``)."""
     u = static["ord_u"]
-    r = torch.randint(0, 2 ** 31 - 1, u.shape, generator=gen,
+    nun = static["ord_nun"]
+    shape = u.shape if k is None else (u.shape[0], k)
+    r = torch.randint(0, 2 ** 31 - 1, shape, generator=gen,
                       device=u.device, dtype=torch.int64)
-    return unseen_by_rank(rows, lens, u, r % static["ord_nun"])
+    return unseen_by_rank(rows, lens, u,
+                          r % (nun if k is None else nun[:, None]))
 
 
 def pairwise_epoch_tensors(gen: torch.Generator, static: dict,
@@ -197,6 +203,23 @@ def pairwise_epoch_tensors(gen: torch.Generator, static: dict,
             "i": static["ord_i"][perm].reshape(steps, b),
             "j": j[perm].reshape(steps, b),
             "w": w.reshape(steps, b)}
+
+
+def cml_epoch_tensors(gen: torch.Generator, static: dict,
+                      rows: torch.Tensor, lens: torch.Tensor,
+                      rows_total: int, steps: int, b: int, *,
+                      neg_ratio: int) -> dict[str, torch.Tensor]:
+    """The whole epoch's (u, i, w) as [steps, b] and negs as
+    [steps, b, neg_ratio]: one row per train pair (the static layout is
+    ``pairwise_epoch_static(..., neg_ratio=1)``), ``neg_ratio``
+    independent uniform unseen negatives each (duplicates possible), one
+    shuffle of the rows (utils/sampler.py:77-99)."""
+    negs = epoch_negatives(gen, static, rows, lens, k=neg_ratio)
+    perm, w = epoch_permutation(gen, rows_total, steps * b)
+    return {"u": static["ord_u"][perm].reshape(steps, b),
+            "i": static["ord_i"][perm].reshape(steps, b),
+            "w": w.reshape(steps, b),
+            "negs": negs[perm].reshape(steps, b, neg_ratio)}
 
 
 def pointwise_epoch_tensors(gen: torch.Generator, static: dict,

@@ -22,8 +22,18 @@ from cleverrec_tpu_torch.ops.topk import topk
 from cleverrec_tpu_torch.sampling import rows_to_bits
 
 
+# ``auto`` serves through the fused backend up to this many items and
+# through dense past it.  Fused retrieval beats dense on the narrow branch
+# (dot_scores, catalogs up to 4,096 items) and loses to it on every wide
+# catalog measured, where dot_gmax's group maxes are followed by a rescue
+# and a launch-bound extraction (tools/serve_crossover.py on NVIDIA H100
+# 80GB HBM3 at 700.00 W, PERF.md section 5).
+FUSED_MAX_ITEMS = 4096
+
+
 def _pick_backend(model, device: torch.device) -> str:
-    if device.type == "cuda" and hasattr(model, "dot_decomposition"):
+    if (device.type == "cuda" and hasattr(model, "dot_decomposition")
+            and model.meta.item_nums <= FUSED_MAX_ITEMS):
         return "fused"
     return "dense"
 
@@ -41,12 +51,15 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     Returns retrieve(user_ids [B]) -> (items [B, k] int64, scores [B, k]).
     Filtered-out / past-catalog slots come back as item id -1 with -inf
     score.  ``backend``: auto | dense | fused; auto picks fused on a CUDA
-    device for dot-decomposable models.  ``retrieve.backend`` names the
-    backend in use.
+    device for dot-decomposable models up to ``FUSED_MAX_ITEMS`` items.
+    ``retrieve.backend`` names the backend in use.  A distance model's
+    fused scores leave out each user's |u|^2, so they differ from the
+    dense scores by that per-user offset; the rankings agree.
     """
     dev = resolve_device(device)
     model.to(dev)
-    aux = {key: v.to(dev) for key, v in (aux or {}).items()}
+    aux = {key: torch.as_tensor(v, device=dev)
+           for key, v in (aux or {}).items()}
     item_nums = model.meta.item_nums
     if backend == "auto":
         backend = _pick_backend(model, dev)
@@ -93,7 +106,8 @@ def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
     Negative candidate ids are treated as padding and never surface."""
     dev = resolve_device(device)
     model.to(dev)
-    aux = {key: v.to(dev) for key, v in (aux or {}).items()}
+    aux = {key: torch.as_tensor(v, device=dev)
+           for key, v in (aux or {}).items()}
 
     @torch.no_grad()
     def rerank(u, cand):
@@ -101,6 +115,8 @@ def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
         cand = torch.as_tensor(cand, device=dev).long()
         valid = cand >= 0
         scores = model.score_candidates(u, cand.clamp(min=0), aux)
+        if model.cml_like:
+            scores = -scores
         scores = scores.masked_fill(~valid, -torch.inf)
         v, idx = topk(scores, min(k, cand.shape[1]))
         return _pad_ids(v, torch.gather(cand, 1, idx))

@@ -3,12 +3,17 @@
 
 An epoch is the model's sampler's whole epoch as [steps, B] tensors,
 drawn in one pass from an explicit generator on the trainer's device:
-(u, i, j, w) for the pairwise protocol (BPR), (u, i, y, w) for the
-pointwise one (GMF, MLP, NeuMF), (u, i, k, j, suk, w) for ``sbpr``
-(SBPR, CUNE_BPR) and (u, i, s, t, j, w) for ``tbpr`` (TBPR).  The
-model's ``build_aux`` runs first (the social models' SPu lists and
-exclusion tables) and its ``epoch_pairs`` give the pairs the epoch
-covers.  It is trained through one of two tiers:
+(u, i, j, w) for the pairwise protocol (BPR, LRML, TransCF), (u, i, y,
+w) for the pointwise one (GMF, MLP, NeuMF), (u, i, w) and negs
+[steps, B, neg_ratio] for ``cml`` (CML), (u, i, k, j, suk, w) for
+``sbpr`` (SBPR, CUNE_BPR) and (u, i, s, t, j, w) for ``tbpr`` (TBPR).
+The model's ``build_aux`` runs first (the social models' SPu lists and
+exclusion tables, TransCF's inverse degrees) and its ``epoch_pairs``
+give the pairs the epoch covers.  ``Trainer.aux``, which the loss and
+the evaluator read, holds those pairs as ``pos_u`` and ``pos_i`` and
+the numeric arrays of ``build_aux`` as device tensors (as the JAX
+trainer's ``arrays``); the sampler's tables stay out of it.  It is
+trained through one of two tiers:
 
 - the fused tier (Adam and ``train.fused_kernel`` on; it defaults on for
   a CUDA device and off on the CPU), one call of an ``ops.train`` epoch
@@ -17,12 +22,16 @@ covers.  It is trained through one of two tiers:
   ``pairwise_bpr`` (the bpr loss only) runs ``fused_bpr_epoch`` and
   ``pointwise_bce`` runs ``fused_gmf_epoch``, both with invalid slots at
   the sentinel ids and ``n_sent * LOG2`` taken off the loss;
+  ``cml_hinge`` (the hinge loss only) runs ``fused_cml_epoch``, invalid
+  slots at the sentinel ids in u, i and every negative plane, and
+  ``n_sent * cml_sentinel_bias`` taken off the loss;
   ``pointwise_mlp`` runs ``fused_mlp_epoch`` over the model's
   ``fused_mlp_spec``, masked by w in the kernel, with no correction;
   ``rows`` runs ``fused_rows_epoch`` over the model's
-  ``fused_rows_spec``, invalid slots at the sentinel ids, masked in the
-  kernel, with no correction (``train.fused_stream`` selects the same
-  kernel: on the card the state stays in device memory either way);
+  ``fused_rows_spec`` (the social BPR chain, or LRML's form), invalid
+  slots at the sentinel ids, masked in the kernel, with no correction
+  (``train.fused_stream`` selects the same kernel: on the card the state
+  stays in device memory either way);
 - the scan tier: per step, autograd of ``model.loss``, the optax-semantics
   update of ``common.make_optimizer``, then ``model.postprocess``.
 
@@ -34,8 +43,10 @@ averaged over the number of batches (RankingRecommender.py:61).
 
 from __future__ import annotations
 
+import functools
 import time
 
+import numpy as np
 import torch
 
 from cleverrec_tpu_torch import sampling
@@ -45,7 +56,8 @@ from cleverrec_tpu_torch.data.arrays import DeviceData, build_device_data
 from cleverrec_tpu_torch.data.dataset import RankingData
 from cleverrec_tpu_torch.evalx import Evaluator
 from cleverrec_tpu_torch.models.base import RecModel
-from cleverrec_tpu_torch.ops.train import (LOG2, fused_bpr_epoch,
+from cleverrec_tpu_torch.ops.train import (LOG2, cml_sentinel_bias,
+                                           fused_bpr_epoch, fused_cml_epoch,
                                            fused_gmf_epoch, fused_mlp_epoch,
                                            fused_rows_epoch, mlp_epoch_plan,
                                            rows_epoch_plan, sentinel_dims)
@@ -60,6 +72,8 @@ _UNPORTED = (
     ("train.fused_groups", lambda c, k: c.int(k, 0) > 1, _TIERS),
     ("train.sparse_rows_force", lambda c, k: c.bool(k),
      "queue 1, item 9 (the lazy row-Adam tier)"),
+    ("train.sbpr_epoch_tensors", lambda c, k: not c.bool(k, True),
+     "queue 1, item 9 (the per-step social samplers)"),
     ("save.best", lambda c, k: c.bool(k), "queue 1, item 15 (checkpoints)"),
     ("gmf_pretrain", lambda c, k: k in c, "queue 1, item 15 (warm starts)"),
     ("mlp_pretrain", lambda c, k: k in c, "queue 1, item 15 (warm starts)"),
@@ -109,11 +123,12 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
         _refuse_unported(cfg)
-        if model.sampler not in ("pairwise", "pointwise", "sbpr", "tbpr"):
+        if model.sampler not in ("pairwise", "pointwise", "cml", "sbpr",
+                                 "tbpr"):
             raise NotImplementedError(
                 f"sampler {model.sampler!r} is not ported yet: the port "
-                "trains the pairwise, pointwise, sbpr and tbpr protocols "
-                "(ROADMAP.md queue 1)")
+                "trains the pairwise, pointwise, cml, sbpr and tbpr "
+                "protocols (ROADMAP.md queue 1)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -126,15 +141,20 @@ class Trainer:
         self.n_pairs = len(pos_u)
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
-        # A pointwise pair is one positive row and neg_ratio negatives.
-        self._epoch_rows = self.n_pairs * (
-            self.neg_ratio + 1 if model.sampler == "pointwise"
-            else self.neg_ratio)
+        # A pointwise pair is one positive row and neg_ratio negatives; a
+        # CML pair is one row that carries its neg_ratio negatives.
+        self._epoch_rows = self.n_pairs * {
+            "pointwise": self.neg_ratio + 1, "cml": 1}.get(model.sampler,
+                                                          self.neg_ratio)
         self.steps_per_epoch = cdiv(self._epoch_rows, self.batch_size)
         padded = self.steps_per_epoch * self.batch_size
         self._n_sent = padded - self._epoch_rows
         self._build_layout(pos_u, pos_i, padded)
-        self.aux: dict[str, torch.Tensor] = {}
+        self.aux: dict[str, torch.Tensor] = {
+            name: torch.as_tensor(a, device=self.device)
+            for name, a in (("pos_u", pos_u), ("pos_i", pos_i),
+                            *self.model_aux.items())
+            if isinstance(a, np.ndarray)}
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr)
         self.fused = self._fused_epoch_eligible()
         self._gen: torch.Generator | None = None
@@ -160,6 +180,10 @@ class Trainer:
                 tw["off"], *tail)
         elif sampler == "pointwise":
             static = sampling.pointwise_epoch_static(*head, *tail)
+        elif sampler == "cml":
+            # One row per pair, its negatives drawn per row: the pairwise
+            # layout at neg_ratio 1.
+            static = sampling.pairwise_epoch_static(*head, *tail[:2], 1)
         else:
             static = sampling.pairwise_epoch_static(*head, *tail)
 
@@ -174,15 +198,18 @@ class Trainer:
     def _fused_epoch_eligible(self) -> bool:
         """The fused epoch kernels hard-code their model's form and Adam;
         the BPR kernel also the -log sigmoid objective (GMF's sigmoid
-        cross-entropy is its only objective, as in the JAX trainer).
+        cross-entropy is its only objective, as in the JAX trainer), and
+        the CML kernel the hinge.
         ``train.fused_kernel`` turns the tier on or off (default: on for
         a CUDA device).  A tower the kernel does not take (more than 4
-        layers, or shared memory short) or a rows spec outside the
-        social BPR chain is declined here, with a log line, and trains
-        through the scan tier."""
+        layers, or shared memory short) or a rows spec outside the forms
+        the kernel has a backward for (the social BPR chain, LRML's hinge)
+        is declined here, with a log line, and trains through the scan
+        tier."""
         proto = getattr(self.model, "fused_protocol", None)
         if (proto is None or self.cfg.optimizer != "Adam"
                 or (proto == "pairwise_bpr" and self.cfg.loss_func != "bpr")
+                or (proto == "cml_hinge" and self.cfg.loss_func != "hinge")
                 or not self.cfg.bool("train.fused_kernel",
                                      self.device.type == "cuda")):
             return False
@@ -219,7 +246,9 @@ class Trainer:
         tensors_fn = {"sbpr": sampling.sbpr_epoch_tensors,
                       "tbpr": sampling.tbpr_epoch_tensors,
                       "pointwise": sampling.pointwise_epoch_tensors,
-                      "pairwise": sampling.pairwise_epoch_tensors}[
+                      "pairwise": sampling.pairwise_epoch_tensors,
+                      "cml": functools.partial(sampling.cml_epoch_tensors,
+                                               neg_ratio=self.neg_ratio)}[
                           self.model.sampler]
         return tensors_fn(*head, *(self._csr[n] for n in lists),
                           self._epoch_rows, self.steps_per_epoch,
@@ -285,6 +314,17 @@ class Trainer:
                                   ids("u", u_sent), ids("i", i_sent),
                                   col("y"), t0, lr=lr, reg=self.model.reg)
             loss = raw - self._n_sent * LOG2
+        elif proto == "cml_hinge":
+            (p, mp, vp), (q, mq, vq) = map(with_moments, ("P", "Q"))
+            negs = torch.where(inval[..., None], i_sent, tensors["negs"]).to(
+                torch.int32).contiguous()
+            margin, item_nums = self.model.margin, self.dd.item_nums
+            raw = fused_cml_epoch(p, q, mp, vp, mq, vq, ids("u", u_sent),
+                                  ids("i", i_sent), negs, t0, lr=lr,
+                                  reg=self.model.reg, margin=margin,
+                                  item_nums=item_nums)
+            loss = raw - self._n_sent * cml_sentinel_bias(
+                margin, item_nums, self.neg_ratio)
         elif proto == "rows":
             spec = self.model.fused_rows_spec()
             sides = [sd for _, sd in spec["planes"]]
@@ -348,7 +388,7 @@ class Trainer:
 
     def evaluate(self) -> dict[int, tuple[float, float, float]]:
         """{K: (HR, MRR, NDCG)} of the model's current parameters."""
-        return self.evaluator.evaluate()
+        return self.evaluator.evaluate(self.aux)
 
     def run(self, seed: int | None = None, resume_from: str | None = None):
         """Full train/eval loop with best-NDCG@topk[0] tracking

@@ -3,8 +3,9 @@
 The JAX models keep a flat ``{name: array}`` pytree whose names match the
 port's ``nn.Parameter`` names (BPR: ``P``, ``Q``; GMF: ``P``, ``Q``,
 ``h_gmf``; MLP and NeuMF: their tables, ``W_l``, ``b_l`` and ``h_*``;
-SBPR and TBPR: ``P``, ``Q``, ``bias``; CUNE_BPR also its 0-d ``s``),
-and optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
+SBPR and TBPR: ``P``, ``Q``, ``bias``; CUNE_BPR also its 0-d ``s``;
+CML and TransCF: ``P``, ``Q``; LRML: ``P``, ``Q``, ``K`` [d, mem],
+``M`` [mem, d]), and optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
 names.  Shapes are the JAX shapes too, 0-d ones included, so nothing is
 transposed or reshaped.
 Convert the arrays to numpy on the JAX side (``np.asarray``); nothing

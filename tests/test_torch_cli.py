@@ -102,8 +102,9 @@ def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
 
 def test_cli_lists_models(capsys):
     assert cli.main(["--list-models"]) == 0
-    assert capsys.readouterr().out.split() == ["BPR", "CUNE_BPR", "GMF", "MLP",
-                                               "NeuMF", "SBPR", "TBPR"]
+    assert capsys.readouterr().out.split() == [
+        "BPR", "CML", "CUNE_BPR", "GMF", "LRML", "MLP", "NeuMF", "SBPR", "TBPR",
+        "TransCF"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
 dot_scores and dot_gmax, and the epoch kernels bpr_epoch, gmf_epoch,
-mlp_epoch and rows_epoch.
+mlp_epoch, rows_epoch (the social chain and LRML's form) and cml_epoch.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -430,3 +430,152 @@ def test_fused_stream_launches_the_same_kernel(cuda, tmp_path):
         before = T.launches["rows_epoch"]
         tr.train_epochs(params, state, 2)
         assert T.launches["rows_epoch"] == before + 2
+
+
+# cml_epoch: as bpr_epoch, f32 atomics sum duplicate ids (and the
+# regulariser's column sums) in a run-dependent order.  Both versions sum
+# the distances in one order, so they pick the same negatives, exact ties
+# (duplicate ids, identical rows) to the lowest item id.
+CML_CASES = [(29, 41, 16, 4, 4, 64, 0), (37, 53, 40, 5, 3, 37, 7),
+             (943, 1682, 128, 20, 3, 6144, 17)]
+
+
+def _cml_inputs(u_n, i_n, d, k, steps, b, t0, seed=0):
+    rng = np.random.default_rng(seed)
+    u_pad, i_pad = T.sentinel_dims(u_n, i_n)
+    invalid = rng.random((steps, b)) < 0.15
+    invalid[0, :3] = True
+    negs = rng.integers(0, i_n, (steps, b, k))
+    negs[:, :, 1] = negs[:, :, 0]                  # a duplicated negative
+    negs[:, :, 2], negs[:, :, 3] = 2, 1            # two items of one row
+    u = np.where(invalid, u_pad - 1, rng.integers(0, u_n, (steps, b)))
+    i = np.where(invalid, i_pad - 1, rng.integers(0, i_n, (steps, b)))
+    negs = np.where(invalid[..., None], i_pad - 1, negs)
+    p = rng.normal(size=(u_n, d)).astype(np.float32) * 0.1
+    q = rng.normal(size=(i_n, d)).astype(np.float32) * 0.1
+    q[1] = q[2]                                    # exactly tied items
+    state = [p, q]
+    for n in (u_n, u_n, i_n, i_n):
+        m = rng.normal(size=(n, d)).astype(np.float32) * 1e-3
+        state.append(np.zeros_like(m) if t0 == 0 else
+                     (np.abs(m) * 1e-3 if len(state) % 2 else m))
+    ids = [x.astype(np.int32) for x in (u, i, negs)]
+    return state, ids
+
+
+@pytest.mark.parametrize("u_n,i_n,d,k,steps,b,t0", CML_CASES)
+def test_cml_epoch_matches_plain(cuda, u_n, i_n, d, k, steps, b, t0):
+    state, ids = _cml_inputs(u_n, i_n, d, k, steps, b, t0)
+    got = [torch.as_tensor(x).to(cuda) for x in state]
+    want = [torch.as_tensor(x).to(cuda) for x in state]
+    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+    opts = dict(lr=0.01, reg=10.0, margin=1.0, item_nums=i_n)
+    before = T.launches["cml_epoch"]
+    loss = T.fused_cml_epoch(*got, *ids, t0, **opts)
+    ref = T.fused_cml_epoch_ref(*want, *ids, t0, **opts)
+    torch.cuda.synchronize()
+    assert T.launches["cml_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+def test_cml_epoch_raises_on_bad_input(cuda):
+    state, ids = _cml_inputs(5, 7, 8, 4, 2, 4, 0)
+    state = [torch.as_tensor(x).to(cuda) for x in state]
+    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+    opts = dict(lr=0.1, reg=1.0, margin=1.0, item_nums=7)
+    before = T.launches["cml_epoch"]
+    with pytest.raises(TypeError):
+        T.fused_cml_epoch(*state, *ids[:2], ids[2].long(), 0, **opts)
+    with pytest.raises(ValueError, match="contiguous"):
+        T.fused_cml_epoch(state[0].t().contiguous().t(), *state[1:], *ids, 0,
+                          **opts)
+    with pytest.raises(ValueError, match="one device"):
+        T.fused_cml_epoch(*state, *ids[:2], ids[2].cpu(), 0, **opts)
+    with pytest.raises(ValueError, match="negatives"):
+        T.fused_cml_epoch(*state, *ids[:2], ids[2][:, :3], 0, **opts)
+    assert T.launches["cml_epoch"] == before
+
+
+def _lrml_inputs(u_n, i_n, d, mem, steps, b, t0, masked, seed=0):
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    cfg = Config({"recommender": "LRML", "embed_size": str(d),
+                  "mem_size": str(mem), "reg": "0.001", "margin": "0.2",
+                  "loss_func": "hinge", "stddev": "0.1",
+                  "seed": str(seed)})
+    model = make_model(cfg, DataMeta(u_n, i_n), device="cpu")
+    spec = model.fused_rows_spec()
+    rng = np.random.default_rng(seed)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def moment(x, scale):
+        if not t0:
+            return torch.zeros_like(x)
+        m = torch.as_tensor(rng.normal(size=tuple(x.shape))
+                            .astype(np.float32)) * scale
+        return m.abs() * 1e-3 if scale < 1e-3 else m
+
+    state = [params] + [{n: moment(x, scale) for n, x in params.items()}
+                        for scale in (1e-3, 1e-4)]
+    u_pad, i_pad = T.sentinel_dims(u_n, i_n)
+    invalid = rng.random((steps, b)) < masked
+    invalid[0] = True
+    planes = [np.where(invalid, (u_pad if sd == "u" else i_pad) - 1,
+                       rng.integers(0, u_n if sd == "u" else i_n,
+                                    (steps, b))).astype(np.int32)
+              for _, sd in spec["planes"]]
+    return spec, state, planes
+
+
+# LRML's form: K and M sum every row of a step through shared atomics and
+# one global atomic per element per block, against autograd's products in
+# the plain version, and Adam normalises that rounding into each step.
+@pytest.mark.parametrize("u_n,i_n,d,mem,steps,b,t0,masked", [
+    (29, 41, 16, 6, 4, 64, 0, 0.5), (37, 53, 40, 7, 3, 37, 5, 0.3),
+    (943, 1682, 128, 50, 3, 6144, 17, 0.1)])
+def test_rows_epoch_lrml_matches_plain(cuda, u_n, i_n, d, mem, steps, b, t0,
+                                       masked):
+    spec, state, planes = _lrml_inputs(u_n, i_n, d, mem, steps, b, t0,
+                                       masked)
+    assert T.rows_epoch_plan(spec)["form"] == "lrml"
+    got, want = _rows_state(spec, state, cuda), _rows_state(spec, state, cuda)
+    planes = [torch.as_tensor(x).to(cuda) for x in planes]
+    sides = [sd for _, sd in spec["planes"]]
+    before = dict(T.launches)
+    loss = T.fused_rows_epoch(*got, planes, [], t0, sides=sides, spec=spec,
+                              lr=0.01)
+    ref = T.fused_rows_epoch_ref(*want, planes, [], t0, sides=sides,
+                                 row_loss=spec["row_loss"], lr=0.01)
+    torch.cuda.synchronize()
+    assert T.launches["rows_epoch_lrml"] == before["rows_epoch_lrml"] + 1
+    assert T.launches["rows_epoch"] == before["rows_epoch"]
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for k, (g_side, w_side) in enumerate(zip(got, want)):
+        for g, w in zip(g_side, w_side):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=EPOCH_RTOL, atol=EPOCH_ATOL,
+                                       err_msg=f"part {k}")
+
+
+def test_rows_epoch_lrml_raises_on_bad_input(cuda):
+    spec, state, planes = _lrml_inputs(5, 7, 8, 3, 2, 4, 0, 0.0)
+    packed = _rows_state(spec, state, cuda)
+    planes = [torch.as_tensor(x).to(cuda) for x in planes]
+    sides = [sd for _, sd in spec["planes"]]
+    before = T.launches["rows_epoch_lrml"]
+    wrong = [(x[1], x[0]) if k % 3 == 2 else x for k, x in enumerate(packed)]
+    with pytest.raises(ValueError, match="LRML's form takes"):
+        T.fused_rows_epoch(*wrong, planes, [], 0, sides=sides, spec=spec,
+                           lr=0.1)
+    with pytest.raises(ValueError, match="hinge"):
+        T.fused_rows_epoch(*packed, planes, [], 0, sides=sides, lr=0.1,
+                           spec={**spec, "lrml": {**spec["lrml"],
+                                                  "loss": "bpr"}})
+    with pytest.raises(ValueError, match="one device"):
+        T.fused_rows_epoch(*packed, [planes[0].cpu()] + planes[1:], [], 0,
+                           sides=sides, spec=spec, lr=0.1)
+    assert T.launches["rows_epoch_lrml"] == before

@@ -42,7 +42,7 @@ def test_port_never_loads_jax_or_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(report["imported"]) == set(_port_modules())
     for name in ("ops.scores", "ops.train", "models.ncf", "models.social",
-                 "data.social"):
+                 "data.social", "models.metric", "models.modules"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]

@@ -529,8 +529,9 @@ def test_rows_epoch_masked_rows_change_nothing(toy_social_dataset):
 def test_rows_epoch_plan_takes_only_the_chain(toy_social_dataset):
     (_, _, _), (_, _, model) = _both_models(toy_social_dataset, "SBPR")
     spec = model.fused_rows_spec()
-    assert T.rows_epoch_plan(spec) == {"items": 3, "float_link": 0,
-                                       "dense_link": -1, "reg": 0.05}
+    assert T.rows_epoch_plan(spec) == {"form": "chain", "items": 3,
+                                       "float_link": 0, "dense_link": -1,
+                                       "reg": 0.05}
     planes = spec["planes"]
     for bad, match in (
             ({"chain": None}, "chain"),
