@@ -19,6 +19,15 @@ width of ``conf/BPR.properties`` (embed_size 128):
   ``dot_gmax``): the generator of ``benchmarks/catalog_scale.py``
   (49,152 users x 40 rows), 4 x 1024 users at k=20 through
   ``backend="fused"``, held against ``dense``.
+- Phase H, catalog-scale ranking (kernel ``dot_topk_scores``): the same
+  generator over 4,194,304 ids, 593,231 distinct items, past both the
+  evaluator's streaming threshold and the 1 GiB global bitmap budget
+  (each batch's bitmaps come from its rows).  4 x 1024 users at k=20
+  through ``backend="auto"``, which must pick ``stream``, held against
+  ``dense``; the Evaluator, which must take ``full_stream`` by default,
+  held to the ``full`` evaluator and to a 4096-item-chunk stream; and
+  ``dot_topk_scores`` on the same calls' users, ranked with ``topk``
+  through its ``item_map``, held against ``dense``.
 - Phase C, training (kernel ``bpr_epoch``): the port's CLI
   (``cleverrec_tpu_torch.cli.main``) on the default recipe,
   ``CleverRec.properties`` + ``conf/BPR.properties`` on the rebuilt
@@ -68,8 +77,8 @@ width of ``conf/BPR.properties`` (embed_size 128):
   where one computes the same function (yardstick only), and the least
   time the card needs for the same work.
 
-Launch counts are set to 0 before phase A and read after phases A and B,
-and again before and after each training run.  Exits non-zero, with no
+Launch counts are set to 0 before phase A and read after phases A, B
+and H, and again before and after each training run.  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -91,11 +100,13 @@ import torch
 from cleverrec_tpu_torch import cli
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.data import build_device_data, load_ranking_data
-from cleverrec_tpu_torch.evalx import Evaluator
+from cleverrec_tpu_torch.evalx import STREAM_THRESHOLD, Evaluator
 from cleverrec_tpu_torch.models import make_model
 from cleverrec_tpu_torch.models.base import DataMeta
 from cleverrec_tpu_torch.ops import build, scores
 from cleverrec_tpu_torch.ops import train as train_ops
+from cleverrec_tpu_torch.ops.topk import topk
+from cleverrec_tpu_torch.sampling import rows_to_bits
 from cleverrec_tpu_torch.serving import build_retrieval_fn
 from cleverrec_tpu_torch.train import Trainer
 
@@ -171,6 +182,8 @@ METRIC_KERNEL = {"CML": "cml_epoch", "LRML": "rows_epoch_lrml",
 # PERF.md).
 JAX_METRIC_HR10 = {"CML": 0.8017, "LRML": 0.8271, "TransCF": 0.8314}
 TRAP_EPOCHS = 5       # CML's epochs before the distance-model trap
+H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
+H_K = 20
 
 
 class SmokeError(Exception):
@@ -356,35 +369,45 @@ def breakdown(fn, top: int = 8) -> dict:
                     for name, ms, n in kernels[:top]]}
 
 
-def serve(tag, model, dd, k, users_per_call, backend_fused, rng, profiles):
-    """Serve 4 calls through the fused backend and hold each to dense;
-    time both backends and add a kernel breakdown of one call of each to
-    ``profiles``."""
-    fused = build_retrieval_fn(model, {}, dd, k=k, backend=backend_fused)
-    check(fused.backend == "fused", f"{tag}: auto picked {fused.backend}")
+def seen_bits(dd, users):
+    """The users' packed seen bitmaps, int32 numpy: rows of the global
+    table, or built from their sorted rows past its budget."""
+    if dd.seen.bits is not None:
+        return dd.seen.bits[users]
+    return rows_to_bits(torch.as_tensor(dd.seen.rows[users]),
+                        dd.item_nums).numpy()
+
+
+def serve(tag, model, dd, k, users_per_call, backend, expect, rng,
+          profiles):
+    """Serve 4 calls through ``backend``, which must resolve to
+    ``expect``, and hold each to dense; time both backends and add a
+    kernel breakdown of one call of each to ``profiles``.  Returns the
+    calls' users, the times and the dense answers."""
+    fast = build_retrieval_fn(model, {}, dd, k=k, backend=backend)
+    check(fast.backend == expect, f"{tag}: {backend} picked {fast.backend}")
     dense = build_retrieval_fn(model, {}, dd, k=k, backend="dense")
     calls = [np.sort(rng.choice(dd.user_nums, users_per_call, replace=False))
              for _ in range(4)]
-    swaps, fused_s, dense_s = 0, [], []
+    swaps, fast_s, answers = 0, [], []
     for u in calls:
-        got, s = sync_s(lambda: fused(u))
-        fused_s.append(s)
-        want, s = sync_s(lambda: dense(u))
-        dense_s.append(s)
-        swaps += check_answer(tag, got, want, dd.seen.bits[u], k,
+        got, s = sync_s(lambda: fast(u))
+        fast_s.append(s)
+        answers.append(dense(u))
+        swaps += check_answer(tag, got, answers[-1], seen_bits(dd, u), k,
                               dd.item_nums)
     u = calls[0]
 
     def per_call_ms(fn):
         return sync_s(lambda: [fn(u) for _ in range(10)])[1] * 100
 
-    times = {f"{tag}_serve_first_call_s": fused_s[0],
-             f"{tag}_serve_fused_ms": per_call_ms(fused),
+    times = {f"{tag}_serve_first_call_s": fast_s[0],
+             f"{tag}_serve_{expect}_ms": per_call_ms(fast),
              f"{tag}_serve_dense_ms": per_call_ms(dense),
              f"{tag}_tied_id_swaps": swaps}
-    profiles[f"{tag}_fused"] = breakdown(lambda: fused(u))
+    profiles[f"{tag}_{expect}"] = breakdown(lambda: fast(u))
     profiles[f"{tag}_dense"] = breakdown(lambda: dense(u))
-    return calls, times
+    return calls, times, answers
 
 
 def evaluate(tag, evaluator):
@@ -410,7 +433,8 @@ def phase_a(rng, profiles):
     check((data.user_nums, data.item_nums) == (943, 1682),
           f"ml-100k: {data.stats_line()}")
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
-    calls, times = serve("A", model, dd, 10, 256, "auto", rng, profiles)
+    calls, times, _ = serve("A", model, dd, 10, 256, "auto", "fused", rng,
+                            profiles)
     times["A_load_s"] = load_s
 
     fused_ev = Evaluator(model, dd, cfg)
@@ -443,15 +467,80 @@ def phase_b(rng, profiles):
     dd = build_device_data(data)
     load_s = time.perf_counter() - t0
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
-    calls, times = serve("B", model, dd, 20, 1024, "fused", rng, profiles)
+    calls, times, _ = serve("B", model, dd, 20, 1024, "fused", "fused", rng,
+                            profiles)
     times["B_data_s"] = load_s
     times["B_items"] = data.item_nums
     return model, dd, calls[0], times
 
 
-def kernel_rows(name, shapes, launches, ref, kernel, replaces):
+def phase_h(rng, profiles):
+    """Catalog-scale ranking: serving through ``auto`` (``stream``), the
+    Evaluator's default ``full_stream`` mode, and kernel 2.9 ranking the
+    serving calls' users."""
+    t0 = time.perf_counter()
+    name = write_catalog(H_IDS)
+    cfg = config(name, **{"data.split_way": "rs",
+                          "data.split_ratio": "[0.8,0.0,0.2]",
+                          "test.neg_samples": "0"})
+    data = load_ranking_data(cfg)
+    dd = build_device_data(data)
+    load_s = time.perf_counter() - t0
+    check(data.item_nums > STREAM_THRESHOLD and dd.seen.bits is None,
+          f"H: {data.item_nums} items, global bitmaps "
+          f"{'built' if dd.seen.bits is not None else 'past the budget'}")
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    calls, times, answers = serve("H", model, dd, H_K, 1024, "auto",
+                                  "stream", rng, profiles)
+    times.update({"H_data_s": load_s, "H_items": data.item_nums,
+                  "H_users": data.user_nums})
+
+    # Kernel 2.9 on each call's users: rank its masked scores with topk
+    # and translate through its item_map, held against dense.
+    swaps = 0
+    for u, want in zip(calls, answers):
+        u_idx = torch.as_tensor(u, device="cuda")
+        with torch.no_grad():
+            uv = model.P[u_idx].contiguous()
+            q = model.Q.detach().contiguous()
+        bits = rows_to_bits(torch.as_tensor(dd.seen.rows[u], device="cuda"),
+                            data.item_nums)
+        sc, _, item_map = scores.dot_topk_scores(uv, q, bits)
+        v, idx = topk(sc, H_K)
+        items = torch.where(v > -1e37, item_map[idx], -1)
+        v = torch.where(v > -1e37, v, -torch.inf)
+        swaps += check_answer("H dot_topk_scores", (items, v), want,
+                              bits.cpu().numpy(), H_K, data.item_nums)
+        del sc, v, idx
+    times["H_dot_topk_tied_id_swaps"] = swaps
+
+    stream_ev = Evaluator(model, dd, cfg)
+    check(stream_ev.mode == "full_stream" and stream_ev.stream_chunk == 16384,
+          f"H: eval mode {stream_ev.mode}, chunk {stream_ev.stream_chunk}")
+    got, times["H_eval_full_stream_s"] = evaluate("H full_stream", stream_ev)
+    others = {}
+    for tag, mode, over in (
+            ("full", "full", {"eval.stream": "False",
+                              "eval.fused_kernel": "False"}),
+            ("full_stream_4096", "full_stream",
+             {"eval.stream_chunk": "4096"})):
+        ev = Evaluator(model, dd, cfg.with_overrides(**over))
+        check(ev.mode == mode, f"H: {tag} mode {ev.mode}")
+        ev.evaluate()                     # first use, as evaluate() does
+        others[tag], times[f"H_eval_{tag}_s"] = sync_s(ev.evaluate)
+        for k in cfg.topk:
+            check(bool(np.allclose(got[k], others[tag][k], atol=METRIC_TOL,
+                                   rtol=0)),
+                  f"H @{k}: full_stream {got[k]} vs {tag} {others[tag][k]}")
+        del ev
+    metrics = {"full_stream": got, **others}
+    return model, dd, calls[0], times, metrics
+
+
+def kernel_rows(name, shapes, launches, ref, kernel, replaces, out_elems):
     """Hold ``kernel`` to ``ref`` on each phase's inputs, with and without
-    bias, and time it; one row of the kernels line."""
+    bias, and time it; one row of the kernels line.  ``out_elems(B, I)``:
+    the floats the kernel writes."""
     row = {"name": name, "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/dot_scores.cu",
            "replaces": replaces, "launches": launches, "max_abs_err": 0.0}
@@ -460,29 +549,39 @@ def kernel_rows(name, shapes, launches, ref, kernel, replaces):
         for b in (None, bias):
             got, want = kernel(u, q, bits, b), ref(u, q, bits, b)
             torch.cuda.synchronize()
-            masked = want == scores.NEG
-            check(bool(torch.equal(got == scores.NEG, masked)),
-                  f"{name} {tag}: masked slots differ")
-            err = (got[~masked] - want[~masked]).abs()
-            check(bool(torch.isfinite(got[~masked]).all()),
-                  f"{name} {tag}: non-finite")
-            check(bool((err <= KERNEL_ATOL
-                        + KERNEL_RTOL * want[~masked].abs()).all()),
-                  f"{name} {tag}: max error {err.max().item()}")
-            row["max_abs_err"] = max(row["max_abs_err"], err.max().item())
+            if isinstance(got, tuple):          # dot_topk_scores
+                check(bool(torch.equal(got[2], want[2])),
+                      f"{name} {tag}: item_map differs")
+                parts = zip(("scores", "gmax"), got[:2], want[:2])
+            else:
+                parts = [(name, got, want)]
+            for part, g, w in parts:
+                masked = w == scores.NEG
+                check(bool(torch.equal(g == scores.NEG, masked)),
+                      f"{name} {tag} {part}: masked slots differ")
+                err = (g[~masked] - w[~masked]).abs()
+                check(bool(torch.isfinite(g[~masked]).all()),
+                      f"{name} {tag} {part}: non-finite")
+                check(bool((err <= KERNEL_ATOL
+                            + KERNEL_RTOL * w[~masked].abs()).all()),
+                      f"{name} {tag} {part}: max error {err.max().item()}")
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         err.max().item())
+            del got, want
         bsz, d = u.shape
         n_items = q.shape[0]
-        out_elems = bsz * (n_items if name == "dot_scores"
-                           else -(-n_items // 32))
-        moved = 4 * (u.numel() + q.numel() + bits.numel() + out_elems)
+        # Each input read once and each output written once; FP32
+        # operations of the product.
+        moved = 4 * (u.numel() + q.numel() + bits.numel()
+                     + out_elems(bsz, n_items))
         flops = 2 * bsz * n_items * d
         timings.append({
             "shape": tag, "B": bsz, "I": n_items, "d": d,
             "ms": time_ms(lambda: kernel(u, q, bits)),
             "ms_bias": time_ms(lambda: kernel(u, q, bits, bias)),
-            "plain_ms": time_ms(lambda: ref(u, q, bits)),
+            "plain_ms": time_ms(lambda: ref(u, q, bits), iters=5),
             "library_ms": time_ms(lambda: torch.matmul(u, q.T)),
-            **bound(moved, flops)})
+            "bytes": moved, "flops": flops, **bound(moved, flops)})
     main = timings[0]
     row.update({key: main[key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")})
@@ -495,7 +594,7 @@ def kernel_inputs(model, dd, users, gen):
     with torch.no_grad():
         u = model.P[u_idx].contiguous()
         q = model.Q.detach().contiguous()
-    bits = torch.as_tensor(dd.seen.bits[users], device="cuda")
+    bits = torch.as_tensor(seen_bits(dd, users), device="cuda")
     bias = torch.randn(q.shape[0], generator=gen).cuda()
     return u, q, bits, bias
 
@@ -1240,27 +1339,49 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     profiles = {}
+    gen = torch.Generator().manual_seed(1)
     scores.reset_launches()
     model_a, dd_a, users_a, t_a, metrics = phase_a(rng, profiles)
     launches_a = dict(scores.launches)
     model_b, dd_b, users_b, t_b = phase_b(rng, profiles)
-    launches = dict(scores.launches)
-    check(launches_a["dot_scores"] > 0, "phase A never launched dot_scores")
-    check(launches["dot_gmax"] - launches_a["dot_gmax"] > 0,
-          "phase B never launched dot_gmax")
-    times.update(t_a)
-    times.update(t_b)
-
-    gen = torch.Generator().manual_seed(1)
+    launches_b = dict(scores.launches)
     shapes = {"A": kernel_inputs(model_a, dd_a, users_a, gen),
               "B": kernel_inputs(model_b, dd_b, users_b, gen)}
-    rows = [kernel_rows("dot_scores", shapes, launches["dot_scores"],
+    del model_b, dd_b                     # phase H needs the memory
+    torch.cuda.empty_cache()
+    model_h, dd_h, users_h, t_h, metrics_h = phase_h(rng, profiles)
+    launches = dict(scores.launches)
+    check(launches_a["dot_scores"] > 0, "phase A never launched dot_scores")
+    check(launches_b["dot_gmax"] - launches_a["dot_gmax"] > 0,
+          "phase B never launched dot_gmax")
+    check(launches["dot_topk_scores"] - launches_b["dot_topk_scores"] > 0,
+          "phase H never launched dot_topk_scores")
+    for t in (t_a, t_b, t_h):
+        times.update(t)
+    metrics = {"A": metrics, "H": metrics_h}
+    print("phase H: " + json.dumps({k: v for k, v in t_h.items()
+                                    if k.startswith("H_")}), flush=True)
+
+    shapes["H"] = kernel_inputs(model_h, dd_h, users_h, gen)
+    del model_h, dd_h
+    rows = [kernel_rows("dot_scores", {k: shapes[k] for k in ("A", "B")},
+                        launches["dot_scores"],
                         scores.dot_scores_ref, scores.dot_scores,
-                        "cleverrec_tpu/ops/pallas_scores.py:276"),
-            kernel_rows("dot_gmax", dict(reversed(shapes.items())),
+                        "cleverrec_tpu/ops/pallas_scores.py:276",
+                        lambda b, i: b * i),
+            kernel_rows("dot_gmax", {k: shapes[k] for k in ("B", "A")},
                         launches["dot_gmax"], scores.dot_gmax_ref,
                         scores.dot_gmax,
-                        "cleverrec_tpu/ops/pallas_scores.py:241")]
+                        "cleverrec_tpu/ops/pallas_scores.py:241",
+                        lambda b, i: b * -(-i // 32)),
+            kernel_rows("dot_topk_scores",
+                        {k: shapes[k] for k in ("H", "A")},
+                        launches["dot_topk_scores"],
+                        scores.dot_topk_scores_ref, scores.dot_topk_scores,
+                        "cleverrec_tpu/ops/pallas_scores.py:181",
+                        lambda b, i: b * (-(-i // 4096) * 4096) * 33 // 32)]
+    del shapes
+    torch.cuda.empty_cache()
 
     train = {"C": phase_c()}
     summary = ("wall_s", "epoch_first_ms", "epoch_ms_median",
@@ -1315,7 +1436,7 @@ def main() -> int:
               f"plain_ms {row['plain_ms']}, library_ms {row['library_ms']}, "
               f"bound_ms {row['bound_ms']} ({row['bound_by']})")
     print(json.dumps({"timings": times, "launches_phase_a": launches_a,
-                      "metrics_phase_a": metrics}))
+                      "metrics": metrics}))
     print(json.dumps({"training": train}))
     print(json.dumps({"profiles": profiles}))
     print(json.dumps({"kernels": rows}))

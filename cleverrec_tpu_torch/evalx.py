@@ -7,16 +7,19 @@
 - full catalog: score all items with the user's seen TRAIN items masked,
   then top-k; ``full_fused`` runs the masked-scoring CUDA kernels for
   models with a ``dot_decomposition`` (default on a CUDA device,
-  ``eval.fused_kernel`` forces either way), ``full`` plain PyTorch.
+  ``eval.fused_kernel`` forces either way), ``full`` plain PyTorch, and
+  ``full_stream`` ranks item chunks with a carried running top-k
+  (``ranking.rank_stream``): by default past ``STREAM_THRESHOLD`` items
+  (``eval.stream_threshold``) unless ``eval.fused_kernel`` is set,
+  always with ``eval.stream=true``, never with ``eval.stream=false``;
+  chunks of ``eval.stream_chunk`` items (16384 past 262,144 items, else
+  4096).
 
 The test set is stacked once into padded user batches on the device; a
 Python loop ranks each batch and reduces it to per-K metric sums (the
 reference's HR/MRR/NDCG formulas, utils/metrics.py:9-19), so the host
-receives one [n_K, 3] array per eval.  The streaming and sharded modes
-come with later slices: the options that select them, or the JAX
-evaluator's test bitmaps, raise, and so does a full-catalog eval that
-the JAX evaluator would stream by default (past ``STREAM_THRESHOLD``
-items), where this one would build the whole [B, I] score matrix.
+receives one [n_K, 3] array per eval.  The sharded mode comes with the
+parallel layer; the options of the JAX evaluator's test bitmaps raise.
 """
 
 from __future__ import annotations
@@ -37,20 +40,16 @@ def _pad_masked(v, items):
                                                                  PAD_ITEM))
 
 
-_STREAM = "queue 1, item 5 (streaming and sharded ranking)"
 _BITMAPS = "queue 1, item 7 (the evaluator's test bitmaps)"
 # Options of the JAX evaluator that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
 # raises rather than be ignored.
 _UNPORTED = (
-    ("eval.stream", lambda c, k: c.bool(k, False), _STREAM),
-    ("eval.stream_threshold", lambda c, k: k in c, _STREAM),
-    ("eval.stream_chunk", lambda c, k: k in c, _STREAM),
     ("eval.device_bitmaps", lambda c, k: not c.bool(k, True), _BITMAPS),
     ("eval.test_bitmap_budget_mb", lambda c, k: k in c, _BITMAPS),
 )
-# The JAX evaluator streams a full-catalog eval past this many items
-# unless eval.fused_kernel is set (cleverrec_tpu/evalx.py:76-79).
+# A full-catalog eval streams past this many items unless
+# eval.fused_kernel is set (cleverrec_tpu/evalx.py:76-79).
 STREAM_THRESHOLD = 500_000
 
 
@@ -76,16 +75,25 @@ class Evaluator:
                     and hasattr(model, "dot_decomposition"))
         self._use_fused = fused_ok and cfg.bool(
             "eval.fused_kernel", self.device.type == "cuda")
+        # An explicit eval.fused_kernel=true beats the streaming default;
+        # an explicit eval.stream wins over everything.
         fused_forced = self._use_fused and "eval.fused_kernel" in cfg
-        if not self.candidate_eval and cfg.bool(
-                "eval.stream", device_data.item_nums > STREAM_THRESHOLD
-                and not fused_forced):
-            raise NotImplementedError(
-                f"a full-catalog eval of {device_data.item_nums} items "
-                f"streams in the JAX package (past {STREAM_THRESHOLD}); "
-                f"streaming is not ported yet (ROADMAP.md {_STREAM})")
+        items = device_data.item_nums
+        stream = not self.candidate_eval and cfg.bool(
+            "eval.stream", items > cfg.int("eval.stream_threshold",
+                                           STREAM_THRESHOLD)
+            and not fused_forced)
+        # Wider chunks amortise the per-chunk merge at large catalogs.
+        self.stream_chunk = cfg.int("eval.stream_chunk",
+                                    16384 if items > 262_144 else 4096)
+        # Chunk-sliced bitmap masking needs 32 | chunk: from the global
+        # bitmaps where they exist, else from each batch's rows
+        # (sampling.rows_to_bits); otherwise rank_stream masks with rows.
+        self._stream_bits = self.stream_chunk % 32 == 0
         if self.candidate_eval:
             self.mode = "candidate"
+        elif stream:
+            self.mode = "full_stream"
         elif self._use_fused:
             self.mode = "full_fused"
         else:
@@ -114,12 +122,23 @@ class Evaluator:
         return _pad_masked(*ranking.rank_fused(
             self.model, aux, u, seen_bits, self.kmax, pre=pre))
 
+    def _rank_full_stream(self, aux, u, seen_bits=None, seen_rows=None):
+        if seen_bits is None and self._stream_bits:
+            seen_bits = rows_to_bits(seen_rows, self.dd.item_nums)
+            seen_rows = None
+        return _pad_masked(*ranking.rank_stream(
+            self.model, aux, u, seen_rows, self.dd.item_nums, self.kmax,
+            chunk=self.stream_chunk, seen_bits=seen_bits))
+
     def _rank_batch(self, aux, b, pre):
         if self.candidate_eval:
             return self._rank_candidates(aux, b["u"], b["cand"], b["mask"])
         if self.mode == "full_fused":
             return self._rank_full_fused(aux, b["u"], b.get("bits"),
                                          b.get("rows"), pre=pre)
+        if self.mode == "full_stream":
+            return self._rank_full_stream(aux, b["u"], b.get("bits"),
+                                          b.get("rows"))
         return self._rank_full(aux, b["u"], b["rows"])
 
     # -- batches ------------------------------------------------------------
@@ -145,7 +164,9 @@ class Evaluator:
         if self.candidate_eval:
             out["cand"] = put(dd.cand[order].astype(np.int64))
             out["mask"] = put(dd.cand_mask[order])
-        elif self.mode == "full_fused" and dd.seen.bits is not None:
+        elif dd.seen.bits is not None and (
+                self.mode == "full_fused" or (self.mode == "full_stream"
+                                              and self._stream_bits)):
             out["bits"] = put(dd.seen.bits[users])
         else:
             out["rows"] = put(dd.seen.rows[users].astype(np.int64))

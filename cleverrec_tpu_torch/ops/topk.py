@@ -1,4 +1,6 @@
-"""Top-k selection with ``lax.top_k``'s tie rule.
+"""Top-k selection with ``lax.top_k``'s tie rule (as
+``cleverrec_tpu/ops/topk.py``): ``topk``, ``merge_topk``, the group-pruned
+``grouped_topk`` and the chunked ``streaming_topk``.
 
 ``lax.top_k`` breaks ties by the LOWEST index, and the JAX package relies
 on it (candidate eval puts the ground truth last).  ``torch.topk``
@@ -9,6 +11,8 @@ promises no order among equal values, so every selection here orders by
 from __future__ import annotations
 
 import torch
+
+from typing import Callable
 
 from cleverrec_tpu_torch.common import cdiv
 
@@ -63,3 +67,53 @@ def grouped_topk(scores: torch.Tensor, k: int, group: int = 128,
             + torch.arange(group, device=gi.device)).reshape(b, k * group)
     idx = torch.gather(cols, 1, ci)
     return torch.where(v > -1.0e37, v, torch.full_like(v, -torch.inf)), idx
+
+
+def streaming_topk(score_chunk_fn: Callable[[torch.Tensor], torch.Tensor],
+                   item_nums: int, k: int, chunk: int = 4096,
+                   approx: bool = False, device=None):
+    """Running top-k over item chunks: memory O(B * chunk) instead of the
+    whole [B, I] score matrix.
+
+    ``score_chunk_fn(item_ids [chunk])`` -> scores [B, chunk], already
+    masked (seen items -inf); the ids are int64 on ``device`` (default
+    the CPU), those of the last chunk clamped into the catalog, whose
+    columns past it are set to -inf here.  Returns (values, ids) [B, k];
+    slots past the catalog's unmasked items are -inf.
+
+    A Python loop over the chunks carries the running top-k.  Each fresh
+    chunk is reduced with ``grouped_topk`` where the JAX package takes its
+    grouped branch (exact values; its -inf slots may point past the chunk
+    and are clamped into it), or kept whole, then merged with the carry.
+    The carry comes first in each merge, so ties go to the lowest item id
+    throughout.
+
+    ``approx=True``: the JAX package reduces each chunk with
+    ``lax.approx_max_k``, the TPU's PartialReduce; off the TPU that is an
+    exact selection, and the port selects each chunk with the exact
+    ``topk`` (lowest index first), so both give the exact top-k.
+    """
+    grouped = not approx and chunk > 4 * k and chunk // 128 >= k
+    best_v = best_i = None
+    for c0 in range(0, item_nums, chunk):
+        ids = torch.arange(c0, c0 + chunk, device=device)
+        scores = score_chunk_fn(ids.clamp(max=item_nums - 1))
+        if best_v is None:
+            best_v = torch.full((scores.shape[0], k), -torch.inf,
+                                dtype=scores.dtype, device=scores.device)
+            best_i = torch.zeros((scores.shape[0], k), dtype=torch.long,
+                                 device=scores.device)
+        ids = ids.to(scores.device)
+        if c0 + chunk > item_nums:
+            scores = scores.masked_fill(ids >= item_nums, -torch.inf)
+        if approx and chunk > k:
+            scores, sel = topk(scores, k)
+            cids = ids[sel]
+        elif grouped and scores.dtype == torch.float32:
+            scores, sel = grouped_topk(scores, k, min_cols=8192)
+            cids = c0 + sel.clamp(max=chunk - 1)
+        else:
+            cids = ids.expand(scores.shape[0], -1)
+        best_v, best_i = merge_topk(torch.cat([best_v, scores], dim=1),
+                                    torch.cat([best_i, cids], dim=1), k)
+    return best_v, best_i

@@ -9,18 +9,19 @@ inside each ranker, before masking (the fused path negates inside the
 dot, so the -3e38 seen mask stays the worst score).  Selection breaks
 ties by the lowest item id, as ``lax.top_k``.
 
-The dense ranker is plain PyTorch (plain XLA in the JAX package); the
-fused ranker runs the CUDA kernels of ops/scores.py on a CUDA device and
-their plain versions on the CPU.
+The dense and streaming rankers are plain PyTorch (plain XLA in the JAX
+package); the fused ranker runs the CUDA kernels of ops/scores.py on a
+CUDA device and their plain versions on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cleverrec_tpu_torch.common import cdiv
 from cleverrec_tpu_torch.ops.scores import (COMB_I, NEG, dot_gmax,
                                             dot_scores)
-from cleverrec_tpu_torch.ops.topk import grouped_topk, topk
+from cleverrec_tpu_torch.ops.topk import grouped_topk, streaming_topk, topk
 
 # The JAX package's fused path pads the catalog to 4096-item tiles and
 # takes the group-max branch from two tiles up; the port keeps the same
@@ -54,6 +55,93 @@ def rank_dense(model, aux, u, rows, k: int, filter_seen: bool = True):
     """Dense [B, I] scoring + top-k (group-max pruned past 16k items)."""
     return grouped_topk(masked_full_scores(model, aux, u, rows,
                                            filter_seen), k)
+
+
+def _seen_in_rows(rows, ids):
+    """[B, n] bool: is ids[b, j] in the sorted row rows[b]?"""
+    idx = torch.searchsorted(rows, ids).clamp(max=rows.shape[1] - 1)
+    return torch.gather(rows, 1, idx) == ids
+
+
+@torch.no_grad()
+def rank_stream(model, aux, u, rows, item_nums: int, k: int,
+                chunk: int = 4096, filter_seen: bool = True,
+                seen_bits=None, approx: bool = False):
+    """Streaming ranking: ``streaming_topk`` over item chunks with a
+    carried running top-k, memory O(B * chunk) instead of the dense
+    [B, I] score matrix.
+
+    A dot-decomposable model scores a chunk as one [B, d] x [d, chunk]
+    product against the chunk's table rows (plus the item bias); any
+    other model through ``score_candidates`` on the chunk's ids.
+
+    Seen masking, as the JAX package's:
+
+    - ``seen_bits`` ([B, ceil(I/32)] int32 packed bitmaps) given: each
+      chunk tests its own slice of the words (needs 32 | ``chunk``);
+    - else, rows ([B, L] sorted, padded with the sentinel ``I``) no wider
+      than 4096: the stream runs unfiltered to a top-(k + L) and
+      post-filters that short list against the rows (a user's seen items
+      displace at most L slots, so this is exact);
+    - else each chunk is masked by a binary search of its ids in the
+      rows."""
+    cml = model.cml_like
+    decomp = getattr(model, "dot_decomposition", None)
+    if decomp is not None:
+        uv, table, bias = decomp(u, aux)
+        if cml:
+            uv = -uv
+            bias = None if bias is None else -bias
+    b = u.shape[0]
+    if seen_bits is not None:
+        if chunk % 32:
+            raise ValueError(f"bitmap masking needs 32 | chunk, not {chunk}")
+        # Whole chunks of words, so every chunk's slice is a full one.
+        words = chunk // 32
+        n_chunks = cdiv(item_nums, chunk)
+        sb = torch.nn.functional.pad(
+            seen_bits.to(torch.int32), (0, n_chunks * words
+                                        - seen_bits.shape[1]))
+        sb = sb.view(b, n_chunks, words)
+        lane = torch.arange(chunk, device=u.device)
+        word_of, shift = lane >> 5, (lane & 31).to(torch.int32)
+    # The post-filter widens the carry by the widest row; past 4096 a
+    # per-chunk binary search is immune to one user's huge history.
+    post_filter = (filter_seen and seen_bits is None
+                   and rows.shape[1] <= 4096)
+    chunk_mask_rows = filter_seen and seen_bits is None and not post_filter
+    if filter_seen and seen_bits is None:
+        rows = rows.long().contiguous()
+
+    def score_chunk(ids):
+        if decomp is not None:
+            s = uv @ table[ids].T
+            if bias is not None:
+                s = s + bias[ids]
+        else:
+            s = model.score_candidates(u, ids.expand(b, -1), aux)
+            if cml:
+                s = -s
+        if filter_seen and seen_bits is not None:
+            # The chunk's words, selected by a device index (no sync).
+            w = sb.index_select(1, ids[:1] // chunk)[:, 0][:, word_of]
+            s = s.masked_fill(((w >> shift) & 1).bool(), -torch.inf)
+        elif chunk_mask_rows:
+            s = s.masked_fill(
+                _seen_in_rows(rows, ids.expand(b, -1).contiguous()),
+                -torch.inf)
+        return s
+
+    if post_filter:
+        # streaming_topk always yields kk columns (-inf padded).
+        kk = max(k, min(k + rows.shape[1], item_nums))
+        v, ids = streaming_topk(score_chunk, item_nums, kk, chunk=chunk,
+                                approx=approx, device=u.device)
+        v = v.masked_fill(_seen_in_rows(rows, ids), -torch.inf)
+        v, sel = topk(v, k)
+        return v, torch.gather(ids, 1, sel)
+    return streaming_topk(score_chunk, item_nums, k, chunk=chunk,
+                          approx=approx, device=u.device)
 
 
 def fused_precompute(model, aux):

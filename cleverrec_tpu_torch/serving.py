@@ -3,13 +3,15 @@
 - ``build_retrieval_fn``: ``retrieve(user_ids) -> (items, scores)`` over
   the model's frozen tables with seen-item filtering on the device — the
   online-serving hot path.  Backends mirror the Evaluator's rankers:
-  ``dense`` [B, I] scoring in plain PyTorch, and ``fused`` (the
-  masked-scoring CUDA kernels, for dot-decomposable models).
+  ``dense`` [B, I] scoring in plain PyTorch, ``fused`` (the
+  masked-scoring CUDA kernels, for dot-decomposable models), and
+  ``stream`` (item chunks with a carried running top-k, memory
+  O(B * chunk), for large catalogs).
 - ``build_rerank_fn``: ``rerank(user_ids, candidate_ids) -> (items,
   scores)`` over an externally retrieved candidate set.
 
-Export (``torch.export`` in place of ``jax.export``) and the streaming
-and sharded backends come with later slices.
+Export (``torch.export`` in place of ``jax.export``) and the sharded
+backend come with later slices.
 """
 
 from __future__ import annotations
@@ -23,18 +25,25 @@ from cleverrec_tpu_torch.sampling import rows_to_bits
 
 
 # ``auto`` serves through the fused backend up to this many items and
-# through dense past it.  Fused retrieval beats dense on the narrow branch
-# (dot_scores, catalogs up to 4,096 items) and loses to it on every wide
-# catalog measured, where dot_gmax's group maxes are followed by a rescue
-# and a launch-bound extraction (tools/serve_crossover.py on NVIDIA H100
-# 80GB HBM3 at 700.00 W, PERF.md section 5).
+# through dense past it, up to ``STREAM_THRESHOLD``.  Fused retrieval
+# beats dense on the narrow branch (dot_scores, catalogs up to 4,096
+# items) and loses to it on every wide catalog measured, where dot_gmax's
+# group maxes are followed by a rescue and a launch-bound extraction
+# (tools/serve_crossover.py on NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
+# section 5).
 FUSED_MAX_ITEMS = 4096
+# ``auto`` streams past this many items on any device, the JAX package's
+# rule (cleverrec_tpu/serving.py:36, :51-52): the dense path holds a
+# [B, I] score matrix per call.
+STREAM_THRESHOLD = 131072
 
 
 def _pick_backend(model, device: torch.device) -> str:
     if (device.type == "cuda" and hasattr(model, "dot_decomposition")
             and model.meta.item_nums <= FUSED_MAX_ITEMS):
         return "fused"
+    if model.meta.item_nums > STREAM_THRESHOLD:
+        return "stream"
     return "dense"
 
 
@@ -44,40 +53,63 @@ def _pad_ids(v, items):
 
 def build_retrieval_fn(model, aux, device_data, k: int = 10,
                        filter_seen: bool = True, backend: str = "auto",
-                       device="cuda"):
+                       device="cuda", stream_chunk: int | None = None,
+                       approx: bool = False):
     """User -> top-k retrieval on ``device`` (default ``cuda``; the model
     is moved there).
 
     Returns retrieve(user_ids [B]) -> (items [B, k] int64, scores [B, k]).
     Filtered-out / past-catalog slots come back as item id -1 with -inf
-    score.  ``backend``: auto | dense | fused; auto picks fused on a CUDA
-    device for dot-decomposable models up to ``FUSED_MAX_ITEMS`` items.
-    ``retrieve.backend`` names the backend in use.  A distance model's
-    fused scores leave out each user's |u|^2, so they differ from the
-    dense scores by that per-user offset; the rankings agree.
+    score.  ``backend``: auto | dense | fused | stream; auto picks fused
+    on a CUDA device for dot-decomposable models up to
+    ``FUSED_MAX_ITEMS`` items, stream past ``STREAM_THRESHOLD`` items,
+    and dense between and on the CPU.  ``retrieve.backend`` names the
+    backend in use.  ``stream_chunk``: items per chunk of the stream
+    backend (default 16384 past 262,144 items, else 4096).  ``approx``
+    (stream backend): select each chunk as the JAX package's
+    ``approx_max_k`` does off the TPU, exactly
+    (``ops/topk.streaming_topk``).  A distance model's fused scores
+    leave out each user's |u|^2, so they differ from the dense scores by
+    that per-user offset; the rankings agree.  The stream backend scores
+    a dot-decomposable model by its decomposition too (GMF without its
+    sigmoid), so compare its scores with dense ones only for plain dot
+    models.
     """
     dev = resolve_device(device)
     model.to(dev)
     aux = {key: torch.as_tensor(v, device=dev)
            for key, v in (aux or {}).items()}
     item_nums = model.meta.item_nums
+    if stream_chunk is None:
+        stream_chunk = 16384 if item_nums > 262_144 else 4096
     if backend == "auto":
         backend = _pick_backend(model, dev)
-    if backend not in ("dense", "fused"):
+    if backend not in ("dense", "fused", "stream"):
         raise ValueError(f"unknown retrieval backend {backend!r}")
     if backend == "fused" and not hasattr(model, "dot_decomposition"):
         raise ValueError(f"{model.name}: no dot decomposition — "
                          "fused retrieval unavailable")
+    if backend == "fused" and approx:
+        raise NotImplementedError(
+            "approx on the fused backend (the bf16 rescue copy) is not "
+            "ported yet (ROADMAP.md queue 1, item 7)")
     seen = device_data.seen
-    # Past the global bitmap budget (seen.bits is None) the fused path
-    # builds each batch's bitmaps from its sorted rows.
-    use_bits = backend == "fused" and filter_seen and seen.bits is not None
+    # The fused path, and the stream with 32 | stream_chunk, mask with
+    # bitmaps: gathered from the global table, or past its budget (bits
+    # None) built from each batch's sorted rows.  Otherwise the rows.
+    bitmaps = filter_seen and (backend == "fused" or (
+        backend == "stream" and stream_chunk % 32 == 0))
+    use_bits = bitmaps and seen.bits is not None
     seen_tbl = None
     if use_bits:
         seen_tbl = torch.as_tensor(seen.bits, device=dev)
     elif filter_seen:
         seen_tbl = torch.as_tensor(seen.rows, device=dev).long()
     pre = ranking.fused_precompute(model, aux) if backend == "fused" else None
+
+    def bits_of(u):
+        return seen_tbl[u] if use_bits else rows_to_bits(seen_tbl[u],
+                                                         item_nums)
 
     @torch.no_grad()
     def retrieve(u):
@@ -86,10 +118,14 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
             rows = seen_tbl[u] if filter_seen else None
             return _pad_ids(*ranking.rank_dense(model, aux, u, rows, k,
                                                 filter_seen))
-        if use_bits:
-            bits = seen_tbl[u]
-        elif filter_seen:
-            bits = rows_to_bits(seen_tbl[u], item_nums)
+        if backend == "stream":
+            rows = seen_tbl[u] if filter_seen and not bitmaps else None
+            return _pad_ids(*ranking.rank_stream(
+                model, aux, u, rows, item_nums, k, chunk=stream_chunk,
+                filter_seen=filter_seen,
+                seen_bits=bits_of(u) if bitmaps else None, approx=approx))
+        if filter_seen:
+            bits = bits_of(u)
         else:
             bits = torch.zeros((u.shape[0], (item_nums + 31) // 32),
                                dtype=torch.int32, device=dev)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card:
-dot_scores and dot_gmax, and the epoch kernels bpr_epoch, gmf_epoch,
-mlp_epoch, rows_epoch (the social chain and LRML's form) and cml_epoch.
+dot_scores, dot_gmax and dot_topk_scores, and the epoch kernels
+bpr_epoch, gmf_epoch, mlp_epoch, rows_epoch (the social chain and LRML's
+form) and cml_epoch.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -82,6 +83,47 @@ def test_wrapper_rejects_bad_input(cuda):
         S.dot_scores(u, q, bits[:, :1])
     with pytest.raises(ValueError):
         S.dot_scores(u.t().contiguous().t(), q, bits)
+
+
+# dot_topk_scores: 1, 2 and 3 tiles of 4096 items with ragged tails, a
+# single user, widths below and above one staged depth pass, and the
+# serving width 128.
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,i,d", [(16, 200, 16), (37, 5000, 16),
+                                   (8, 2 * 4096 + 100, 16), (1, 33, 1),
+                                   (130, 4097, 64), (256, 1682, 128),
+                                   (70, 8192, 128)])
+def test_dot_topk_scores_matches_plain(cuda, b, i, d, with_bias):
+    u, q, bits, bias = (None if x is None else torch.as_tensor(x).to(cuda)
+                        for x in _inputs(b, i, d, with_bias))
+    before = S.launches["dot_topk_scores"]
+    got = S.dot_topk_scores(u, q, bits, bias)
+    want = S.dot_topk_scores_ref(u, q, bits, bias)
+    torch.cuda.synchronize()
+    assert S.launches["dot_topk_scores"] == before + 1
+    i_pad = -(-i // 4096) * 4096
+    assert got[0].shape == (b, i_pad) and got[1].shape == (b, i_pad // 32)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    assert torch.equal(got[2], want[2])
+    assert (got[1].view(b, -1, 128)[:, :, 32:] == S.NEG).all()
+
+
+def test_dot_topk_scores_rejects_bad_input(cuda):
+    u, q, bits, bias = (None if x is None else torch.as_tensor(x).to(cuda)
+                        for x in _inputs(4, 64, 8, True))
+    with pytest.raises(TypeError):
+        S.dot_topk_scores(u, q.double(), bits)
+    with pytest.raises(TypeError):
+        S.dot_topk_scores(u, q, bits.long())
+    with pytest.raises(ValueError):
+        S.dot_topk_scores(u, q, bits[:, :1])
+    with pytest.raises(ValueError):
+        S.dot_topk_scores(u, q, bits, bias[:10])
+    with pytest.raises(ValueError):
+        S.dot_topk_scores(u, q.cpu(), bits)
+    with pytest.raises(ValueError):
+        S.dot_topk_scores(u, q.t().contiguous().t(), bits)
 
 
 def _epoch_inputs(u_n, i_n, d, steps, b, t0, seed=0):

@@ -2,6 +2,7 @@
 kernels' wrappers) against the JAX package's Pallas kernels in
 interpret mode, on identical numpy inputs."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,25 +10,27 @@ import torch
 
 from cleverrec_tpu.ops.pallas_scores import (fused_dot_gmax,
                                              fused_dot_scores,
+                                             fused_dot_topk_scores,
                                              permute_item_table)
 from cleverrec_tpu_torch.ops import scores as S
+from cleverrec_tpu_torch.ops.topk import topk
 
 # f32 dots of width 16, summed in another order by XLA and by torch.
 ATOL = 1e-5
 B, I, D = 37, 5000, 16          # two 4096-item tiles, ragged tail
 
 
-def _inputs(with_bias):
+def _inputs(with_bias, b=B, i=I):
     rng = np.random.default_rng(3)
-    u = rng.normal(size=(B, D)).astype(np.float32)
-    q = rng.normal(size=(I, D)).astype(np.float32)
-    words = -(-I // 32)
-    bits = np.zeros((B, words), np.uint32)
-    for r in range(B):
-        s = rng.choice(I, size=400, replace=False)
+    u = rng.normal(size=(b, D)).astype(np.float32)
+    q = rng.normal(size=(i, D)).astype(np.float32)
+    words = -(-i // 32)
+    bits = np.zeros((b, words), np.uint32)
+    for r in range(b):
+        s = rng.choice(i, size=min(400, i // 4), replace=False)
         np.bitwise_or.at(bits[r], s >> 5, np.uint32(1) << (s & 31))
     bits[0, :3] = 0xFFFFFFFF                       # whole groups seen
-    bias = rng.normal(size=(I,)).astype(np.float32) if with_bias else None
+    bias = rng.normal(size=(i,)).astype(np.float32) if with_bias else None
     return u, q, bits, bias
 
 
@@ -76,3 +79,39 @@ def test_dot_gmax_ref_matches_pallas(with_bias):
     got = S.dot_gmax(*_torch(u, q, bits, bias)).numpy()
     assert got.shape == (B, groups)
     _assert_masked_close(got, want[:, :groups])
+
+
+# fused_dot_topk_scores: 1, 2 and 3 tiles of 4096 items with a ragged tail
+# (the shapes of tests/test_ops.py).
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("n_items", [200, I, 2 * 4096 + 100])
+def test_dot_topk_scores_ref_matches_pallas(n_items, with_bias):
+    b = 16
+    u, q, bits, bias = _inputs(with_bias, b, n_items)
+    j_scores, j_gmax, j_map = (np.asarray(x) for x in fused_dot_topk_scores(
+        jnp.asarray(u), jnp.asarray(q), jnp.asarray(bits), block_b=8,
+        interpret=True, bias=None if bias is None else jnp.asarray(bias)))
+    scores, gmax, item_map = S.dot_topk_scores(*_torch(u, q, bits, bias))
+    scores, gmax, item_map = scores.numpy(), gmax.numpy(), item_map.numpy()
+    i_pad = -(-n_items // 4096) * 4096
+    assert scores.shape == j_scores.shape == (b, i_pad)
+    assert gmax.shape == j_gmax.shape == (b, i_pad // 32)
+    np.testing.assert_array_equal(item_map, np.arange(i_pad))
+    # Both in item order: each package's columns through its own item_map.
+    want = np.empty_like(j_scores)
+    want[:, j_map] = j_scores
+    got = np.empty_like(scores)
+    got[:, item_map] = scores
+    assert (got[:, n_items:] == S.NEG).all()         # padded items masked
+    assert (got[0, :96] == S.NEG).all()              # whole seen words
+    _assert_masked_close(got, want)
+    # gmax in the TPU kernel's lane layout, element by element.
+    _assert_masked_close(gmax, j_gmax)
+    lanes = gmax.reshape(b, -1, 128)
+    assert (lanes[:, :, 32:] == S.NEG).all()
+    # The ranked ids, through each item_map (untied random scores).
+    for k in (5, 20):
+        _, idx = topk(torch.as_tensor(scores), k)
+        _, j_idx = jax.lax.top_k(jnp.asarray(j_scores), k)
+        np.testing.assert_array_equal(item_map[idx.numpy()],
+                                      j_map[np.asarray(j_idx)])

@@ -1,7 +1,7 @@
 """The whole serving/eval slice against the JAX package: toy data through
 both loaders, JAX BPR's init parameters carried into the port, then
-retrieval (dense, fused), rerank and the Evaluator's candidate, full and
-full_fused modes."""
+retrieval (dense, fused, stream), rerank and the Evaluator's candidate,
+full, full_fused and full_stream modes."""
 
 import dataclasses
 
@@ -57,7 +57,8 @@ def _without_bitmaps(dd):
 
 @pytest.mark.parametrize("backend,seen", [
     ("dense", "bits"), ("fused", "bits"), ("fused", "rows"),
-    ("dense", "unfiltered"), ("fused", "unfiltered")])
+    ("dense", "unfiltered"), ("fused", "unfiltered"), ("stream", "bits"),
+    ("stream", "rows"), ("stream", "unfiltered")])
 def test_retrieval_matches_jax(toy_dataset, backend, seen):
     (_, jmodel, params, jdd), (_, model, dd) = _both(toy_dataset, **FULL)
     if seen == "rows":
@@ -101,6 +102,11 @@ def test_rerank_matches_jax(toy_dataset):
     ("full", dict(FULL, **{"eval.fused_kernel": "False"}), True),
     ("full_fused", dict(FULL, **{"eval.fused_kernel": "True"}), True),
     ("full_fused", dict(FULL, **{"eval.fused_kernel": "True"}), False),
+    ("full_stream", dict(FULL, **{"eval.stream": "True"}), True),
+    ("full_stream", dict(FULL, **{"eval.stream": "True"}), False),
+    # Chunks of no whole bitmap words: rank_stream masks with the rows.
+    ("full_stream", dict(FULL, **{"eval.stream": "True",
+                                  "eval.stream_chunk": "24"}), True),
 ])
 def test_evaluator_matches_jax(toy_dataset, mode, overrides, bitmaps):
     (jcfg, jmodel, params, jdd), (cfg, model, dd) = _both(
