@@ -75,7 +75,14 @@ width of ``conf/BPR.properties`` (embed_size 128):
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
-  time the card needs for the same work.
+  time the card needs for the same work.  The scoring rows also give the
+  kernel's own device time (``device_ms``, from torch.profiler), the
+  library call's (``library_device_ms``) and the host's time to issue
+  one wrapper call (``wrapper_us``, over the calls ``ms`` times);
+  ``dot_scores`` is held and timed at A, at phase A's eval batches (E:
+  its 1,024-user ``full_fused`` batches, which take another tile), at B
+  and at N, 1,024 users x 4,096 items (the narrow branch's border),
+  inputs from the script's seeds.
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, and again before and after each training run.  Exits non-zero, with no
@@ -204,19 +211,57 @@ def sync_s(fn):
     return out, time.perf_counter() - t0
 
 
-def time_ms(fn, iters: int = 20) -> float:
-    """Mean device time of fn() in ms over ``iters`` runs, CUDA events."""
+def timed(fn, iters: int = 20) -> tuple[float, float]:
+    """(ms, host_us) of fn() over the same ``iters`` runs: the mean device
+    time in ms, CUDA events, and the host's mean time to issue one run in
+    microseconds."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host / iters * 1e6
+
+
+def time_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms over ``iters`` runs, CUDA events."""
+    return timed(fn, iters)[0]
+
+
+def device_ms(fn, match=None, iters: int = 20):
+    """Device time of one fn() call in ms, from torch.profiler over
+    ``iters`` calls: the CUDA kernels whose name holds ``match`` (every
+    device event when ``match`` is None), their time over the calls the
+    trace holds (it may miss the first launches).  A trace that holds
+    none (seen once on an H100, for a cuBLAS product) is taken again, once;
+    None if that one holds none either.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and (match is None or match in e.key)]
+        launches = max((e.count for e in events), default=0)
+        if launches:
+            return (sum(e.self_device_time_total for e in events) / 1e3
+                    / launches)
+    return None
 
 
 def bound(moved, flops):
@@ -454,7 +499,11 @@ def phase_a(rng, profiles):
     check(cand_ev.mode == "candidate", f"eval mode {cand_ev.mode}")
     cand, times["A_eval_candidate_s"] = evaluate("candidate", cand_ev)
     metrics = {"full_fused": got, "full": want, "candidate": cand}
-    return model, dd, calls[0], times, metrics
+    # The users of the full_fused eval's first batch: the test users
+    # wrapped to a whole batch of test.batch_size, as the Evaluator pads.
+    eval_users = dd.test_users[np.arange(cfg.test_batch_size)
+                               % len(dd.test_users)]
+    return model, dd, calls[0], eval_users, times, metrics
 
 
 def phase_b(rng, profiles):
@@ -575,16 +624,27 @@ def kernel_rows(name, shapes, launches, ref, kernel, replaces, out_elems):
         moved = 4 * (u.numel() + q.numel() + bits.numel()
                      + out_elems(bsz, n_items))
         flops = 2 * bsz * n_items * d
-        timings.append({
-            "shape": tag, "B": bsz, "I": n_items, "d": d,
-            "ms": time_ms(lambda: kernel(u, q, bits)),
-            "ms_bias": time_ms(lambda: kernel(u, q, bits, bias)),
-            "plain_ms": time_ms(lambda: ref(u, q, bits), iters=5),
-            "library_ms": time_ms(lambda: torch.matmul(u, q.T)),
-            "bytes": moved, "flops": flops, **bound(moved, flops)})
+        # ms is what a caller pays a call; wrapper_us is the host's time to
+        # issue one of the same calls (the Python wrapper and the launch),
+        # device_ms the kernel's own time (every scoring kernel's name
+        # starts dot_).
+        ms, wrapper_us = timed(lambda: kernel(u, q, bits))
+        t = {"shape": tag, "B": bsz, "I": n_items, "d": d,
+             "ms": ms, "wrapper_us": wrapper_us,
+             "device_ms": device_ms(lambda: kernel(u, q, bits), "dot_"),
+             "ms_bias": time_ms(lambda: kernel(u, q, bits, bias)),
+             "plain_ms": time_ms(lambda: ref(u, q, bits), iters=5),
+             "library_ms": time_ms(lambda: torch.matmul(u, q.T)),
+             "library_device_ms": device_ms(lambda: torch.matmul(u, q.T)),
+             "bytes": moved, "flops": flops, **bound(moved, flops)}
+        if kernel is scores.dot_scores:
+            t["tile"] = scores.SCORE_TILES[scores._scores_tile(
+                bsz, n_items, scores._sms(u.device.index))]
+        timings.append(t)
     main = timings[0]
-    row.update({key: main[key] for key in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")})
+    row.update({key: main[key] for key in (
+        "ms", "device_ms", "wrapper_us", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_device_ms")})
     row["timings"] = timings
     return row
 
@@ -597,6 +657,17 @@ def kernel_inputs(model, dd, users, gen):
     bits = torch.as_tensor(seen_bits(dd, users), device="cuda")
     bias = torch.randn(q.shape[0], generator=gen).cuda()
     return u, q, bits, bias
+
+
+def border_inputs(rng, gen, b=1024, n_items=4096, d=128):
+    """``dot_scores`` at the narrow branch's border (the widest catalog
+    ``rank_fused`` scores in full): u, q and bias from ``gen``, seen bitmaps
+    with a 5% fill from ``rng``."""
+    u, q = (torch.randn(n, d, generator=gen).cuda() for n in (b, n_items))
+    seen = rng.random((b, n_items)) < 0.05
+    bits = np.packbits(seen, axis=1, bitorder="little").view(np.int32)
+    bias = torch.randn(n_items, generator=gen).cuda()
+    return u, q, torch.as_tensor(bits, device="cuda"), bias
 
 
 class Records(logging.Handler):
@@ -1341,11 +1412,12 @@ def main() -> int:
     profiles = {}
     gen = torch.Generator().manual_seed(1)
     scores.reset_launches()
-    model_a, dd_a, users_a, t_a, metrics = phase_a(rng, profiles)
+    model_a, dd_a, users_a, eval_a, t_a, metrics = phase_a(rng, profiles)
     launches_a = dict(scores.launches)
     model_b, dd_b, users_b, t_b = phase_b(rng, profiles)
     launches_b = dict(scores.launches)
     shapes = {"A": kernel_inputs(model_a, dd_a, users_a, gen),
+              "E": kernel_inputs(model_a, dd_a, eval_a, gen),
               "B": kernel_inputs(model_b, dd_b, users_b, gen)}
     del model_b, dd_b                     # phase H needs the memory
     torch.cuda.empty_cache()
@@ -1363,8 +1435,10 @@ def main() -> int:
                                     if k.startswith("H_")}), flush=True)
 
     shapes["H"] = kernel_inputs(model_h, dd_h, users_h, gen)
+    shapes["N"] = border_inputs(rng, gen)
     del model_h, dd_h
-    rows = [kernel_rows("dot_scores", {k: shapes[k] for k in ("A", "B")},
+    rows = [kernel_rows("dot_scores",
+                        {k: shapes[k] for k in ("A", "E", "B", "N")},
                         launches["dot_scores"],
                         scores.dot_scores_ref, scores.dot_scores,
                         "cleverrec_tpu/ops/pallas_scores.py:276",
@@ -1433,6 +1507,7 @@ def main() -> int:
     for row in rows:
         print(f"kernel {row['name']}: launches {row['launches']}, "
               f"max_abs_err {row['max_abs_err']}, ms {row['ms']}, "
+              f"device_ms {row.get('device_ms')}, "
               f"plain_ms {row['plain_ms']}, library_ms {row['library_ms']}, "
               f"bound_ms {row['bound_ms']} ({row['bound_by']})")
     print(json.dumps({"timings": times, "launches_phase_a": launches_a,

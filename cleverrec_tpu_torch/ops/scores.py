@@ -26,12 +26,16 @@ bit ``i & 31`` of word ``i >> 5``.
 A wrapper given CPU tensors runs the plain PyTorch version
 (``dot_scores_ref`` / ``dot_gmax_ref``).  Given CUDA tensors it launches
 the kernel in ``csrc/dot_scores.cu`` or raises; it never falls back.
-``launches`` counts kernel launches per wrapper.
+``launches`` counts kernel launches per wrapper.  On the card the wrapper
+picks ``dot_scores``' block tile by grid fill (``_scores_tile``) and tells
+the kernels whether they may stage u and q with 16-byte copies
+(``_aligned``); each C entry point is bound once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -96,58 +100,119 @@ def _check(u, q, bits, bias):
         raise ValueError(f"u {tuple(u.shape)} and q {tuple(q.shape)} must "
                          "be [B, d] and [I, d]")
     b, i = u.shape[0], q.shape[0]
-    if tuple(bits.shape) != (b, cdiv(i, 32)):
+    if bits.shape != (b, (i + 31) // 32):
         raise ValueError(f"bits {tuple(bits.shape)} must be "
                          f"[{b}, {cdiv(i, 32)}]")
-    if bias is not None and tuple(bias.shape) != (i,):
+    if bias is not None and bias.shape != (i,):
         raise ValueError(f"bias {tuple(bias.shape)} must be [{i}]")
-    tensors = [u, q, bits] + ([bias] if bias is not None else [])
-    if len({t.device for t in tensors}) != 1:
+    dev = u.device
+    if q.device != dev or bits.device != dev or (
+            bias is not None and bias.device != dev):
         raise ValueError("u, q, bits and bias must be on one device")
-    if (u.dtype, q.dtype, bits.dtype) != (torch.float32, torch.float32,
-                                          torch.int32) or (
-            bias is not None and bias.dtype != torch.float32):
+    f32 = torch.float32
+    if u.dtype != f32 or q.dtype != f32 or bits.dtype != torch.int32 or (
+            bias is not None and bias.dtype != f32):
         raise TypeError("u, q and bias must be float32 and bits int32")
 
 
-def _launch(name, u, q, bits, bias, *outs):
-    if not all(t.is_contiguous() for t in (u, q, bits, *outs)) or (
-            bias is not None and not bias.is_contiguous()):
+# dot_scores' block tiles, users x items, largest first; the index is the
+# C entry point's ``tile`` argument.
+SCORE_TILES = ((128, 128), (64, 64), (32, 64))
+# dot_gmax's grid holds 64-user blocks in its y dimension (at most 65535).
+GMAX_MAX_USERS = 65535 * 64
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (132 on an
+    H100 SXM): the one source of the SM count that ``dot_scores``' tile
+    choice and its C entry point's strip split both use."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _scores_tile(b: int, i: int, sms: int) -> int:
+    """The index in ``SCORE_TILES`` of ``dot_scores``' tile for ``b`` users
+    and ``i`` items on a card of ``sms`` SMs: the largest whose grid holds
+    at least ``sms`` blocks, so that every SM gets work, else the
+    smallest."""
+    for k, (bm, bn) in enumerate(SCORE_TILES):
+        if cdiv(b, bm) * cdiv(i, bn) >= sms:
+            return k
+    return len(SCORE_TILES) - 1
+
+
+def _aligned(u, q) -> bool:
+    """May the kernels stage u and q with 16-byte copies: d % 4 == 0 and
+    both bases 16-byte aligned?  A contiguous view such as ``table[1:]``
+    need not be; the kernels then stage with 4-byte copies."""
+    return (u.shape[1] % 4 == 0 and u.data_ptr() % 16 == 0
+            and q.data_ptr() % 16 == 0)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Each C entry point's arguments: u, q, bits, bias, the outputs, then
+# B, I, d, W, the kernel's own ints, the stream.
+_ARGTYPES = {"dot_scores": [_P] * 5 + [_I] * 7 + [_P],
+             "dot_gmax": [_P] * 5 + [_I] * 4 + [_P],
+             "dot_topk_scores": [_P] * 6 + [_I] * 5 + [_P]}
+_fns: dict = {}
+
+
+def _fn(name):
+    """C entry point ``name``, bound (``restype``, ``argtypes``) once."""
+    fn = _fns.get(name)
+    if fn is None:
+        from cleverrec_tpu_torch.ops.build import load
+        fn = getattr(load("dot_scores"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _fns[name] = fn
+    return fn
+
+
+def _on_cpu(name, u, q, bits, bias) -> bool:
+    """Check the inputs: True on CPU tensors (the plain version runs),
+    False on CUDA tensors (the kernel runs); raises on any other device."""
+    _check(u, q, bits, bias)
+    if u.device.type == "cpu":
+        return True
+    if u.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {u.device}")
+    return False
+
+
+def _empty(u, width):
+    return torch.empty((u.shape[0], width), dtype=torch.float32,
+                       device=u.device)
+
+
+def _launch(name, u, q, bits, bias, outs, ints=(), max_users=None):
+    """Launch C entry point ``name`` on CUDA tensors: u, q, bits, bias,
+    ``outs``, then B, I, d, W and ``ints``; raises on any refusal,
+    ``max_users`` (None: any) users a call included."""
+    if not (u.is_contiguous() and q.is_contiguous() and bits.is_contiguous()
+            and (bias is None or bias.is_contiguous())):
         raise ValueError(f"{name}: inputs must be contiguous")
     if q.shape[0] == 0 or u.shape[0] == 0:
-        return outs
-    if u.shape[0] > 65535 * 64:        # grid.y holds 64-user tiles
-        raise ValueError(f"{name}: at most {65535 * 64} users per call")
-    from cleverrec_tpu_torch.ops.build import load
-    fn = getattr(load("dot_scores"), name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * (4 + len(outs)) + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), q.data_ptr(), bits.data_ptr(),
-                 None if bias is None else bias.data_ptr(),
-                 *(t.data_ptr() for t in outs),
-                 u.shape[0], q.shape[0], u.shape[1], bits.shape[1], stream)
+        return
+    if max_users is not None and u.shape[0] > max_users:
+        raise ValueError(f"{name}: at most {max_users} users per call")
+    fn = _fn(name)
+    index = u.device.index
+    args = (u.data_ptr(), q.data_ptr(), bits.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            *(t.data_ptr() for t in outs), u.shape[0], q.shape[0],
+            u.shape[1], bits.shape[1], *ints,
+            torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
     launches[name] += 1
-    return outs
-
-
-def _dispatch(name, ref, widths, u, q, bits, bias):
-    """``ref`` on CPU tensors; on CUDA tensors the kernel ``name``, whose
-    outputs are [B, w] float32 for each w in ``widths`` (one output
-    returned as itself, several as a tuple)."""
-    _check(u, q, bits, bias)
-    if u.device.type == "cpu":
-        return ref(u, q, bits, bias)
-    if u.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {u.device}")
-    outs = _launch(name, u, q, bits, bias, *(
-        torch.empty((u.shape[0], w), dtype=torch.float32, device=u.device)
-        for w in widths))
-    return outs[0] if len(outs) == 1 else outs
 
 
 def dot_scores(u, q, bits, bias=None):
@@ -155,16 +220,25 @@ def dot_scores(u, q, bits, bias=None):
 
     u [B, d] f32, q [I, d] f32, bits [B, ceil(I/32)] int32, bias [I] f32
     or None."""
-    return _dispatch("dot_scores", dot_scores_ref, [q.shape[0]],
-                     u, q, bits, bias)
+    if _on_cpu("dot_scores", u, q, bits, bias):
+        return dot_scores_ref(u, q, bits, bias)
+    out = _empty(u, q.shape[0])
+    sms = _sms(u.device.index)
+    _launch("dot_scores", u, q, bits, bias, (out,),
+            (_scores_tile(u.shape[0], q.shape[0], sms), int(_aligned(u, q)),
+             sms))
+    return out
 
 
 def dot_gmax(u, q, bits, bias=None):
     """Max masked score of each 32-item group [B, ceil(I/32)]; the
     [B, I] scores never reach device memory.  Same inputs as
     ``dot_scores``."""
-    return _dispatch("dot_gmax", dot_gmax_ref, [cdiv(q.shape[0], COMB_I)],
-                     u, q, bits, bias)
+    if _on_cpu("dot_gmax", u, q, bits, bias):
+        return dot_gmax_ref(u, q, bits, bias)
+    out = _empty(u, cdiv(q.shape[0], COMB_I))
+    _launch("dot_gmax", u, q, bits, bias, (out,), max_users=GMAX_MAX_USERS)
+    return out
 
 
 def dot_topk_scores(u, q, bits, bias=None):
@@ -184,8 +258,10 @@ def dot_topk_scores(u, q, bits, bias=None):
     arguments have no counterpart: the CUDA kernel picks its own tiles,
     the plain version runs wherever the tensors lie, and nothing is
     permuted."""
+    if _on_cpu("dot_topk_scores", u, q, bits, bias):
+        return dot_topk_scores_ref(u, q, bits, bias)
     i_pad = _padded(q.shape[0])
-    scores, gmax = _dispatch(
-        "dot_topk_scores", lambda *a: dot_topk_scores_ref(*a)[:2],
-        [i_pad, i_pad // COMB_I], u, q, bits, bias)
+    scores, gmax = _empty(u, i_pad), _empty(u, i_pad // COMB_I)
+    _launch("dot_topk_scores", u, q, bits, bias, (scores, gmax),
+            (int(_aligned(u, q)),))
     return scores, gmax, torch.arange(i_pad, device=u.device)

@@ -126,6 +126,74 @@ def test_dot_topk_scores_rejects_bad_input(cuda):
         S.dot_topk_scores(u, q.t().contiguous().t(), bits)
 
 
+# The FP32 mainloop's edges: widths around a staged chunk (32 columns), the
+# 16-byte pieces (d % 4) and the whole-depth limit (256); I % 4 != 0 and
+# the 4096-item tile border; one user and user counts that fill no tile;
+# 1030 users, whose 9 user blocks share the card's SMs in strips of
+# several 128-item sub-tiles (the last one short).
+EDGES = [(1, 33, 1), (7, 101, 3), (33, 4096, 33), (130, 4097, 130),
+         (65, 1682, 256), (3, 999, 260), (129, 4096, 128), (1030, 4097, 64)]
+
+
+def _edge_inputs(cuda, b, i, d, offset):
+    """The inputs of ``_inputs`` on the card, bias where d is odd; with
+    ``offset``, q in a contiguous view based 4 bytes past a 16-byte
+    boundary (the kernels' scalar staging path)."""
+    u, q, bits, bias = _inputs(b, i, d, d % 2 == 1)
+    q_dev = torch.as_tensor(q).to(cuda)
+    if offset:
+        flat = torch.empty(q.size + 4, dtype=torch.float32, device=cuda)
+        q_dev = flat[1:1 + q.size].view(q.shape)
+        q_dev.copy_(torch.as_tensor(q))
+        assert q_dev.is_contiguous() and q_dev.data_ptr() % 16 == 4
+    u, bits = torch.as_tensor(u).to(cuda), torch.as_tensor(bits).to(cuda)
+    bias = None if bias is None else torch.as_tensor(bias).to(cuda)
+    assert S._aligned(u, q_dev) == (d % 4 == 0 and not offset)
+    return u, q_dev, bits, bias
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("tile", range(len(S.SCORE_TILES)))
+@pytest.mark.parametrize("b,i,d", EDGES)
+def test_dot_scores_edges(cuda, monkeypatch, b, i, d, tile, offset):
+    u, q, bits, bias = _edge_inputs(cuda, b, i, d, offset)
+    monkeypatch.setattr(S, "_scores_tile", lambda b, i, sms: tile)
+    before = S.launches["dot_scores"]
+    got = S.dot_scores(u, q, bits, bias)
+    want = S.dot_scores_ref(u, q, bits, bias)
+    torch.cuda.synchronize()
+    assert S.launches["dot_scores"] == before + 1
+    assert got.shape == (b, i)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132, 100000])
+@pytest.mark.parametrize("b,i,d", [(1030, 4097, 64), (129, 103, 3)])
+def test_dot_scores_strips_follow_the_sm_count(cuda, monkeypatch, b, i, d,
+                                               sms):
+    """The 128 x 128 tile splits each user block's sub-tiles into strips by
+    the SM count the wrapper passes: one strip of every sub-tile, strips of
+    several, one sub-tile a strip."""
+    u, q, bits, bias = _edge_inputs(cuda, b, i, d, False)
+    monkeypatch.setattr(S, "_scores_tile", lambda b, i, sms: 0)
+    monkeypatch.setattr(S, "_sms", lambda index: sms)
+    got = S.dot_scores(u, q, bits, bias)
+    _close(got, S.dot_scores_ref(u, q, bits, bias))
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("b,i,d", EDGES)
+def test_dot_topk_scores_edges(cuda, b, i, d, offset):
+    u, q, bits, bias = _edge_inputs(cuda, b, i, d, offset)
+    before = S.launches["dot_topk_scores"]
+    got = S.dot_topk_scores(u, q, bits, bias)
+    want = S.dot_topk_scores_ref(u, q, bits, bias)
+    torch.cuda.synchronize()
+    assert S.launches["dot_topk_scores"] == before + 1
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+
+
 def _epoch_inputs(u_n, i_n, d, steps, b, t0, seed=0):
     rng = np.random.default_rng(seed)
     u_pad, i_pad = T.sentinel_dims(u_n, i_n)

@@ -81,6 +81,53 @@ def test_dot_gmax_ref_matches_pallas(with_bias):
     _assert_masked_close(got, want[:, :groups])
 
 
+def _blocks(b, i, tile):
+    bm, bn = S.SCORE_TILES[tile]
+    return -(-b // bm) * -(-i // bn)
+
+
+# dot_scores' tile: the largest whose grid holds at least one block per SM,
+# else the smallest.  On an H100 SXM (132 SMs), phase A of chip_smoke.py
+# (256 users x 1,682 items) takes the 32 x 64 tile, 216 blocks; its
+# 1,024-user eval batches the 64 x 64; the 103,523-item catalog the widest.
+@pytest.mark.parametrize("b,i,sms,want", [
+    (256, 1682, 132, (32, 64)), (1024, 103523, 132, (128, 128)),
+    (1024, 4096, 132, (128, 128)), (512, 1682, 132, (64, 64)),
+    (1024, 1682, 132, (64, 64)), (1, 1, 132, (32, 64)),
+    (1, 4096, 132, (32, 64)), (1, 103523, 132, (128, 128)),
+    (100, 1, 132, (32, 64)), (70000, 1, 132, (128, 128)),
+    # Another card's SM count moves the borders.
+    (1024, 1682, 108, (128, 128)), (256, 1682, 16, (128, 128)),
+    (256, 1682, 1000, (32, 64))])
+def test_scores_tile_fills_the_card(b, i, sms, want):
+    tile = S._scores_tile(b, i, sms)
+    assert S.SCORE_TILES[tile] == want
+    if _blocks(b, i, tile) < sms:
+        assert tile == len(S.SCORE_TILES) - 1
+    assert all(_blocks(b, i, k) < sms for k in range(tile))
+
+
+# (d, start, 16-byte staging?): q = big[start:].view(10, d), contiguous;
+# start = d is big[1:] of a [rows, d] table.
+@pytest.mark.parametrize("d,start,want", [
+    (8, 0, True), (8, 4, True), (8, 8, True), (8, 1, False), (8, 2, False),
+    (6, 0, False), (6, 6, False), (1, 1, False)])
+def test_alignment_flag_on_offset_views(d, start, want):
+    """16-byte staging needs d % 4 == 0 and 16-byte aligned bases of u
+    and q; a contiguous view into a larger buffer may start anywhere."""
+    big = torch.randn(12 * d)
+    assert big.data_ptr() % 16 == 0
+    q = big[start:start + 10 * d].view(10, d)
+    u = torch.randn(3, d)
+    assert q.is_contiguous()
+    assert S._aligned(u, q) is want
+    assert S._aligned(q, u) is want
+    # The CPU path (the plain version) reads such views as they are.
+    bits = torch.zeros(3, 1, dtype=torch.int32)
+    torch.testing.assert_close(S.dot_scores(u, q, bits),
+                               S.dot_scores_ref(u, q.clone(), bits))
+
+
 # fused_dot_topk_scores: 1, 2 and 3 tiles of 4096 items with a ragged tail
 # (the shapes of tests/test_ops.py).
 @pytest.mark.parametrize("with_bias", [False, True])
