@@ -82,7 +82,10 @@ width of ``conf/BPR.properties`` (embed_size 128):
   ``dot_scores`` is held and timed at A, at phase A's eval batches (E:
   its 1,024-user ``full_fused`` batches, which take another tile), at B
   and at N, 1,024 users x 4,096 items (the narrow branch's border),
-  inputs from the script's seeds.
+  ``dot_gmax`` at B and A, each timing naming the tile it took; inputs
+  from the script's seeds.  The ``mlp_epoch`` row gives the kernel's own
+  device time of an epoch (``device_ms``, its row and Adam kernels,
+  ``device_split``) at NeuMF's and MLP's shapes.
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, and again before and after each training run.  Exits non-zero, with no
@@ -162,9 +165,9 @@ JAX_HR10 = {"GMF": 0.5419, "MLP": 0.7964, "NeuMF": 0.8038}
 JAX_BAND = 0.03
 TIER_EPOCHS = 3
 # mlp_epoch vs plain: the dense params (W_l, b_l, h) sum every row of a
-# step through one atomic per element per block, against cuBLAS products
-# in the plain version, and Adam normalises that rounding into each next
-# step; the loss depends on them.
+# step in the kernel's order (per block, then the blocks' partial sums),
+# against cuBLAS products in the plain version, and Adam normalises that
+# rounding into each next step; the loss depends on them.
 DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 # mlp_epoch is held over the first MLP_HELD_STEPS steps of the main
 # path's next epoch, not all 81: a ReLU whose input lies within rounding
@@ -637,9 +640,8 @@ def kernel_rows(name, shapes, launches, ref, kernel, replaces, out_elems):
              "library_ms": time_ms(lambda: torch.matmul(u, q.T)),
              "library_device_ms": device_ms(lambda: torch.matmul(u, q.T)),
              "bytes": moved, "flops": flops, **bound(moved, flops)}
-        if kernel is scores.dot_scores:
-            t["tile"] = scores.SCORE_TILES[scores._scores_tile(
-                bsz, n_items, scores._sms(u.device.index))]
+        if kernel in (scores.dot_scores, scores.dot_gmax):
+            t["tile"] = scores.SCORE_TILES[scores._tiling(u, q)[0]]
         timings.append(t)
     main = timings[0]
     row.update({key: main[key] for key in (
@@ -1018,15 +1020,22 @@ def mlp_timing(name, profiles):
     # (gather, GMF product, logit, regularisers, scatter) are left out,
     # so the bound is lower than the work.
     flops = 6 * macs * n_real + 14 * n_state * steps
+    lay = train_ops.mlp_epoch_plan(spec["gmf_width"], shapes, b,
+                                   scores._sms(k_state[0].device.index))
+
+    def epoch():
+        return train_ops.fused_mlp_epoch(*k_state, *ids, *cols, state.count,
+                                         spec=spec, lr=cfg.lr)
+    # The kernel's own device time in one epoch: its row and Adam kernels.
+    split = {k: sum(t["ms"] for t in breakdown(epoch)["top"]
+                    if k in t["kernel"]) for k in ("mlp_rows", "mlp_adam")}
     out = {"shape": name, "U": data.user_nums, "I": data.item_nums,
            "tw": k_state[0].shape[1], "layers": shapes, "B": b,
-           "steps": steps, "real_rows": n_real,
-           "tile_rows": train_ops.mlp_epoch_plan(spec["gmf_width"],
-                                                 shapes)["rows"],
-           "bytes": moved, "flops": flops, "errors": errors,
-           "loss_rel_err": loss_rel,
-           "ms": time_ms(lambda: train_ops.fused_mlp_epoch(
-               *k_state, *ids, *cols, state.count, spec=spec, lr=cfg.lr)),
+           "steps": steps, "real_rows": n_real, "tile_rows": lay["rows"],
+           "blocks": lay["blocks"], "bytes": moved, "flops": flops,
+           "errors": errors, "loss_rel_err": loss_rel,
+           "ms": time_ms(epoch), "device_ms": sum(split.values()),
+           "device_split": split,
            "plain_ms": time_ms(lambda: train_ops.fused_mlp_epoch_ref(
                *r_state, *ids, *cols, state.count,
                row_loss=spec["row_loss"], lr=cfg.lr), iters=3),
@@ -1045,8 +1054,8 @@ def mlp_row(launches, profiles):
             "replaces": "cleverrec_tpu/ops/pallas_train.py:631",
             "launches": launches,
             "max_abs_err": max(max(t["errors"].values()) for t in timings),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
             "timings": timings}
 
 

@@ -34,11 +34,11 @@
 // loads, waits on device memory, barriers.  Shared memory feeds an SM 32
 // floats a clock; an 8 x 8 register tile needs that at the full FMA rate.
 //
-// dot_scores and dot_topk_scores share one FP32 mainloop (fma_chunk):
+// All three share one FP32 mainloop (fma_chunk):
 // - Register tile.  Each thread keeps TM x TN sums (8 x 8 in the 128-user
 //   tiles) and reads its operands from shared memory as float4: per 4
 //   depth columns, TM + TN 16-byte loads feed 4 TM TN FMAs (1 load per 16
-//   FMAs at 8 x 8; dot_gmax's 4 x 4 tile spends 1 scalar load per 2).
+//   FMAs at 8 x 8, 1 per 8 at 4 x 4).
 // - Layout.  u and q are [rows, d] with d contiguous, so shared memory
 //   keeps chunks of 32 depth columns, each rows x 32 floats (a row stride
 //   the mainloop knows at compile time) of 16-byte pieces.  A thread owns
@@ -47,35 +47,39 @@
 //   the 8 threads of a quarter-warp, which read rows 4 tx + c with the
 //   same g, hit 8 different bank groups.  The user rows of a quarter-warp
 //   are one row (a broadcast) and need no swizzle.
-// - Staging.  cp.async copies, 16 bytes where d % 4 == 0 and both bases
-//   are 16-byte aligned (the wrapper passes the flag), else 4 bytes (the
-//   scalar path, for views such as table[1:]), zero-filled past the edges.
-//   A ring of depth chunks lets the next chunk load while the current one
-//   is multiplied; dot_scores' 64- and 32-user tiles stage the whole depth
-//   (d <= 256; deeper inputs take the strip kernel) in one group instead:
-//   one wait and one barrier.
+// - Staging.  cp.async copies (cp_async.cuh), 16 bytes where d % 4 == 0
+//   and both bases are 16-byte aligned (the wrapper passes the flag), else
+//   4 bytes (the scalar path, for views such as table[1:]), zero-filled
+//   past the edges.  A ring of depth chunks lets the next chunk load while
+//   the current one is multiplied; the 64- and 32-user tiles stage the
+//   whole depth (d <= 256; deeper inputs take the strip kernel) in one
+//   group instead: one wait and one barrier.
 // - Plain FP32 sums.  Each output is one fmaf chain in increasing depth
 //   order, as a float32 matrix product on the card sums it; the zero
 //   columns past d add 0 exactly.  No TF32.
-// dot_topk_scores and dot_scores' 128 x 128 tile run the strip kernel: a
-// block keeps its 128 user rows in shared memory for a whole strip of
-// 128-item sub-tiles (a 4096-item tile for dot_topk_scores, loaded once,
-// not once per sub-tile), walks the strip through the ring without a break
-// between sub-tiles, and applies bias and mask in registers;
-// dot_topk_scores stores float4s and keeps its comb maxes per thread (see
-// dot_strip_kernel).  Grids run users along x, so the blocks that share q
-// rows run together and read them from L2.  dot_scores picks its tile
-// (scores.py's _scores_tile, on the SM count the wrapper passes: 132 on
-// an H100 SXM) so that its grid fills the card, and writes through shared
-// memory so that its stores are coalesced whatever I % 4.
-//
-// dot_gmax keeps its own design (namespace group_max): a 64 x 64 block
-// tile, 32 depth columns a pass, 4 x 4 sums a thread, scalar shared loads;
-// its epilogue max-reduces each aligned 32-item group across 16 lanes with
-// __shfl_xor_sync and writes one float.
+// The 128 x 128 tile runs the strip kernel: a block keeps its 128 user
+// rows in shared memory for a whole strip of 128-item sub-tiles (a
+// 4096-item tile for dot_topk_scores, loaded once, not once per
+// sub-tile), walks the strip through the ring without a break between
+// sub-tiles, and applies bias and mask in registers.  Grids run users
+// along x, so the blocks that share q rows run together and read them from
+// L2.  dot_scores and dot_gmax pick their tile (scores.py's _scores_tile,
+// on the SM count the wrapper passes: 132 on an H100 SXM) so that the
+// grid fills the card; the 128 x 128 tile splits its sub-tiles into as
+// many strips as fill the card's SMs.  Three epilogues:
+// - dot_scores writes through shared memory, so that its stores are
+//   coalesced whatever I % 4 (store_rows);
+// - dot_topk_scores stores float4s and keeps its comb maxes per thread
+//   (see dot_strip_kernel);
+// - dot_gmax keeps no scores: a thread's items 4 tx + 64 g + c of an
+//   aligned sub-tile fall in 32-item group (tx >> 3) + 2 g, so it takes
+//   the max over its 4 c, three __shfl_xor_sync merge the 8 lanes that
+//   share the group, and one lane writes one float (store_gmax).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
@@ -84,152 +88,11 @@ constexpr int TILE_I = 4096;  // dot_topk_scores: items per tile, as on the TPU
 constexpr int GROUP_LANES = 128;  // dot_topk_scores: gmax lanes per tile
 constexpr int KC = 32;        // depth columns per staged chunk: 8 pieces
 
-// ---------------------------------------------------------------- dot_gmax
-
-namespace group_max {
-
-constexpr int BM = 64;        // users per block
-constexpr int BN = 64;        // items per block: two 32-item groups
-constexpr int BK = 32;        // depth columns staged per pass
-constexpr int TX = 16;        // threads along items
-constexpr int TY = 16;        // threads along users
-constexpr int RM = BM / TY;   // users per thread
-constexpr int RN = BN / TX;   // items per thread: tx, tx + 16, tx + 32, tx + 48
-constexpr int WPB = BN / 32;  // bitmap words per block row
-
-static_assert(BM == BN, "one loop stages both tiles");
-static_assert(TX == 16 && RN == 4, "group g of a row is items j = 2g, 2g + 1 of a thread");
-
-// A block's shared staging: a BM-user x BN-item tile of u and q, BK depth
-// columns at a time, and the users' bitmap words of the BN items.  Rows
-// padded to BK + 1 floats: the 16 item lanes of a half-warp read 16
-// different banks.
-struct Stage {
-  float us[BM][BK + 1];
-  float qs[BN][BK + 1];
-  uint32_t ws[BM][WPB];
-};
-
-// v[i][j] = the masked score of user m0 + ty * RM + i and item
-// n0 + tx + TX * j: u . q + bias, or NEG where the item is seen or >= I.
-// Every thread of the block calls it (it synchronises).
-__device__ __forceinline__ void masked_tile(
-    Stage& s, const float* __restrict__ u, const float* __restrict__ q,
-    const uint32_t* __restrict__ bits, const float* __restrict__ bias,
-    int B, int I, int d, int W, int m0, int n0, float (&v)[RM][RN]) {
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-
-  __syncthreads();   // a previous tile's epilogue is done with s.ws
-  for (int t = threadIdx.x; t < BM * WPB; t += TX * TY) {
-    const int r = t / WPB, w = n0 / 32 + t % WPB;
-    s.ws[r][t % WPB] = (m0 + r < B && w < W) ? bits[(size_t)(m0 + r) * W + w] : 0u;
-  }
-
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    // Consecutive threads read consecutive depth columns of one row.
-    for (int t = threadIdx.x; t < BM * BK; t += TX * TY) {
-      const int r = t / BK, c = t % BK, col = k0 + c;
-      s.us[r][c] = (m0 + r < B && col < d) ? u[(size_t)(m0 + r) * d + col] : 0.f;
-      s.qs[r][c] = (n0 + r < I && col < d) ? q[(size_t)(n0 + r) * d + col] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      float a[RM], b[RN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = s.us[ty * RM + i][c];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) b[j] = s.qs[tx + TX * j][c];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  __syncthreads();   // s.ws visible even when d == 0
-
-  float bj[RN];
-#pragma unroll
-  for (int j = 0; j < RN; ++j) {
-    const int item = n0 + tx + TX * j;
-    bj[j] = (bias != nullptr && item < I) ? bias[item] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int r = ty * RM + i;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int c = tx + TX * j;
-      const bool seen = (n0 + c >= I) || ((s.ws[r][c >> 5] >> (c & 31)) & 1u);
-      v[i][j] = seen ? NEG : acc[i][j] + bj[j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(TX * TY)
-dot_gmax_kernel(const float* __restrict__ u, const float* __restrict__ q,
-                const uint32_t* __restrict__ bits,
-                const float* __restrict__ bias, float* __restrict__ out,
-                int B, int I, int d, int W) {
-  __shared__ Stage s;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  float v[RM][RN];
-  masked_tile(s, u, q, bits, bias, B, I, d, W, m0, n0, v);
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = m0 + ty * RM + i;
-    // Items tx + 16j of the tile: j = 0, 1 form group 0, j = 2, 3 group 1.
-    float g0 = fmaxf(v[i][0], v[i][1]), g1 = fmaxf(v[i][2], v[i][3]);
-#pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1) {
-      g0 = fmaxf(g0, __shfl_xor_sync(0xffffffffu, g0, off));
-      g1 = fmaxf(g1, __shfl_xor_sync(0xffffffffu, g1, off));
-    }
-    const int G = (I + 31) / 32, g = n0 / 32;
-    if (tx == 0 && row < B) {
-      out[(size_t)row * G + g] = g0;
-      if (g + 1 < G) out[(size_t)row * G + g + 1] = g1;
-    }
-  }
-}
-
-}  // namespace group_max
+// The epilogue a kernel runs on its sums: dot_scores', dot_topk_scores'
+// or dot_gmax's.
+enum Epi { SCORES, TOPK, GMAX };
 
 // ------------------------------------------------ the shared FP32 mainloop
-
-__device__ __forceinline__ void cp16(float* dst, const float* src, int n) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp4(float* dst, const float* src, int n) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(s), "l"(src), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Stage rows [r0, r0 + rows) of the row-major [n, d] matrix src, depth
 // columns [k0, k0 + KC chunks), into dst chunk by chunk: chunk c is rows
@@ -371,7 +234,33 @@ __device__ __forceinline__ void store_rows(
   }
 }
 
-// ----------------------------------------- dot_scores' 64- and 32-user tiles
+// dot_gmax's epilogue: out[row, group] ([B, ceil(I/32)]) for a thread's
+// rows row0 + i and its items n0 + 4 tx + 64 g + c (n0 % 32 == 0), which
+// fall in group n0 / 32 + (tx >> 3) + 2 g; the 8 lanes tx ^ 1, 2, 4 share
+// it.  Items >= I count as seen, so no group takes a score past I.  Every
+// thread of a warp calls it.
+template <int TM, int TN>
+__device__ __forceinline__ void store_gmax(
+    const float (&acc)[TM][TN], const uint32_t (&wd)[TM][TN / 4],
+    const float (&bj)[TN], float* __restrict__ out, int B, int I, int row0,
+    int n0, int tx) {
+  const int G = (I + 31) / 32;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 v = masked4<TM, TN>(acc, wd, bj, i, g, n0, tx, I);
+      float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const int grp = n0 / 32 + (tx >> 3) + 2 * g;
+      if ((tx & 7) == 0 && row0 + i < B && grp < G)
+        out[(size_t)(row0 + i) * G + grp] = m;
+    }
+}
+
+// ------------------------------------------------- the 64- and 32-user tiles
 
 // A block tile of BM users x BN items, TM x TN sums a thread, for depths
 // up to KC * WHOLE (256), staged whole; deeper inputs take the strip
@@ -393,8 +282,8 @@ struct Tile {
   }
 };
 
-// dot_scores' tiles 1 and 2 (scores.py's SCORE_TILES); tile 0 is the
-// strip kernel's.
+// Tiles 1 and 2 of dot_scores and dot_gmax (scores.py's SCORE_TILES);
+// tile 0 is the strip kernel's.
 using Mid = Tile<64, 64, 4, 4>;
 using Narrow = Tile<32, 64, 4, 4>;
 
@@ -420,13 +309,13 @@ __device__ __forceinline__ void tile_product(
 }
 
 // A block per T-tile; blockIdx.x walks users, so the blocks that share a
-// q tile run together and read it from L2.
-template <class T, bool VEC>
+// q tile run together and read it from L2.  EPI: SCORES or GMAX.
+template <class T, bool VEC, Epi EPI>
 __global__ void __launch_bounds__(T::THREADS)
-dot_scores_kernel(const float* __restrict__ u, const float* __restrict__ q,
-                  const uint32_t* __restrict__ bits,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  int B, int I, int d, int W) {
+dot_tile_kernel(const float* __restrict__ u, const float* __restrict__ q,
+                const uint32_t* __restrict__ bits,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int B, int I, int d, int W) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   constexpr int TM = T::TM, TN = T::TN;
@@ -442,6 +331,10 @@ dot_scores_kernel(const float* __restrict__ u, const float* __restrict__ q,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   tile_product<T, VEC>(acc, smem, u, q, B, I, d, m0, n0, ty, tx);
+  if (EPI == GMAX) {
+    store_gmax<TM, TN>(acc, wd, bj, out, B, I, m0 + ty * TM, n0, tx);
+    return;
+  }
   __syncthreads();   // every thread is done with the staged operands
   store_rows<T::BM, T::BN, TM, TN, T::THREADS>(smem, T::TS, acc, wd, bj, out,
                                                B, I, m0, n0, ty, tx);
@@ -458,22 +351,22 @@ constexpr int TS = BN + 4;         // dot_scores: staging row stride, floats
 constexpr int SMEM_MAX = 232448;   // bytes of shared memory a block may use
 
 // Beside the operands, floats: dot_topk_scores' comb maxes (TM x 4 a
-// thread) or dot_scores' BM x BN staging tile.
-__host__ __device__ constexpr int extra(bool topk) {
-  return topk ? TM * 4 * THREADS : BM * TS;
+// thread), dot_scores' BM x BN staging tile, or nothing (dot_gmax).
+__host__ __device__ constexpr int extra(Epi epi) {
+  return epi == TOPK ? TM * 4 * THREADS : epi == SCORES ? BM * TS : 0;
 }
 
 // Is the block's whole u (depth dp) kept in shared memory beside a ring of
 // q chunks, or staged by chunks beside q's?
-__host__ __device__ constexpr bool u_whole(int dp, bool topk) {
-  return 4 * (BM * dp + STAGES * BN * KC + extra(topk)) <= SMEM_MAX;
+__host__ __device__ constexpr bool u_whole(int dp, Epi epi) {
+  return 4 * (BM * dp + STAGES * BN * KC + extra(epi)) <= SMEM_MAX;
 }
 
 // Dynamic shared memory of a block at depth d, bytes.
-int smem(int d, bool topk) {
+int smem(int d, Epi epi) {
   const int dp = (d > KC ? (d + KC - 1) / KC : 1) * KC;
-  return 4 * ((u_whole(dp, topk) ? BM * dp + STAGES * BN * KC
-                                 : STAGES * (BM + BN) * KC) + extra(topk));
+  return 4 * ((u_whole(dp, epi) ? BM * dp + STAGES * BN * KC
+                                : STAGES * (BM + BN) * KC) + extra(epi));
 }
 
 }  // namespace strip
@@ -493,9 +386,10 @@ int smem(int d, bool topk) {
 // four combs).  Sub-tiles wholly past I (the padding of the last tile) are
 // written NEG without a product.
 //
-// Else (dot_scores' 128 x 128 tile): a strip is `len` sub-tiles, out is
-// [B, ld = I], and each sub-tile goes out through store_rows.
-template <bool VEC, bool TOPK>
+// Else (the 128 x 128 tile of dot_scores and dot_gmax): a strip is `len`
+// sub-tiles, and each sub-tile goes out through store_rows (SCORES: out is
+// [B, ld = I]) or store_gmax (GMAX: out is [B, ceil(I/32)]).
+template <bool VEC, Epi EPI>
 __global__ void __launch_bounds__(strip::THREADS, 1)
 dot_strip_kernel(const float* __restrict__ u, const float* __restrict__ q,
              const uint32_t* __restrict__ bits, const float* __restrict__ bias,
@@ -510,7 +404,7 @@ dot_strip_kernel(const float* __restrict__ u, const float* __restrict__ q,
 
   // u whole in shared memory, its own group ahead of the ring's; or u
   // chunks beside the q chunks in each stage of the ring.
-  const bool whole = u_whole(dp, TOPK);
+  const bool whole = u_whole(dp, EPI);
   float* ring = smem + (whole ? BM * dp : 0);
   const int sf = (whole ? BN : BM + BN) * KC;
   // dot_scores' staging tile, or dot_topk_scores' comb maxes: slot
@@ -534,7 +428,7 @@ dot_strip_kernel(const float* __restrict__ u, const float* __restrict__ q,
     cp_commit();
   }
 
-  if (TOPK)
+  if (EPI == TOPK)
     for (int k = 0; k < TM * 4; ++k) extra[k * THREADS + threadIdx.x] = NEG;
   float acc[TM][TN];
   uint32_t wd[TM][TN / 4];
@@ -559,7 +453,11 @@ dot_strip_kernel(const float* __restrict__ u, const float* __restrict__ q,
                           ty, tx);
     if (c < nk - 1) continue;
 
-    if (!TOPK) {
+    if (EPI == GMAX) {
+      store_gmax<TM, TN>(acc, wd, bj, out, B, I, m0 + ty * TM, n0, tx);
+      continue;
+    }
+    if (EPI == SCORES) {
       // The staging tile's last readers (the previous sub-tile's stores)
       // are past this step's barrier.
       store_rows<BM, BN, TM, TN, THREADS>(extra, TS, acc, wd, bj, out, B, I,
@@ -588,7 +486,7 @@ dot_strip_kernel(const float* __restrict__ u, const float* __restrict__ q,
     }
   }
   cp_wait<0>();
-  if (!TOPK) return;
+  if (EPI != TOPK) return;
 
   const float4 neg4 = make_float4(NEG, NEG, NEG, NEG);
   for (int sub = live; sub < SUB; ++sub) {
@@ -636,34 +534,34 @@ int allow_smem(K kernel, int bytes, int& allowed) {
   return err;
 }
 
-template <class T, bool VEC>
+template <class T, bool VEC, Epi EPI>
 int launch_tile(const float* u, const float* q, const uint32_t* bits,
                 const float* bias, float* out, int B, int I, int d, int W,
                 cudaStream_t stream) {
   static int allowed = 0;
   const int bytes = T::smem(d);
-  const int err = allow_smem(dot_scores_kernel<T, VEC>, bytes, allowed);
+  const int err = allow_smem(dot_tile_kernel<T, VEC, EPI>, bytes, allowed);
   if (err != 0) return err;
   const dim3 grid((B + T::BM - 1) / T::BM, (I + T::BN - 1) / T::BN);
-  dot_scores_kernel<T, VEC><<<grid, T::THREADS, bytes, stream>>>(
+  dot_tile_kernel<T, VEC, EPI><<<grid, T::THREADS, bytes, stream>>>(
       u, q, bits, bias, out, B, I, d, W);
   return (int)cudaGetLastError();
 }
 
-// dot_scores' 128 x 128 tile: each of the user blocks gets sms / user
-// blocks strips (at least one), so that one wave fills the card's sms SMs.
-// Else dot_topk_scores: a strip per TILE_I-item tile.
-template <bool VEC, bool TOPK>
+// The 128 x 128 tile (SCORES, GMAX): each of the user blocks gets sms /
+// user blocks strips (at least one), so that one wave fills the card's sms
+// SMs.  TOPK: a strip per TILE_I-item tile.
+template <bool VEC, Epi EPI>
 int launch_strip(const float* u, const float* q, const uint32_t* bits,
                  const float* bias, float* out, float* gmax, int B, int I,
                  int d, int W, int sms, cudaStream_t stream) {
   static int allowed = 0;
-  const int bytes = strip::smem(d, TOPK);
-  const int err = allow_smem(dot_strip_kernel<VEC, TOPK>, bytes, allowed);
+  const int bytes = strip::smem(d, EPI);
+  const int err = allow_smem(dot_strip_kernel<VEC, EPI>, bytes, allowed);
   if (err != 0) return err;
   const int users = (B + strip::BM - 1) / strip::BM;
   int strips, len, ld;
-  if (TOPK) {
+  if (EPI == TOPK) {
     strips = (I + TILE_I - 1) / TILE_I;
     len = strip::SUB;
     ld = strips * TILE_I;
@@ -674,17 +572,34 @@ int launch_strip(const float* u, const float* q, const uint32_t* bits,
     strips = (subs + len - 1) / len;
     ld = I;
   }
-  dot_strip_kernel<VEC, TOPK><<<dim3(users, strips), strip::THREADS, bytes, stream>>>(
+  dot_strip_kernel<VEC, EPI><<<dim3(users, strips), strip::THREADS, bytes, stream>>>(
       u, q, bits, bias, out, gmax, B, I, ld, d, W, len);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int launch_tile(const float* u, const float* q, const uint32_t* bits,
-                const float* bias, float* out, int B, int I, int d, int W,
-                int vec, cudaStream_t stream) {
-  return vec ? launch_tile<T, true>(u, q, bits, bias, out, B, I, d, W, stream)
-             : launch_tile<T, false>(u, q, bits, bias, out, B, I, d, W, stream);
+// dot_scores or dot_gmax (EPI) at block tile `tile`.
+template <Epi EPI>
+int launch(const float* u, const float* q, const uint32_t* bits,
+           const float* bias, float* out, int B, int I, int d, int W,
+           int tile, int vec, int sms, cudaStream_t stream) {
+  switch (d > KC * WHOLE ? 0 : tile) {
+    case 0:
+      return vec ? launch_strip<true, EPI>(u, q, bits, bias, out, nullptr, B,
+                                           I, d, W, sms, stream)
+                 : launch_strip<false, EPI>(u, q, bits, bias, out, nullptr, B,
+                                            I, d, W, sms, stream);
+    case 1:
+      return vec ? launch_tile<Mid, true, EPI>(u, q, bits, bias, out, B, I, d,
+                                               W, stream)
+                 : launch_tile<Mid, false, EPI>(u, q, bits, bias, out, B, I,
+                                                d, W, stream);
+    case 2:
+      return vec ? launch_tile<Narrow, true, EPI>(u, q, bits, bias, out, B, I,
+                                                  d, W, stream)
+                 : launch_tile<Narrow, false, EPI>(u, q, bits, bias, out, B,
+                                                   I, d, W, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -699,26 +614,17 @@ extern "C" int dot_scores(const float* u, const float* q, const uint32_t* bits,
                           const float* bias, float* out, int B, int I, int d,
                           int W, int tile, int vec, int sms,
                           cudaStream_t stream) {
-  switch (d > KC * WHOLE ? 0 : tile) {
-    case 0:
-      return vec ? launch_strip<true, false>(u, q, bits, bias, out, nullptr, B,
-                                             I, d, W, sms, stream)
-                 : launch_strip<false, false>(u, q, bits, bias, out, nullptr,
-                                              B, I, d, W, sms, stream);
-    case 1: return launch_tile<Mid>(u, q, bits, bias, out, B, I, d, W, vec, stream);
-    case 2: return launch_tile<Narrow>(u, q, bits, bias, out, B, I, d, W, vec, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch<SCORES>(u, q, bits, bias, out, B, I, d, W, tile, vec, sms,
+                        stream);
 }
 
+// out is [B, ceil(I / 32)]; the other arguments as for dot_scores.
 extern "C" int dot_gmax(const float* u, const float* q, const uint32_t* bits,
                         const float* bias, float* out, int B, int I, int d,
-                        int W, cudaStream_t stream) {
-  const dim3 grid((I + group_max::BN - 1) / group_max::BN,
-                  (B + group_max::BM - 1) / group_max::BM);
-  group_max::dot_gmax_kernel<<<grid, group_max::TX * group_max::TY, 0, stream>>>(
-      u, q, bits, bias, out, B, I, d, W);
-  return (int)cudaGetLastError();
+                        int W, int tile, int vec, int sms,
+                        cudaStream_t stream) {
+  return launch<GMAX>(u, q, bits, bias, out, B, I, d, W, tile, vec, sms,
+                      stream);
 }
 
 // out is [B, Ipad] and gmax [B, Ipad / 32], Ipad = I rounded up to
@@ -727,8 +633,8 @@ extern "C" int dot_topk_scores(const float* u, const float* q,
                                const uint32_t* bits, const float* bias,
                                float* out, float* gmax, int B, int I, int d,
                                int W, int vec, cudaStream_t stream) {
-  return vec ? launch_strip<true, true>(u, q, bits, bias, out, gmax, B, I, d,
+  return vec ? launch_strip<true, TOPK>(u, q, bits, bias, out, gmax, B, I, d,
                                         W, 0, stream)
-             : launch_strip<false, true>(u, q, bits, bias, out, gmax, B, I, d,
+             : launch_strip<false, TOPK>(u, q, bits, bias, out, gmax, B, I, d,
                                          W, 0, stream);
 }

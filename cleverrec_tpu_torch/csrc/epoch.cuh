@@ -1,7 +1,8 @@
 // What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu,
 // rows_epoch.cu, cml_epoch.cu) share: a warp's shuffle sum and max, and
 // dense Adam over a list of f32 tensors, or one element at a time inside
-// a kernel of their own (cml_epoch.cu fuses it with its regulariser).
+// a kernel of their own (cml_epoch.cu fuses it with its regulariser,
+// mlp_epoch.cu with the sum of its blocks' dense gradients).
 //
 // The TPU epoch kernels apply optax's Adam (b1, b2, eps) to every element
 // of every resident parameter after each step (_adam_apply of

@@ -26,10 +26,11 @@ bit ``i & 31`` of word ``i >> 5``.
 A wrapper given CPU tensors runs the plain PyTorch version
 (``dot_scores_ref`` / ``dot_gmax_ref``).  Given CUDA tensors it launches
 the kernel in ``csrc/dot_scores.cu`` or raises; it never falls back.
-``launches`` counts kernel launches per wrapper.  On the card the wrapper
-picks ``dot_scores``' block tile by grid fill (``_scores_tile``) and tells
-the kernels whether they may stage u and q with 16-byte copies
-(``_aligned``); each C entry point is bound once.
+``launches`` counts kernel launches per wrapper.  On the card the wrappers
+of ``dot_scores`` and ``dot_gmax`` pick the block tile by grid fill
+(``_scores_tile``), and every wrapper tells its kernel whether it may stage
+u and q with 16-byte copies (``_aligned``); each C entry point is bound
+once.
 """
 
 from __future__ import annotations
@@ -115,27 +116,25 @@ def _check(u, q, bits, bias):
         raise TypeError("u, q and bias must be float32 and bits int32")
 
 
-# dot_scores' block tiles, users x items, largest first; the index is the
-# C entry point's ``tile`` argument.
+# The block tiles of dot_scores and dot_gmax, users x items, largest
+# first; the index is the C entry points' ``tile`` argument.
 SCORE_TILES = ((128, 128), (64, 64), (32, 64))
-# dot_gmax's grid holds 64-user blocks in its y dimension (at most 65535).
-GMAX_MAX_USERS = 65535 * 64
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     """The streaming multiprocessors of CUDA device ``index`` (132 on an
-    H100 SXM): the one source of the SM count that ``dot_scores``' tile
-    choice and its C entry point's strip split both use."""
+    H100 SXM): the one source of the SM count that the scoring kernels'
+    tile choice and strip split, and the tower epoch's row tile, use."""
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1024)
 def _scores_tile(b: int, i: int, sms: int) -> int:
-    """The index in ``SCORE_TILES`` of ``dot_scores``' tile for ``b`` users
-    and ``i`` items on a card of ``sms`` SMs: the largest whose grid holds
-    at least ``sms`` blocks, so that every SM gets work, else the
-    smallest."""
+    """The index in ``SCORE_TILES`` of the tile of ``dot_scores`` and
+    ``dot_gmax`` for ``b`` users and ``i`` items on a card of ``sms`` SMs:
+    the largest whose grid holds at least ``sms`` blocks, so that every SM
+    gets work, else the smallest."""
     for k, (bm, bn) in enumerate(SCORE_TILES):
         if cdiv(b, bm) * cdiv(i, bn) >= sms:
             return k
@@ -154,7 +153,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # Each C entry point's arguments: u, q, bits, bias, the outputs, then
 # B, I, d, W, the kernel's own ints, the stream.
 _ARGTYPES = {"dot_scores": [_P] * 5 + [_I] * 7 + [_P],
-             "dot_gmax": [_P] * 5 + [_I] * 4 + [_P],
+             "dot_gmax": [_P] * 5 + [_I] * 7 + [_P],
              "dot_topk_scores": [_P] * 6 + [_I] * 5 + [_P]}
 _fns: dict = {}
 
@@ -182,22 +181,26 @@ def _on_cpu(name, u, q, bits, bias) -> bool:
     return False
 
 
+def _tiling(u, q) -> tuple:
+    """The ``tile``, ``vec`` and ``sms`` arguments of the entry points of
+    ``dot_scores`` and ``dot_gmax``."""
+    sms = _sms(u.device.index)
+    return _scores_tile(u.shape[0], q.shape[0], sms), int(_aligned(u, q)), sms
+
+
 def _empty(u, width):
     return torch.empty((u.shape[0], width), dtype=torch.float32,
                        device=u.device)
 
 
-def _launch(name, u, q, bits, bias, outs, ints=(), max_users=None):
+def _launch(name, u, q, bits, bias, outs, ints=()):
     """Launch C entry point ``name`` on CUDA tensors: u, q, bits, bias,
-    ``outs``, then B, I, d, W and ``ints``; raises on any refusal,
-    ``max_users`` (None: any) users a call included."""
+    ``outs``, then B, I, d, W and ``ints``; raises on any refusal."""
     if not (u.is_contiguous() and q.is_contiguous() and bits.is_contiguous()
             and (bias is None or bias.is_contiguous())):
         raise ValueError(f"{name}: inputs must be contiguous")
     if q.shape[0] == 0 or u.shape[0] == 0:
         return
-    if max_users is not None and u.shape[0] > max_users:
-        raise ValueError(f"{name}: at most {max_users} users per call")
     fn = _fn(name)
     index = u.device.index
     args = (u.data_ptr(), q.data_ptr(), bits.data_ptr(),
@@ -223,10 +226,7 @@ def dot_scores(u, q, bits, bias=None):
     if _on_cpu("dot_scores", u, q, bits, bias):
         return dot_scores_ref(u, q, bits, bias)
     out = _empty(u, q.shape[0])
-    sms = _sms(u.device.index)
-    _launch("dot_scores", u, q, bits, bias, (out,),
-            (_scores_tile(u.shape[0], q.shape[0], sms), int(_aligned(u, q)),
-             sms))
+    _launch("dot_scores", u, q, bits, bias, (out,), _tiling(u, q))
     return out
 
 
@@ -237,7 +237,7 @@ def dot_gmax(u, q, bits, bias=None):
     if _on_cpu("dot_gmax", u, q, bits, bias):
         return dot_gmax_ref(u, q, bits, bias)
     out = _empty(u, cdiv(q.shape[0], COMB_I))
-    _launch("dot_gmax", u, q, bits, bias, (out,), max_users=GMAX_MAX_USERS)
+    _launch("dot_gmax", u, q, bits, bias, (out,), _tiling(u, q))
     return out
 
 

@@ -58,8 +58,9 @@ import math
 import numpy as np
 import torch
 
-from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS,
+from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS, cdiv,
                                         sigmoid_xent)
+from cleverrec_tpu_torch.ops.scores import _sms
 
 LOG2 = math.log(2.0)   # -log(sigmoid(0)): the loss of one sentinel slot
 
@@ -326,74 +327,109 @@ def _launch_gmf(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y, t0, *, lr,
 MLP_MAX_LAYERS = 4
 # Dynamic shared memory a block may use on an H100 (227 KB).
 SMEM_LIMIT = 232448
-_TILE_ROWS = (32, 16, 8)
+# The kernel's row tiles are multiples of ROW_STEP rows, at most ROW_MAX
+# (a thread of its block loads each row's ids).
+ROW_STEP, ROW_MAX = 16, 256
 _MAX_T = 3 + 2 * MLP_MAX_LAYERS
+_WARPS = 8      # csrc/mlp_epoch.cu's warps a block
 
 
 class _MlpArgs(ctypes.Structure):
     """``MlpArgs`` of csrc/mlp_epoch.cu, field for field."""
 
     _fields_ = ([(n, ctypes.c_int) for n in ("L", "dg", "hm", "tw", "U", "I",
-                                             "B", "rows")]
+                                             "B", "rows", "blocks", "vec")]
                 + [(n, ctypes.c_int * MLP_MAX_LAYERS)
                    for n in ("n_in", "n_out", "ld_w", "off_w", "off_b")]
                 + [("off_h", ctypes.c_int),
                    ("off_x", ctypes.c_int * (MLP_MAX_LAYERS + 1)),
                    ("ld_x", ctypes.c_int * (MLP_MAX_LAYERS + 1))]
                 + [(n, ctypes.c_int) for n in ("off_ug", "off_ig", "off_d0",
-                                               "off_d1", "ld_d", "off_row",
+                                               "off_d1", "ld_d", "off_sum",
+                                               "ld_sum", "off_row",
                                                "smem_bytes")]
-                + [("reg_g", ctypes.c_float), ("reg_m", ctypes.c_float),
-                   ("p", ctypes.c_void_p * _MAX_T),
-                   ("g", ctypes.c_void_p * _MAX_T)])
+                + [("off_g", ctypes.c_int * (2 * MLP_MAX_LAYERS + 2)),
+                   ("reg_g", ctypes.c_float), ("reg_m", ctypes.c_float)]
+                + [(n, ctypes.c_void_p * _MAX_T) for n in ("p", "m", "v")]
+                + [("g", ctypes.c_void_p * 2), ("part", ctypes.c_void_p)])
+
+
+def _pad4(n: int) -> int:
+    return cdiv(n, 4) * 4
+
+
+def _ld(n: int) -> int:
+    """Row stride, in floats, of a shared array of width ``n`` whose rows
+    the products read across threads: a multiple of 4 floats with an odd
+    count of 16-byte pieces, so that 8 consecutive rows start in 8
+    different bank groups."""
+    p = _pad4(n)
+    return p if p // 4 % 2 else p + 4
 
 
 def _mlp_layout(rows: int, dg: int, w_shapes) -> dict:
     """csrc/mlp_epoch.cu's shared memory for a tile of ``rows`` rows, in
-    floats: W_l (rows padded to an odd stride), b_l, h, the activations
-    x_0..x_L, the GMF slices, two gradient buffers, five per-row words."""
+    floats (every array a multiple of 4 floats): W_l and b_l zero-padded
+    to widths of 4, h, the activations x_0..x_L, the GMF slices, two
+    gradient buffers, the column sums' scratch, five per-row words; and
+    ``off_g``, where each dense tensor's gradient starts in a block's
+    slice of the partial sums (W_l, b_l, h; the last entry is the slice's
+    length)."""
     n_in = [s[0] for s in w_shapes]
     n_out = [s[1] for s in w_shapes]
     widths = [n_in[0]] + n_out
-    lay = {"n_in": n_in, "n_out": n_out, "ld_w": [o + 1 for o in n_out],
-           "ld_x": [wd + 1 for wd in widths], "ld_d": max(widths) + 1,
+    o_last = n_out[-1]
+    lay = {"n_in": n_in, "n_out": n_out, "ld_w": [_ld(o) for o in n_out],
+           "ld_x": [_ld(wd) for wd in widths], "ld_d": _ld(max(widths)),
+           "ld_sum": _pad4(max(dg + o_last + _pad4(o_last), *n_out)),
            "off_w": [], "off_b": [], "off_x": [], "rows": rows}
     off = 0
     for l, n in enumerate(n_in):
         lay["off_w"].append(off)
-        off += n * lay["ld_w"][l]
+        off += _pad4(n) * lay["ld_w"][l]
     for o in n_out:
         lay["off_b"].append(off)
-        off += o
+        off += _pad4(o)
     lay["off_h"] = off
-    off += dg + n_out[-1]
+    off += _pad4(dg + o_last)
     for ld in lay["ld_x"]:
         lay["off_x"].append(off)
         off += rows * ld
-    for name, size in (("off_ug", dg), ("off_ig", dg),
-                       ("off_d0", lay["ld_d"]), ("off_d1", lay["ld_d"]),
-                       ("off_row", 5)):
+    for name, size in (("off_ug", rows * dg), ("off_ig", rows * dg),
+                       ("off_d0", rows * lay["ld_d"]),
+                       ("off_d1", rows * lay["ld_d"]),
+                       ("off_sum", _WARPS * lay["ld_sum"]),
+                       ("off_row", 5 * rows)):
         lay[name] = off
-        off += rows * size
+        off += _pad4(size)
     lay["smem_bytes"] = 4 * off
+    sizes = [i * o for i, o in w_shapes] + n_out + [dg + o_last]
+    lay["off_g"] = [int(x) for x in np.cumsum([0] + sizes)]
     return lay
 
 
-def mlp_epoch_plan(dg: int, w_shapes) -> dict:
-    """The tower kernel's shared-memory layout for W_l shapes
-    ``w_shapes`` and GMF width ``dg``, at the largest tile of 32, 16 or 8
-    rows that fits; raises ValueError on a shape the kernel does not
-    take (more than 4 layers, or no tile fits)."""
+def mlp_epoch_plan(dg: int, w_shapes, b: int = 0, sms: int = 1) -> dict:
+    """The tower kernel's layout for W_l shapes ``w_shapes``, GMF width
+    ``dg`` and batches of ``b`` rows on a card of ``sms`` SMs.  Its row
+    tile is ceil(b / sms) rounded up to ``ROW_STEP`` rows, so that the
+    ``blocks`` of a step make at most one wave, or the largest multiple
+    of ``ROW_STEP`` below that (and at most ``ROW_MAX``) whose shared
+    memory fits (more blocks then);
+    ``b`` = 0 asks whether the smallest tile fits.  Raises ValueError on a
+    shape the kernel does not take (more than 4 layers, or no tile
+    fits)."""
     if not 1 <= len(w_shapes) <= MLP_MAX_LAYERS:
         raise ValueError(f"fused_mlp_epoch: {len(w_shapes)} layers; the "
                          f"kernel takes 1 to {MLP_MAX_LAYERS}")
-    for rows in _TILE_ROWS:
+    want = min(ROW_MAX, max(ROW_STEP, cdiv(cdiv(b, sms), ROW_STEP) * ROW_STEP))
+    for rows in range(want, 0, -ROW_STEP):
         lay = _mlp_layout(rows, dg, w_shapes)
         if lay["smem_bytes"] <= SMEM_LIMIT:
+            lay["blocks"] = cdiv(b, rows)
             return lay
-    raise ValueError(f"fused_mlp_epoch: a tile of {_TILE_ROWS[-1]} rows "
-                     f"needs {lay['smem_bytes']} bytes of shared memory, "
-                     f"past the {SMEM_LIMIT} a block may have")
+    raise ValueError(f"fused_mlp_epoch: a tile of {ROW_STEP} rows needs "
+                     f"{lay['smem_bytes']} bytes of shared memory, past the "
+                     f"{SMEM_LIMIT} a block may have")
 
 
 @torch.no_grad()
@@ -493,35 +529,43 @@ def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
     _contiguous("fused_mlp_epoch", (*params, mpu, mqi, *mdense, vpu, vqi,
                                     *vdense, u_idx, i_idx, y, w))
     n_layers = (len(dense) - 1) // 2
-    lay = mlp_epoch_plan(dg, [tuple(x.shape) for x in dense[:n_layers]])
     steps, b = u_idx.shape
-    if max(pu.numel(), qi.numel(), steps, b, t0 + steps) >= 2 ** 31:
+    lay = mlp_epoch_plan(dg, [tuple(x.shape) for x in dense[:n_layers]], b,
+                         _sms(pu.device.index))
+    if max(pu.numel(), qi.numel(), steps, b, t0 + steps,
+           lay["blocks"] * lay["off_g"][-1]) >= 2 ** 31:
         raise ValueError("fused_mlp_epoch: a size or step count past the "
                          "kernel's int32 arguments")
-    grads = [torch.zeros_like(x) for x in params]
-    a = _MlpArgs(L=n_layers, dg=dg, hm=pu.shape[1] - dg, tw=pu.shape[1],
-                 U=pu.shape[0], I=qi.shape[0], B=b, rows=lay["rows"],
-                 reg_g=reg_g, reg_m=reg_m)
-    for key in ("n_in", "n_out", "ld_w", "off_w", "off_b", "off_x", "ld_x"):
+    grads = [torch.zeros_like(pu), torch.zeros_like(qi)]
+    part = torch.empty((lay["blocks"], lay["off_g"][-1]),
+                       dtype=torch.float32, device=pu.device)
+    hm = pu.shape[1] - dg
+    # 16-byte staging of W_l and the rows: every width a multiple of 4 and
+    # the bases 16-byte aligned.
+    vec = (all(n % 4 == 0 for n in (dg, hm, *lay["n_out"]))
+           and all(x.data_ptr() % 16 == 0 for x in (pu, qi, *dense[:n_layers])))
+    a = _MlpArgs(L=n_layers, dg=dg, hm=hm, tw=pu.shape[1], U=pu.shape[0],
+                 I=qi.shape[0], B=b, vec=int(vec), reg_g=reg_g, reg_m=reg_m)
+    for key in ("n_in", "n_out", "ld_w", "off_w", "off_b", "off_x", "ld_x",
+                "off_g"):
         getattr(a, key)[:len(lay[key])] = lay[key]
-    for key in ("off_h", "off_ug", "off_ig", "off_d0", "off_d1", "ld_d",
-                "off_row", "smem_bytes"):
+    for key in ("rows", "blocks", "off_h", "off_ug", "off_ig", "off_d0",
+                "off_d1", "ld_d", "off_sum", "ld_sum", "off_row",
+                "smem_bytes"):
         setattr(a, key, lay[key])
-    a.p[:len(params)] = [x.data_ptr() for x in params]
-    a.g[:len(grads)] = [x.data_ptr() for x in grads]
-    ptrs = lambda ts: (ctypes.c_void_p * _MAX_T)(  # noqa: E731
-        *(x.data_ptr() for x in ts))
-    m_arr, v_arr = ptrs((mpu, mqi, *mdense)), ptrs((vpu, vqi, *vdense))
+    for key, ts in (("p", params), ("m", (mpu, mqi, *mdense)),
+                    ("v", (vpu, vqi, *vdense)), ("g", grads)):
+        getattr(a, key)[:len(ts)] = [x.data_ptr() for x in ts]
+    a.part = part.data_ptr()
     from cleverrec_tpu_torch.ops.build import load
     fn = load("mlp_epoch").mlp_epoch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_float] + [ctypes.c_double] * 2
                    + [ctypes.c_float, ctypes.c_void_p])
     loss = torch.zeros(steps, dtype=torch.float32, device=pu.device)
     with torch.cuda.device(pu.device):
-        err = fn(ctypes.addressof(a), ctypes.addressof(m_arr),
-                 ctypes.addressof(v_arr), u_idx.data_ptr(), i_idx.data_ptr(),
+        err = fn(ctypes.addressof(a), u_idx.data_ptr(), i_idx.data_ptr(),
                  y.data_ptr(), w.data_ptr(), loss.data_ptr(), steps, t0, lr,
                  b1, b2, eps, _stream(pu.device))
     _launch_ok("mlp_epoch", err)

@@ -194,6 +194,45 @@ def test_dot_topk_scores_edges(cuda, b, i, d, offset):
     _close(got[1], want[1])
 
 
+# dot_gmax at every tile it can take: 1, 37, 128 and 1,030 users; 33,
+# 4,097 and 8,193 items (a ragged last group, and past two 4,096-item
+# tiles); widths 1, 16, 128, 130 and 260 (past the whole-depth limit,
+# where every tile runs the strip kernel).
+GMAX_EDGES = [(1, 33, 1), (37, 4097, 16), (128, 8193, 128), (1030, 4097, 130),
+              (37, 33, 260), (128, 4097, 1), (1, 8193, 16), (1030, 33, 128)]
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("tile", range(len(S.SCORE_TILES)))
+@pytest.mark.parametrize("b,i,d", GMAX_EDGES)
+def test_dot_gmax_edges(cuda, monkeypatch, b, i, d, tile, offset, with_bias):
+    u, q, bits, _ = _edge_inputs(cuda, b, i, d, offset)
+    bias = None
+    if with_bias:
+        bias = torch.as_tensor(np.random.default_rng(1).normal(size=(i,))
+                               .astype(np.float32)).to(cuda)
+    monkeypatch.setattr(S, "_scores_tile", lambda b, i, sms: tile)
+    before = S.launches["dot_gmax"]
+    got = S.dot_gmax(u, q, bits, bias)
+    want = S.dot_gmax_ref(u, q, bits, bias)
+    torch.cuda.synchronize()
+    assert S.launches["dot_gmax"] == before + 1
+    assert got.shape == (b, -(-i // 32))
+    assert (got[:min(b, 2), :2] == S.NEG).all()      # whole groups seen
+    _close(got, want)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132, 100000])
+@pytest.mark.parametrize("b,i,d", [(1030, 8193, 64), (129, 103, 3)])
+def test_dot_gmax_strips_follow_the_sm_count(cuda, monkeypatch, b, i, d, sms):
+    """dot_gmax's 128 x 128 tile splits its strips as dot_scores' does."""
+    u, q, bits, bias = _edge_inputs(cuda, b, i, d, False)
+    monkeypatch.setattr(S, "_scores_tile", lambda b, i, sms: 0)
+    monkeypatch.setattr(S, "_sms", lambda index: sms)
+    _close(S.dot_gmax(u, q, bits, bias), S.dot_gmax_ref(u, q, bits, bias))
+
+
 def _epoch_inputs(u_n, i_n, d, steps, b, t0, seed=0):
     rng = np.random.default_rng(seed)
     u_pad, i_pad = T.sentinel_dims(u_n, i_n)
@@ -244,10 +283,10 @@ def test_bpr_epoch_rejects_bad_input(cuda):
 
 # gmf_epoch and mlp_epoch: as bpr_epoch, f32 atomics sum duplicate ids in
 # a run-dependent order.  mlp_epoch's dense params (the W_l, b_l and h)
-# also sum every row of a step (6144 on the main path) through one atomic
-# per element per block, against cuBLAS's products in the plain version,
-# and each step's Adam normalises that rounding into the next: their
-# elements, and the loss, which depends on them, are held looser.
+# also sum every row of a step (6144 on the main path) in the kernel's
+# order, against cuBLAS's products in the plain version, and each step's
+# Adam normalises that rounding into the next: their elements, and the
+# loss, which depends on them, are held looser.
 DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 
 
@@ -354,7 +393,14 @@ def _to(groups, dev):
     ("NeuMF", 29, 41, 5, [24, 12, 6], 3, 37, 2),
     ("MLP", 29, 41, 8, [64, 32, 16, 8], 2, 100, 3),
     ("MLP", 943, 1682, 64, [128, 64, 32], 3, 6144, 81),
-    ("NeuMF", 943, 1682, 64, [128, 64, 32], 3, 6144, 81)])
+    ("NeuMF", 943, 1682, 64, [128, 64, 32], 3, 6144, 81),
+    # The row tile's edges: one row, one short of a 48-row tile's wave, one
+    # past a wave of 48-row tiles (129 blocks); one layer and four.
+    ("NeuMF", 29, 41, 8, [16, 8], 2, 1, 1),
+    ("MLP", 29, 41, 8, [16, 8], 2, 47, 3),
+    ("NeuMF", 943, 1682, 64, [128, 64, 32], 2, 6145, 81),
+    ("NeuMF", 29, 41, 8, [8], 3, 64, 2),
+    ("NeuMF", 29, 41, 8, [64, 32, 16, 8], 2, 100, 3)])
 def test_mlp_epoch_matches_plain(cuda, name, u_n, i_n, embed, layers, steps,
                                  b, t0):
     spec, groups, cols = _mlp_inputs(name, u_n, i_n, embed, layers, steps,
@@ -376,6 +422,26 @@ def test_mlp_epoch_matches_plain(cuda, name, u_n, i_n, embed, layers, steps,
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                        rtol=DENSE_RTOL, atol=DENSE_ATOL,
                                        err_msg=n)
+
+
+@pytest.mark.parametrize("name", ["MLP", "NeuMF"])
+def test_mlp_epoch_dense_step_is_deterministic(cuda, name):
+    """The blocks' dense gradients are summed in a fixed order, with no
+    atomics: one step from one state gives bit-identical W_l, b_l, h and
+    their moments in two launches (the tables' row sums use atomics)."""
+    spec, groups, cols = _mlp_inputs(name, 943, 1682, 64, [128, 64, 32], 1,
+                                     6144, 81)
+    cols = [torch.as_tensor(x).to(cuda) for x in cols]
+    runs = []
+    for _ in range(2):
+        state = _to(groups, cuda)
+        T.fused_mlp_epoch(*state, *cols, 81, spec=spec, lr=0.01)
+        runs.append(state)
+    torch.cuda.synchronize()
+    for k in range(3):
+        for n, a, b in zip(spec["dense"], runs[0][3 * k + 2],
+                           runs[1][3 * k + 2]):
+            assert torch.equal(a, b), n
 
 
 def test_mlp_epoch_rejects_bad_input(cuda):

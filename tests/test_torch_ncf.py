@@ -6,6 +6,7 @@ mode, one and three epochs of each trainer tier on JAX's own draws, GMF's
 full-catalog eval, and the CLI."""
 
 import logging
+import math
 import os
 
 import jax
@@ -400,11 +401,44 @@ def test_mlp_epoch_rejects_bad_input():
         T.fused_mlp_epoch(*ok, ids, ids, col[:, :3], col, 0, spec=spec,
                           lr=0.1)
     # The kernel's own limits, checked before any launch.
-    assert T.mlp_epoch_plan(64, [(128, 64), (64, 32), (32, 16)])["rows"] == 32
+    assert T.mlp_epoch_plan(64, [(128, 64), (64, 32), (32, 16)], 6144,
+                            132)["rows"] == 48
     with pytest.raises(ValueError, match="layers"):
         T.mlp_epoch_plan(0, [(8, 8)] * 5)
     with pytest.raises(ValueError, match="shared memory"):
         T.mlp_epoch_plan(0, [(1024, 512)])
+
+
+# The tower kernel's row tile: ceil(B / SMs) rounded up to 16 rows, one
+# wave of blocks; where that outgrows shared memory, the largest multiple
+# of 16 that fits.  NeuMF's conf tower (dg 64) and MLP's (dg 0) at the
+# main path's 6,144 rows on an H100 SXM (132 SMs), the batch edges, other
+# SM counts; B = 0 asks for the smallest tile (the trainer's check).
+@pytest.mark.parametrize("dg,b,sms,rows,blocks", [
+    (64, 6144, 132, 48, 128), (0, 6144, 132, 48, 128),
+    (64, 6145, 132, 48, 129), (64, 1, 132, 16, 1), (64, 47, 132, 16, 3),
+    (64, 6144, 108, 64, 96), (0, 6144, 16, 80, 77), (64, 6144, 1, 64, 96),
+    (64, 0, 132, 16, 0)])
+def test_mlp_epoch_plan_fills_one_wave(dg, b, sms, rows, blocks):
+    shapes = [(128, 64), (64, 32), (32, 16)]
+    lay = T.mlp_epoch_plan(dg, shapes, b, sms)
+    assert (lay["rows"], lay["blocks"]) == (rows, blocks)
+    assert lay["smem_bytes"] <= T.SMEM_LIMIT
+    want = max(16, math.ceil(math.ceil(b / sms) / 16) * 16)
+    if rows == want:
+        assert blocks <= max(sms, 1)
+    else:       # cut by shared memory: the next tile up does not fit
+        assert T._mlp_layout(rows + 16, dg, shapes)["smem_bytes"] > T.SMEM_LIMIT
+    # Every shared array starts on a 16-byte boundary; the row strides the
+    # products read across threads hold an odd count of 16-byte pieces.
+    offs = [*lay["off_w"], *lay["off_b"], lay["off_h"], *lay["off_x"],
+            *(lay[k] for k in ("off_ug", "off_ig", "off_d0", "off_d1",
+                               "off_sum", "off_row"))]
+    assert all(o % 4 == 0 for o in offs)
+    assert all(ld % 8 == 4 for ld in (*lay["ld_w"], *lay["ld_x"], lay["ld_d"]))
+    # The dense gradient's slice: W_l, b_l, h in the order of spec["dense"].
+    sizes = [i * o for i, o in shapes] + [o for _, o in shapes] + [dg + 16]
+    assert lay["off_g"] == list(np.cumsum([0] + sizes))
 
 
 # -- the trainer ----------------------------------------------------------

@@ -107,6 +107,24 @@ def test_scores_tile_fills_the_card(b, i, sms, want):
     assert all(_blocks(b, i, k) < sms for k in range(tile))
 
 
+# dot_gmax takes dot_scores' tile on the same rule: phase B of
+# chip_smoke.py (1,024 users x 103,523 items, the wide branch) the 128 x
+# 128 strips, phase A's 256 x 1,682 the 32 x 64 tile, one user the
+# smallest.
+@pytest.mark.parametrize("b,i,sms,want", [
+    (1024, 103523, 132, (128, 128)), (256, 1682, 132, (32, 64)),
+    (1024, 1682, 132, (64, 64)), (1, 8193, 132, (32, 64)),
+    (1030, 8193, 132, (128, 128)), (256, 1682, 16, (128, 128))])
+def test_dot_gmax_tiling_follows_the_scores_tile(monkeypatch, b, i, sms,
+                                                 want):
+    monkeypatch.setattr(S, "_sms", lambda index: sms)
+    u, q = torch.zeros(b, 8), torch.zeros(i, 8)
+    tile, vec, got_sms = S._tiling(u, q)
+    assert S.SCORE_TILES[tile] == want
+    assert tile == S._scores_tile(b, i, sms)
+    assert (vec, got_sms) == (1, sms)
+
+
 # (d, start, 16-byte staging?): q = big[start:].view(10, d), contiguous;
 # start = d is big[1:] of a [rows, d] table.
 @pytest.mark.parametrize("d,start,want", [

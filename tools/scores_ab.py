@@ -13,10 +13,11 @@ kernel through its C entry point, without the Python wrapper: ``ms`` is
 CUDA events over 20 launches, ``device_ms`` the kernel's own time from
 ``torch.profiler``.  The change's outputs are held equal to the parent's
 element by element.  The SM clock and power draw (``nvidia-smi``, sampled
-every 0.2 s) are read over each version's 100 launches.  The parent's
-entry points take no ``tile``, ``vec`` or ``sms`` argument; this
-checkout's take ``scores._scores_tile``, 16-byte staging and the card's
-SM count.
+every 0.2 s) are read over each version's 100 launches.  Where the
+parent's entry point takes no ``tile``, ``vec`` or ``sms`` argument (its
+``dot_gmax``), none is passed to it; this checkout's ``dot_scores`` and
+``dot_gmax`` take ``scores._scores_tile``, 16-byte staging and the card's
+SM count, and each line names the tile.
 
 With ``--wrappers`` it times each checkout's Python wrapper
 ``ops.scores.dot_scores`` at the shapes where a call is short (A, 256
@@ -48,7 +49,7 @@ OUT = os.path.join(ROOT, "build", "kernels", "ab")
 D = 128
 SHAPES = {"A": (256, 1682), "E": (1024, 1682), "B": (1024, 103523),
           "N": (1024, 4096), "H": (1024, 593231)}
-RUNS = {"dot_scores": ("A", "E", "B", "N"), "dot_gmax": ("B",),
+RUNS = {"dot_scores": ("A", "E", "B", "N"), "dot_gmax": ("B", "A"),
         "dot_topk_scores": ("H",)}
 WRAPPER_SHAPES = ("A", "E")
 TURNS = ("parent", "change", "change", "parent")
@@ -88,8 +89,11 @@ def inputs(b, n_items, gen):
     return u, q, words.to(torch.int32).contiguous(), bias
 
 
-def launcher(lib, tag, name, u, q, bits, bias):
-    """(launch(), outputs) of entry point ``name`` of ``lib``."""
+def launcher(lib, tag, name, u, q, bits, bias, own_args):
+    """(launch(), outputs) of entry point ``name`` of ``lib``; with
+    ``own_args``, the entry point takes this checkout's ``tile``, ``vec``
+    and ``sms`` (``dot_scores``, ``dot_gmax``) or ``vec``
+    (``dot_topk_scores``)."""
     from cleverrec_tpu_torch.ops import scores
     b, n_items = u.shape[0], q.shape[0]
     w = bits.shape[1]
@@ -101,11 +105,10 @@ def launcher(lib, tag, name, u, q, bits, bias):
         width = n_items if name == "dot_scores" else w
         outs = [torch.empty(b, width, device="cuda")]
     own = []
-    if tag == "change" and name == "dot_scores":
-        sms = scores._sms(u.device.index)
-        own = [scores._scores_tile(b, n_items, sms), 1, sms]
-    elif tag == "change" and name == "dot_topk_scores":
+    if own_args and name == "dot_topk_scores":
         own = [1]
+    elif own_args:
+        own = list(scores._tiling(u, q))
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = [P] * (4 + len(outs)) + [I] * (4 + len(own)) + [P]
@@ -193,10 +196,16 @@ class Clocks:
 
 def kernels(parent: str, seed: int) -> bool:
     """The C entry points of both checkouts, in turns; True if every
-    output of the change equals the parent's."""
+    output of the change equals the parent's.  An entry point takes the
+    tiling arguments where its source declares ``int tile``."""
+    from cleverrec_tpu_torch.ops import scores
     rel = os.path.join("cleverrec_tpu_torch", "csrc", "dot_scores.cu")
-    libs = compile_all({"parent": os.path.join(parent, rel),
-                        "change": os.path.join(ROOT, rel)})
+    sources = {"parent": os.path.join(parent, rel),
+               "change": os.path.join(ROOT, rel)}
+    libs = compile_all(sources)
+    own = {tag: {name: name == "dot_topk_scores" or _takes_tile(src, name)
+                 for name in RUNS}
+           for tag, src in sources.items()}
     gen = torch.Generator().manual_seed(seed)
     torch.cuda.manual_seed(seed)
     ok = True
@@ -206,14 +215,18 @@ def kernels(parent: str, seed: int) -> bool:
         for name, at in RUNS.items():
             if shape not in at:
                 continue
-            runs = {tag: launcher(libs[tag], tag, name, *data)
-                    for tag in libs}
+            runs = {tag: launcher(libs[tag], tag, name, *data,
+                                  own[tag][name]) for tag in libs}
+            tile = None
+            if name != "dot_topk_scores":
+                tile = scores.SCORE_TILES[scores._tiling(*data[:2])[0]]
             for turn, tag in enumerate(TURNS):
                 launch, _ = runs[tag]
                 with Clocks() as clocks:
                     long_ms = timed(launch, iters=100)[0]
                 print(json.dumps({"kernel": name, "shape": shape, "B": b,
                                   "I": n_items, "d": D, "version": tag,
+                                  "tile": tile if own[tag][name] else None,
                                   "turn": turn, "ms": timed(launch)[0],
                                   "device_ms": profiled_ms(launch),
                                   "ms_100": long_ms, **clocks.summary()}),
@@ -228,6 +241,14 @@ def kernels(parent: str, seed: int) -> bool:
         del data
         torch.cuda.empty_cache()
     return ok
+
+
+def _takes_tile(src: str, name: str) -> bool:
+    """Does entry point ``name`` of source ``src`` take ``int tile``?"""
+    with open(src) as f:
+        text = f.read()
+    head = text[text.index(f'extern "C" int {name}('):]
+    return "int tile" in head[:head.index(")")]
 
 
 def time_wrapper(tree: str, seed: int) -> None:
