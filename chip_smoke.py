@@ -83,9 +83,12 @@ width of ``conf/BPR.properties`` (embed_size 128):
   its 1,024-user ``full_fused`` batches, which take another tile), at B
   and at N, 1,024 users x 4,096 items (the narrow branch's border),
   ``dot_gmax`` at B and A, each timing naming the tile it took; inputs
-  from the script's seeds.  The ``mlp_epoch`` row gives the kernel's own
-  device time of an epoch (``device_ms``, its row and Adam kernels,
-  ``device_split``) at NeuMF's and MLP's shapes.
+  from the script's seeds.  The ``mlp_epoch``, ``rows_epoch`` and
+  ``rows_epoch_lrml`` rows give the kernel's own device time of an epoch
+  (``device_ms``, its row and Adam kernels, ``device_split``) at NeuMF's
+  and MLP's, SBPR's, TBPR's and CUNE_BPR's, and LRML's shapes, with the
+  plan each took; LRML's row also the share of real rows whose hinge was
+  active in the timed epoch (``active_share``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, and again before and after each training run.  Exits non-zero, with no
@@ -265,6 +268,24 @@ def device_ms(fn, match=None, iters: int = 20):
             return (sum(e.self_device_time_total for e in events) / 1e3
                     / launches)
     return None
+
+
+def kernel_split(fn, names, calls: int = 5) -> dict:
+    """Device ms of one fn() call spent in the kernels whose name holds
+    each of ``names``, from torch.profiler over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return {n: sum(e.self_device_time_total for e in events if n in e.key)
+            / 1e3 / calls for n in names}
 
 
 def bound(moved, flops):
@@ -1027,8 +1048,7 @@ def mlp_timing(name, profiles):
         return train_ops.fused_mlp_epoch(*k_state, *ids, *cols, state.count,
                                          spec=spec, lr=cfg.lr)
     # The kernel's own device time in one epoch: its row and Adam kernels.
-    split = {k: sum(t["ms"] for t in breakdown(epoch)["top"]
-                    if k in t["kernel"]) for k in ("mlp_rows", "mlp_adam")}
+    split = kernel_split(epoch, ("mlp_rows", "mlp_adam"))
     out = {"shape": name, "U": data.user_nums, "I": data.item_nums,
            "tw": k_state[0].shape[1], "layers": shapes, "B": b,
            "steps": steps, "real_rows": n_real, "tile_rows": lay["rows"],
@@ -1105,11 +1125,22 @@ def rows_timing(name, profiles):
     # bias and s per step for Adam.  The O(L) terms of a row (biases,
     # links, loss) are left out, so the bound is below the work.
     flops = (10 * items + 4) * d * n_real + 14 * n_state * steps
+    plan = train_ops.rows_epoch_plan(spec, b,
+                                     scores._sms(k_state[0][0].device.index))
+
+    def epoch():
+        return train_ops.fused_rows_epoch(*k_state, planes, floats,
+                                          state.count, spec=spec, **opts)
+    # The kernel's own device time in one epoch: its row and Adam kernels.
+    split = kernel_split(epoch, ("rows_chain", "adam_slices"))
     out = {"shape": name, "U": u_n, "I": i_n, "d": d, "items": items,
            "B": b, "steps": steps, "real_rows": n_real, "bytes": moved,
            "flops": flops, "errors": errors, "loss_rel_err": loss_rel,
-           "ms": time_ms(lambda: train_ops.fused_rows_epoch(
-               *k_state, planes, floats, state.count, spec=spec, **opts)),
+           "variant": "float4" if train_ops.rows_vec(
+               k_state[0] + k_state[1][:1]) else "scalar",
+           "block_rows": plan["rows"], "blocks": plan["blocks"],
+           "ms": time_ms(epoch), "device_ms": sum(split.values()),
+           "device_split": split,
            "plain_ms": time_ms(lambda: train_ops.fused_rows_epoch_ref(
                *r_state, planes, floats, state.count,
                row_loss=spec["row_loss"], **opts), iters=3),
@@ -1130,9 +1161,27 @@ def rows_row(launches, profiles):
             "also_replaces": "cleverrec_tpu/ops/pallas_train.py:1153",
             "launches": launches,
             "max_abs_err": max(max(t["errors"].values()) for t in timings),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")},
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
             "timings": timings}
+
+
+def counting_hinge(spec, margin):
+    """LRML's row_loss, counting as it goes the real rows whose hinge is
+    active (dist_i - dist_j + margin > 0) and the real rows: (the
+    wrapped row_loss, [active, real])."""
+    from cleverrec_tpu_torch.models.metric import LRML
+    counts = [0, 0]
+
+    def row_loss(rows, floats, dense, w):
+        ue, ie, je = rows
+        z = (LRML._dist(ue, ie, *dense) - LRML._dist(ue, je, *dense)
+             + margin)
+        real = w[:, 0] > 0
+        counts[0] += int((real & (z > 0)).sum())
+        counts[1] += int(real.sum())
+        return spec["row_loss"](rows, floats, dense, w)
+    return row_loss, counts
 
 
 def distance_trap():
@@ -1299,8 +1348,9 @@ def lrml_row(launches, profiles):
     got, want = packed(), packed()
     loss = train_ops.fused_rows_epoch(*got, planes, [], state.count,
                                       spec=spec, **opts)
+    counting, active = counting_hinge(spec, model.margin)
     ref = train_ops.fused_rows_epoch_ref(*want, planes, [], state.count,
-                                         row_loss=spec["row_loss"], **opts)
+                                         row_loss=counting, **opts)
     torch.cuda.synchronize()
     labels = [f"{part}{n}" for part in ("", "m_", "v_")
               for n in ("P", "Q", "K", "M")]
@@ -1325,22 +1375,35 @@ def lrml_row(launches, profiles):
     # backward of the rows whose hinge is active (~12 d mem more) is left
     # out, so the bound is below the work.
     flops = (8 * d * mem + 16 * d) * n_real + 14 * n_state * steps
+    plan = train_ops.rows_epoch_plan(spec, b,
+                                     scores._sms(k_state[0][0].device.index))
+
+    def epoch():
+        return train_ops.fused_rows_epoch(*k_state, planes, [], state.count,
+                                          spec=spec, **opts)
+    # The kernel's own device time in one epoch: its tile and Adam kernels.
+    split = kernel_split(epoch, ("lrml_tiles", "adam_slices"))
     row = {"name": "rows_epoch_lrml", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/rows_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:847",
            "also_replaces": "cleverrec_tpu/ops/pallas_train.py:1153",
            "launches": launches, "max_abs_err": max(errors.values()),
-           "ms": time_ms(lambda: train_ops.fused_rows_epoch(
-               *k_state, planes, [], state.count, spec=spec, **opts)),
+           "ms": time_ms(epoch), "device_ms": sum(split.values()),
+           "device_split": split,
            "plain_ms": time_ms(lambda: train_ops.fused_rows_epoch_ref(
                *r_state, planes, [], state.count,
                row_loss=spec["row_loss"], **opts), iters=3),
            **bound(moved, flops), "library_ms": None,
            "errors": errors, "loss_rel_err": loss_rel,
+           "active_share": active[0] / active[1],
            "shape": {"U": u_n, "I": i_n, "d": d, "mem": mem, "B": b,
                      "steps": steps, "real_rows": n_real, "bytes": moved,
                      "flops": flops,
-                     "warps": train_ops.rows_epoch_plan(spec)["warps"]}}
+                     "variant": "float4" if train_ops.rows_vec(
+                         k_state[0] + k_state[1] + k_state[2])
+                     else "scalar",
+                     **{k: plan[k] for k in ("rows", "tiles", "blocks",
+                                             "mem_pad", "smem_bytes")}}}
     profiles["G_LRML_epoch"] = breakdown(
         lambda: trainer.train_epoch(params, state))
     return row

@@ -1,8 +1,10 @@
 // What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu,
 // rows_epoch.cu, cml_epoch.cu) share: a warp's shuffle sum and max, and
-// dense Adam over a list of f32 tensors, or one element at a time inside
-// a kernel of their own (cml_epoch.cu fuses it with its regulariser,
-// mlp_epoch.cu with the sum of its blocks' dense gradients).
+// dense Adam over a list of f32 tensors (adam_dense; adam_slices, with
+// float4 tables and dense gradients summed from per-block slices, for
+// rows_epoch.cu), or one element at a time inside a kernel of their own
+// (cml_epoch.cu fuses it with its regulariser, mlp_epoch.cu with the sum
+// of its blocks' dense gradients).
 //
 // The TPU epoch kernels apply optax's Adam (b1, b2, eps) to every element
 // of every resident parameter after each step (_adam_apply of
@@ -109,6 +111,145 @@ inline int adam_launch(const AdamSegs& s, int t, float lr, double b1,
   const int blocks = (int)(want < 65535 ? want : 65535);
   adam_dense<<<blocks, ADAM_THREADS, 0, stream>>>(
       s, adam_step(t, lr, b1, b2, eps));
+  return (int)cudaGetLastError();
+}
+
+
+// Adam on one element held in registers (adam_elem's arithmetic).
+__device__ __forceinline__ void adam_val(float& p, float& m, float& v, float g,
+                                         const AdamStep& a) {
+  m = a.b1 * m + a.c1 * g;
+  v = a.b2 * v + a.c2 * (g * g);
+  p = p - a.lr * (m / a.bc1) / (sqrtf(v / a.bc2) + a.eps);
+}
+
+// Four elements of a table at once: 16-byte loads and stores of p, m, v
+// and g, g zeroed.
+__device__ __forceinline__ void adam4(float* p, float* m, float* v, float* g,
+                                      const AdamStep& a) {
+  float4 pv = *reinterpret_cast<float4*>(p);
+  float4 mv = *reinterpret_cast<float4*>(m);
+  float4 vv = *reinterpret_cast<float4*>(v);
+  const float4 gv = *reinterpret_cast<const float4*>(g);
+  adam_val(pv.x, mv.x, vv.x, gv.x, a);
+  adam_val(pv.y, mv.y, vv.y, gv.y, a);
+  adam_val(pv.z, mv.z, vv.z, gv.z, a);
+  adam_val(pv.w, mv.w, vv.w, gv.w, a);
+  *reinterpret_cast<float4*>(p) = pv;
+  *reinterpret_cast<float4*>(m) = mv;
+  *reinterpret_cast<float4*>(v) = vv;
+  *reinterpret_cast<float4*>(g) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+constexpr int ADAM_MAX_DENSE = 2;
+
+// One Adam step of the rows kernels.  tab: the tables, whose gradients
+// sit in their scratch.  part [blocks, slice]: each block of the row
+// kernel stores its sums there, the gradients of the dense tensors
+// p[0..count) one after the other, then its loss in the slice's last
+// element.
+struct AdamSlices {
+  AdamSegs tab;
+  float* p[ADAM_MAX_DENSE];
+  float* m[ADAM_MAX_DENSE];
+  float* v[ADAM_MAX_DENSE];
+  int n[ADAM_MAX_DENSE];
+  int count;
+  const float* part;
+  int slice, blocks;
+  // Set by adam_slices_launch: slice elements a summing block, and
+  // whether a table's p, m, v and g are all 16-byte aligned.
+  int epb;
+  bool vec[ADAM_MAX_SEGS];
+};
+
+// Blocks [0, dense_blocks) take s.epb elements of a slice each (a power
+// of two up to 32): an element's sum over the blocks' slices, each of the
+// ADAM_THREADS / epb groups of threads adding the slices of its own run of
+// blocks in turn and the groups' sums then added pairwise in a fixed
+// tree, so the sum is the same from run to run; the last element is the
+// step's loss, the others a dense gradient.  The other blocks walk the
+// tables as one run of units with a grid stride, a unit four elements
+// where a segment's four pointers are 16-byte aligned, and then one
+// element of the segment's tail, so that every unit is in flight at once.
+__global__ void __launch_bounds__(ADAM_THREADS)
+adam_slices(AdamSlices s, AdamStep a, float* loss, int dense_blocks) {
+  __shared__ float sums[ADAM_THREADS];
+  if ((int)blockIdx.x < dense_blocks) {
+    const int groups = ADAM_THREADS / s.epb;
+    const int el = threadIdx.x & (s.epb - 1), grp = threadIdx.x / s.epb;
+    const int e = blockIdx.x * s.epb + el;
+    const int per = (s.blocks + groups - 1) / groups;
+    const int first = grp * per, last = min(s.blocks, first + per);
+    float g = 0.f;
+    if (e < s.slice)
+      for (int b = first; b < last; ++b) g += s.part[(size_t)b * s.slice + e];
+    sums[threadIdx.x] = g;
+    for (int half = groups / 2; half > 0; half >>= 1) {
+      __syncthreads();
+      if (grp < half) sums[threadIdx.x] += sums[threadIdx.x + half * s.epb];
+    }
+    if (grp != 0 || e >= s.slice) return;
+    g = sums[threadIdx.x];
+    if (e == s.slice - 1) {
+      *loss = g;
+      return;
+    }
+    int t = 0, j = e;
+    while (j >= s.n[t]) j -= s.n[t++];
+    adam_elem(s.p[t] + j, s.m[t] + j, s.v[t] + j, g, a);
+    return;
+  }
+  // The tables as one run of units: a segment's float4s where its four
+  // pointers are 16-byte aligned, then its remaining elements one by one.
+  const int64_t stride = (int64_t)(gridDim.x - dense_blocks) * ADAM_THREADS;
+  for (int64_t e = (int64_t)(blockIdx.x - dense_blocks) * ADAM_THREADS +
+                   threadIdx.x;; e += stride) {
+    int k = 0;
+    int64_t j = e, n4 = 0;
+    for (; k < s.tab.count; ++k) {
+      n4 = s.vec[k] ? s.tab.n[k] / 4 : 0;
+      const int64_t units = s.tab.n[k] - 3 * n4;
+      if (j < units) break;
+      j -= units;
+    }
+    if (k == s.tab.count) return;
+    float* p = s.tab.p[k];
+    float* m = s.tab.m[k];
+    float* v = s.tab.v[k];
+    float* g = s.tab.g[k];
+    if (j < n4) {
+      adam4(p + 4 * j, m + 4 * j, v + 4 * j, g + 4 * j, a);
+    } else {
+      j += 3 * n4;
+      adam_elem(p + j, m + j, v + j, g[j], a);
+      g[j] = 0.f;
+    }
+  }
+}
+
+// Launches one adam_slices pass at step t, the loss into *loss; returns
+// the launch's cudaError_t.
+inline int adam_slices_launch(AdamSlices s, int t, float lr, double b1,
+                              double b2, float eps, float* loss,
+                              cudaStream_t stream) {
+  int64_t units = 0;
+  for (int k = 0; k < s.tab.count; ++k) {
+    s.vec[k] = ((reinterpret_cast<uintptr_t>(s.tab.p[k]) |
+                 reinterpret_cast<uintptr_t>(s.tab.m[k]) |
+                 reinterpret_cast<uintptr_t>(s.tab.v[k]) |
+                 reinterpret_cast<uintptr_t>(s.tab.g[k])) & 15) == 0;
+    units += s.tab.n[k] - (s.vec[k] ? 3 * (s.tab.n[k] / 4) : 0);
+  }
+  // A short slice over many blocks takes a block per element or two, its
+  // threads split over the blocks' slices.
+  s.epb = 1;
+  while (s.epb < 32 && s.epb < s.slice) s.epb *= 2;
+  const int dense_blocks = (s.slice + s.epb - 1) / s.epb;
+  const int64_t want = (units + ADAM_THREADS - 1) / ADAM_THREADS;
+  const int tab_blocks = (int)(want < 1 ? 1 : want < 65535 ? want : 65535);
+  adam_slices<<<dense_blocks + tab_blocks, ADAM_THREADS, 0, stream>>>(
+      s, adam_step(t, lr, b1, b2, eps), loss, dense_blocks);
   return (int)cudaGetLastError();
 }
 

@@ -38,8 +38,8 @@
 //              short, and at most 256), so W is staged once a block a
 //              step.  cp.async stages W_l, b_l and h, zero-padded to
 //              widths of 4, and gathers the rows; the products run from
-//              shared memory on the CUDA cores (gemm4: 4 x 4 sums a
-//              thread, float4 loads, each operand laid out so that its
+//              shared memory on the CUDA cores (tile.cuh's gemm4: 4 x 4 sums
+//              a thread, float4 loads, each operand laid out so that its
 //              loads are contiguous, a broadcast, or rows at a stride of an
 //              odd number of 16-byte pieces: no bank conflicts).  The
 //              column sums (dh, db_l) are split over the warps and added
@@ -72,6 +72,7 @@
 
 #include "cp_async.cuh"
 #include "epoch.cuh"
+#include "tile.cuh"
 
 constexpr int MLP_MAX_LAYERS = 4;
 constexpr int MLP_MAX_TENSORS = 3 + 2 * MLP_MAX_LAYERS;
@@ -121,12 +122,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
-__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 __device__ __forceinline__ void scale4(float* p, float s) {
   float4 v = ld4(p);
   v.x *= s;
@@ -134,63 +129,6 @@ __device__ __forceinline__ void scale4(float* p, float s) {
   v.z *= s;
   v.w *= s;
   *reinterpret_cast<float4*>(p) = v;
-}
-
-// epi(m, n, dn, v) for every row m of every 4-column group of the M x N
-// product C = A B over depth K (M, N and K multiples of 4): v[j] is
-// C[m][n + dn j], each one fmaf chain in increasing k.  Each thread takes
-// 4 x 4 sums, tile t: rows 4 r + i and columns 4 c + j (BK false: dn 1,
-// the group is contiguous and may go out as one float4) or c + N/4 j (BK
-// true: dn N/4), t = r N/4 + c, and reads its operands four depth columns
-// at a time, as float4s:
-//   AK: A(m, k) = A[m lda + k], else A[k lda + m];
-//   BK: B(k, n) = B[n ldb + k], else B[k ldb + n].
-// Neighbouring threads take neighbouring c, so a quarter-warp's B loads
-// are 8 consecutive float4s (BK false) or 8 consecutive rows at stride ldb
-// (BK true: ldb / 4 must be odd), and its A loads one broadcast (N >= 32)
-// or a few of them: no bank conflicts.  Every pointer and stride is a
-// multiple of 4 floats.
-template <bool AK, bool BK, typename Epi>
-__device__ __forceinline__ void gemm4(const float* A, int lda, const float* B,
-                                      int ldb, int M, int N, int K, Epi epi) {
-  const int nc = N / 4, tiles = (M / 4) * nc;
-  for (int t = threadIdx.x; t < tiles; t += THREADS) {
-    const int r = t / nc, c = t - r * nc;
-    const float* a = AK ? A + 4 * r * lda : A + 4 * r;
-    const float* b = BK ? B + c * ldb : B + 4 * c;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      float av[4][4], bv[4][4];   // A(4 r + i, k + e), B(k + e, column j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 x = AK ? ld4(a + e * lda + k) : ld4(a + (k + e) * lda);
-        const float4 y = BK ? ld4(b + e * nc * ldb + k) : ld4(b + (k + e) * ldb);
-        if constexpr (AK) {
-          av[e][0] = x.x; av[e][1] = x.y; av[e][2] = x.z; av[e][3] = x.w;
-        } else {
-          av[0][e] = x.x; av[1][e] = x.y; av[2][e] = x.z; av[3][e] = x.w;
-        }
-        if constexpr (BK) {
-          bv[e][0] = y.x; bv[e][1] = y.y; bv[e][2] = y.z; bv[e][3] = y.w;
-        } else {
-          bv[0][e] = y.x; bv[1][e] = y.y; bv[2][e] = y.z; bv[3][e] = y.w;
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(av[i][e], bv[j][e], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) epi(4 * r + i, BK ? c : 4 * c, BK ? nc : 1, acc[i]);
-  }
 }
 
 // emit(c, sum over rows r < R of f(r, c)) for every column c < C, summed
@@ -344,9 +282,9 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
     const float* b_s = sm + a.off_b[l];
     float* xn = sm + a.off_x[l + 1];
     const int ldn = a.ld_x[l + 1];
-    gemm4<true, false>(sm + a.off_x[l], a.ld_x[l], sm + a.off_w[l],
+    gemm4<THREADS, true, false>(sm + a.off_x[l], a.ld_x[l], sm + a.off_w[l],
                        a.ld_w[l], R, pad4(a.n_out[l]), pad4(a.n_in[l]),
-                       [&](int m, int n, int, const float (&v)[4]) {
+                       Rows{}, Rows{}, [&](int m, int n, int, const float (&v)[4]) {
                          const float4 bn = ld4(b_s + n);
                          *reinterpret_cast<float4*>(xn + m * ldn + n) = make_float4(
                              fmaxf(v[0] + bn.x, 0.f), fmaxf(v[1] + bn.y, 0.f),
@@ -420,8 +358,8 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
     // dW_l = x_l^T da_l, straight into the block's slice.
     // (float4 stores where vec: n_out % 4 == 0, so every slice offset is
     // 16-byte aligned)
-    gemm4<false, false>(sm + a.off_x[l], a.ld_x[l], cur, ldd, pad4(n_in),
-                        pad4(n_out), R,
+    gemm4<THREADS, false, false>(sm + a.off_x[l], a.ld_x[l], cur, ldd, pad4(n_in),
+                        pad4(n_out), R, Rows{}, Rows{},
                         [&](int m, int n, int, const float (&v)[4]) {
                           if (m >= n_in) return;
                           if (a.vec) {
@@ -437,8 +375,9 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
     STAMP();
 #endif
     // dx_l = da_l W_l^T; W's zero padding leaves its padding columns 0.
-    gemm4<true, true>(cur, ldd, sm + a.off_w[l], a.ld_w[l], R, pad4(n_in),
-                      pad4(n_out), [&](int m, int n, int dn, const float (&v)[4]) {
+    gemm4<THREADS, true, true>(cur, ldd, sm + a.off_w[l], a.ld_w[l], R, pad4(n_in),
+                      pad4(n_out), Rows{}, Rows{},
+                      [&](int m, int n, int dn, const float (&v)[4]) {
 #pragma unroll
                         for (int j = 0; j < 4; ++j) nxt[m * ldd + n + dn * j] = v[j];
                       });

@@ -60,7 +60,7 @@ import torch
 
 from cleverrec_tpu_torch.common import (ADAM_B1, ADAM_B2, ADAM_EPS, cdiv,
                                         sigmoid_xent)
-from cleverrec_tpu_torch.ops.scores import _sms
+from cleverrec_tpu_torch.ops.scores import _aligned, _sms
 
 LOG2 = math.log(2.0)   # -log(sigmoid(0)): the loss of one sentinel slot
 
@@ -636,19 +636,50 @@ def fused_rows_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
     return losses.sum()
 
 
-LRML_WARPS = (16, 8, 4)
+# csrc/rows_epoch.cu's rows a block of the chain's kernel (8 warps of 2
+# rows).
+CHAIN_ROWS = 16
 
 
-def _lrml_smem(d: int, mem: int, warps: int) -> int:
-    """csrc/rows_epoch.cu's shared memory for LRML's form, in bytes: K
-    [d, mem | 1] and M [mem, d | 1] (odd strides, no bank conflicts) and
-    their gradient sums, and per warp the rows ue, i, j, their grads, a
-    and e for i and j (10 d) and att for i and j and one scratch (3 mem)."""
-    return 4 * (2 * (d * (mem | 1) + mem * (d | 1))
-                + warps * (10 * d + 3 * mem))
+def _lrml_smem(d: int, mem: int, rows: int) -> int:
+    """csrc/rows_epoch.cu's shared memory for LRML's tiles of ``rows``
+    rows, in bytes (its ``LrmlLayout``): K [d'][_ld(mem)] and M
+    [mem'][_ld(d)] zero-padded (d', mem' rounded up to 4) and their
+    gradient sums alike; the user rows [rows][_ld(d)]; for the 2 rows
+    sides and one zero side the item rows, a, e [_ld(d)] and the logits
+    and g_att [_ld(mem)]; and 7 rows + 8 words of ids, flags and lists."""
+    ldd, ldk, sides = _ld(d), _ld(mem), 2 * rows + 1
+    floats = (2 * (_pad4(d) * ldk + _pad4(mem) * ldd) + rows * ldd
+              + sides * (3 * ldd + 2 * ldk) + 7 * rows + 8)
+    return 4 * floats
 
 
-def _lrml_plan(spec: dict, lrml: dict) -> dict:
+def lrml_plan(d: int, mem: int, b: int = 0, sms: int = 1) -> dict:
+    """LRML's row tiles for batches of ``b`` rows on a card of ``sms``
+    SMs: the largest even tile whose shared memory fits (at most
+    ``ROW_MAX`` rows) sets how many tiles each block must take for one
+    wave; the tile is then the smallest even one that keeps that count, so
+    the blocks take equal shares.  Returns {"rows", "tiles", "blocks",
+    "smem_bytes", "mem_pad"}; raises ValueError when no tile of 2 rows
+    fits in ``SMEM_LIMIT``."""
+    # The shared memory grows linearly in the rows.
+    fixed, per_row = _lrml_smem(d, mem, 0), _lrml_smem(d, mem, 1)
+    per_row -= fixed
+    r_max = min(ROW_MAX, (SMEM_LIMIT - fixed) // per_row // 2 * 2)
+    if r_max < 2:
+        raise ValueError(f"fused_rows_epoch: LRML's form at d {d}, mem "
+                         f"{mem} needs {_lrml_smem(d, mem, 2)} bytes of "
+                         f"shared memory for a tile of 2 rows, past the "
+                         f"{SMEM_LIMIT} a block may have")
+    per_block = max(1, cdiv(cdiv(b, r_max), sms))
+    rows = min(r_max, max(2, 2 * cdiv(cdiv(cdiv(b, sms), per_block), 2)))
+    tiles = cdiv(b, rows)
+    return {"rows": rows, "tiles": tiles,
+            "blocks": cdiv(tiles, cdiv(tiles, sms)) if tiles else 0,
+            "smem_bytes": _lrml_smem(d, mem, rows), "mem_pad": _pad4(mem)}
+
+
+def _lrml_plan(spec: dict, lrml: dict, b: int, sms: int) -> dict:
     sides = tuple(sd for _, sd in spec["planes"])
     if sides != ("u", "i", "i") or spec["floats"] or len(spec["dense"]) != 2:
         raise ValueError("fused_rows_epoch: LRML's form takes the planes "
@@ -657,29 +688,26 @@ def _lrml_plan(spec: dict, lrml: dict) -> dict:
         raise ValueError("fused_rows_epoch: LRML's form has the hinge's "
                          f"backward, not that of loss_func={lrml['loss']}")
     d, mem = int(lrml["d"]), int(lrml["mem"])
-    for warps in LRML_WARPS:
-        smem = _lrml_smem(d, mem, warps)
-        if smem <= SMEM_LIMIT:
-            return {"form": "lrml", "items": 2, "float_link": -1,
-                    "dense_link": -1, "d": d, "mem": mem, "warps": warps,
-                    "smem_bytes": smem, "margin": float(lrml["margin"]),
-                    "reg": float(lrml["reg"])}
-    raise ValueError(f"fused_rows_epoch: LRML's form at d {d}, mem {mem} "
-                     f"needs {smem} bytes of shared memory for "
-                     f"{LRML_WARPS[-1]} warps, past the {SMEM_LIMIT} a "
-                     "block may have")
+    return {"form": "lrml", "items": 2, "float_link": -1, "dense_link": -1,
+            "d": d, "mem": mem, **lrml_plan(d, mem, b, sms),
+            "slice": 2 * d * mem + 1, "margin": float(lrml["margin"]),
+            "reg": float(lrml["reg"])}
 
 
-def rows_epoch_plan(spec: dict) -> dict:
-    """The rows kernel's view of a model's ``fused_rows_spec``, one of
-    two forms whose backward the kernel has by hand:
+def rows_epoch_plan(spec: dict, b: int = 0, sms: int = 1) -> dict:
+    """The rows kernel's view of a model's ``fused_rows_spec`` for
+    batches of ``b`` rows on a card of ``sms`` SMs (``b`` = 0 asks
+    whether the kernel takes the spec), one of two forms whose backward
+    the kernel has by hand:
 
     - ``lrml`` (the spec's ``lrml`` entry): LRML over planes (u, i, j),
       d = |P[u] + softmax((P[u] * x) K) M - x|^2 for x = Q[i], Q[j], loss
       max(d_i - d_j + margin, 0) plus reg (|P[u]|^2 + |Q[i]|^2 +
       |Q[j]|^2) / 2 a valid row.  Returns {"form": "lrml", "items": 2,
-      "float_link": -1, "dense_link": -1, "d", "mem", "warps",
-      "smem_bytes", "margin", "reg"}.
+      "float_link": -1, "dense_link": -1, "d", "mem", "mem_pad", "rows",
+      "tiles", "blocks", "smem_bytes", "slice", "margin", "reg"}
+      (``lrml_plan``; ``slice``, the length of a block's partial sums:
+      dK, dM and its loss).
     - ``chain`` (the spec's ``chain`` entry): the social BPR chain over
       one user plane and L item planes (2 <= L <= ``ROWS_MAX_ITEMS``),
       x_m = <P[u], Q[m]> + bias[m], links z_t = (x_t - x_{t+1}) / c_t
@@ -687,12 +715,14 @@ def rows_epoch_plan(spec: dict) -> dict:
       scalar's link and 1 elsewhere, loss sum_t -log sigmoid(z_t) plus
       reg (|P[u]|^2 + sum_m |Q[m]|^2 + bias[m]^2) / 2 a valid row.
       Returns {"form": "chain", "items", "float_link", "dense_link",
-      "reg"} (-1 for no link).
+      "reg", "rows", "blocks", "slice"} (-1 for no link; ``rows`` a
+      block, two a warp; ``slice``: a block's ds, where there is a
+      dense link, and its loss).
 
     Raises ValueError for a spec outside both forms."""
     lrml = spec.get("lrml")
     if lrml is not None:
-        return _lrml_plan(spec, lrml)
+        return _lrml_plan(spec, lrml, b, sms)
     chain = spec.get("chain")
     if chain is None:
         raise ValueError("fused_rows_epoch: the spec's row_loss is neither "
@@ -719,7 +749,9 @@ def rows_epoch_plan(spec: dict) -> dict:
         raise ValueError("fused_rows_epoch: one link cannot take both "
                          "divisors")
     return {"form": "chain", "items": items, **links,
-            "reg": float(chain["reg"])}
+            "reg": float(chain["reg"]), "rows": CHAIN_ROWS,
+            "blocks": cdiv(b, CHAIN_ROWS),
+            "slice": int(links["dense_link"] >= 0) + 1}
 
 
 def _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
@@ -776,7 +808,8 @@ def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
     if pu[0].device.type != "cuda":
         raise ValueError(f"fused_rows_epoch: no kernel for device "
                          f"{pu[0].device}")
-    plan = rows_epoch_plan(spec)
+    plan = rows_epoch_plan(spec, planes[0].shape[1],
+                           _sms(pu[0].device.index))
     if sides != ("u",) + ("i",) * plan["items"]:
         raise ValueError(f"fused_rows_epoch: sides {sides} differ from the "
                          "spec's planes")
@@ -792,16 +825,25 @@ class _RowsArgs(ctypes.Structure):
     """``RowsArgs`` of csrc/rows_epoch.cu, field for field."""
 
     _fields_ = ([(n, ctypes.c_void_p * 4) for n in ("p", "m", "v", "g")]
-                + [("plane", ctypes.c_void_p * (1 + ROWS_MAX_ITEMS)),
-                   ("fcol", ctypes.c_void_p), ("loss", ctypes.c_void_p)]
+                + [("plane", ctypes.c_void_p * (1 + ROWS_MAX_ITEMS))]
+                + [(n, ctypes.c_void_p) for n in ("fcol", "loss", "part")]
                 + [(n, ctypes.c_int) for n in ("U", "I", "d", "B", "items",
                                                "steps", "t0", "float_link",
                                                "dense_link")]
                 + [(n, ctypes.c_float) for n in ("reg", "lr", "eps")]
                 + [("b1", ctypes.c_double), ("b2", ctypes.c_double)]
-                + [(n, ctypes.c_int) for n in ("form", "mem", "warps",
+                + [(n, ctypes.c_int) for n in ("form", "mem", "rows",
+                                               "blocks", "slice", "vec",
                                                "smem_bytes")]
                 + [("margin", ctypes.c_float)])
+
+
+def rows_vec(tables) -> bool:
+    """Do the rows kernels take 16-byte rows of ``tables`` (P, Q and for
+    LRML K, M): d % 4 == 0 and every table 16-byte aligned
+    (``ops.scores._aligned``)?  Else they take the scalar variant."""
+    return _aligned(*tables[:2]) and all(t.data_ptr() % 16 == 0
+                                         for t in tables[2:])
 
 
 ROWS_FORMS = {"chain": 0, "lrml": 1}
@@ -846,18 +888,26 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
                                      *vqi, *vdense, *planes, *floats))
     steps, b = planes[0].shape
     (p, q), d = params[:2], pu[0].shape[1]
-    if max(p.numel(), q.numel(), steps, b, t0 + steps) >= 2 ** 31:
+    if max(p.numel(), q.numel(), steps, b, t0 + steps,
+           plan["blocks"] * plan["slice"]) >= 2 ** 31:
         raise ValueError("fused_rows_epoch: a size or step count past the "
                          "kernel's int32 arguments")
-    grads = [torch.zeros_like(x) for x in params]
+    # Scratch for the tables' gradients (P, Q and the chain's bias); the
+    # dense ones leave the row kernel through part, a slice a block.
+    grads = [torch.zeros_like(x) for x in params[:2 if lrml else 3]]
+    part = torch.empty((max(plan["blocks"], 1), plan["slice"]),
+                       dtype=torch.float32, device=p.device)
     loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
     a = _RowsArgs(U=p.shape[0], I=q.shape[0], d=d, B=b, items=plan["items"],
                   steps=steps, t0=t0, float_link=plan["float_link"],
                   dense_link=plan["dense_link"], reg=plan["reg"], lr=lr,
                   eps=eps, b1=b1, b2=b2,
                   fcol=floats[0].data_ptr() if floats else None,
-                  loss=loss.data_ptr(), form=ROWS_FORMS[plan["form"]],
-                  mem=plan.get("mem", 0), warps=plan.get("warps", 0),
+                  loss=loss.data_ptr(), part=part.data_ptr(),
+                  form=ROWS_FORMS[plan["form"]], mem=plan.get("mem", 0),
+                  rows=plan["rows"], blocks=plan["blocks"],
+                  slice=plan["slice"],
+                  vec=int(rows_vec(params if lrml else (p, q))),
                   smem_bytes=plan.get("smem_bytes", 0),
                   margin=plan.get("margin", 0.0))
     for key, group in (("p", params), ("m", (*mpu, *mqi, *mdense)),

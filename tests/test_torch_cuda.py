@@ -470,10 +470,14 @@ def test_mlp_epoch_rejects_bad_input(cuda):
 
 
 # rows_epoch: as bpr_epoch, f32 atomics sum duplicate ids in a
-# run-dependent order; CUNE_BPR's s sums every row of a step through one
-# atomic a block, and Adam normalises that rounding into each next step.
+# run-dependent order, and Adam normalises that rounding into each next
+# step; CUNE_BPR's s sums its blocks' slices in a fixed order.  The cases:
+# d a multiple of 4 (float4 rows) and not (18: the scalar variant); one
+# row; one row past a block of 16 (the chain's tile).
 ROWS_CASES = [(29, 41, 16, 4, 64, 0, 0.5), (37, 53, 40, 3, 37, 5, 0.5),
-              (943, 1682, 128, 3, 6144, 81, 0.15)]
+              (943, 1682, 128, 3, 6144, 81, 0.15),
+              (29, 41, 18, 3, 64, 2, 0.3), (29, 41, 16, 2, 1, 1, 0.0),
+              (29, 41, 16, 2, 17, 1, 0.0)]
 
 
 def _rows_model(name, u_n, i_n, d, seed=0):
@@ -526,29 +530,76 @@ def _rows_state(spec, state, dev):
             for x in spec["pack"]({n: v.to(dev) for n, v in t.items()})]
 
 
-@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0,masked", ROWS_CASES)
-@pytest.mark.parametrize("name", ["SBPR", "TBPR", "CUNE_BPR"])
-def test_rows_epoch_matches_plain(cuda, name, u_n, i_n, d, steps, b, t0,
-                                  masked):
-    spec, state, planes, floats = _rows_inputs(name, u_n, i_n, d, steps, b,
-                                               t0, masked)
+def _hold_rows(cuda, kernel, spec, state, planes, floats, t0):
+    """One epoch through the kernel and the plain version from one state:
+    one launch, the loss and every state tensor within the tolerances."""
     got, want = _rows_state(spec, state, cuda), _rows_state(spec, state, cuda)
     planes = [torch.as_tensor(x).to(cuda) for x in planes]
     floats = [torch.as_tensor(x).to(cuda) for x in floats]
     sides = [sd for _, sd in spec["planes"]]
-    before = T.launches["rows_epoch"]
+    before = dict(T.launches)
     loss = T.fused_rows_epoch(*got, planes, floats, t0, sides=sides,
                               spec=spec, lr=0.01)
     ref = T.fused_rows_epoch_ref(*want, planes, floats, t0, sides=sides,
                                  row_loss=spec["row_loss"], lr=0.01)
     torch.cuda.synchronize()
-    assert T.launches["rows_epoch"] == before + 1
+    assert T.launches == {**before, kernel: before[kernel] + 1}
     assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
     for k, (g_side, w_side) in enumerate(zip(got, want)):
         for g, w in zip(g_side, w_side):
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                        rtol=EPOCH_RTOL, atol=EPOCH_ATOL,
                                        err_msg=f"part {k}")
+
+
+def _one_id(planes):
+    """Every row of every step at one id, a different one in each plane:
+    the atomics all contend."""
+    return [np.full_like(x, 3 + k) for k, x in enumerate(planes)]
+
+
+@pytest.mark.parametrize("name", ["SBPR", "TBPR", "CUNE_BPR"])
+@pytest.mark.parametrize("distinct", [False, True])
+def test_rows_epoch_contended_ids(cuda, name, distinct):
+    spec, state, planes, floats = _rows_inputs(name, 29, 41, 16, 2, 256, 3,
+                                               0.0)
+    same = _one_id(planes)
+    planes = same if distinct else [same[0]] + [same[1]] * (len(same) - 1)
+    _hold_rows(cuda, "rows_epoch", spec, state, planes, floats, 3)
+
+
+@pytest.mark.parametrize("name", ["SBPR", "CUNE_BPR"])
+def test_rows_epoch_one_step_is_deterministic(cuda, name):
+    """The loss and ds leave each block through its slice, summed in
+    block order: one step from one state gives a bit-identical loss and
+    s and its moments in two launches (the tables' row sums use atomics,
+    so a second step would not)."""
+    spec, state, planes, floats = _rows_inputs(name, 943, 1682, 128, 2,
+                                               6144, 81, 0.15)
+    # Step 1 of the draw alone (step 0 is all masked).
+    planes = [torch.as_tensor(x[1:]).to(cuda) for x in planes]
+    floats = [torch.as_tensor(x[1:]).to(cuda) for x in floats]
+    sides = [sd for _, sd in spec["planes"]]
+    runs = []
+    for _ in range(2):
+        got = _rows_state(spec, state, cuda)
+        loss = T.fused_rows_epoch(*got, planes, floats, 81, sides=sides,
+                                  spec=spec, lr=0.01)
+        runs.append((loss, got))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in (2, 5, 8):                       # the dense group: s, m_s, v_s
+        for a, b in zip(runs[0][1][k], runs[1][1][k]):
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0,masked", ROWS_CASES)
+@pytest.mark.parametrize("name", ["SBPR", "TBPR", "CUNE_BPR"])
+def test_rows_epoch_matches_plain(cuda, name, u_n, i_n, d, steps, b, t0,
+                                  masked):
+    spec, state, planes, floats = _rows_inputs(name, u_n, i_n, d, steps, b,
+                                               t0, masked)
+    _hold_rows(cuda, "rows_epoch", spec, state, planes, floats, t0)
 
 
 def test_rows_epoch_declines_what_it_has_no_backward_for(cuda):
@@ -675,12 +726,14 @@ def test_cml_epoch_raises_on_bad_input(cuda):
     assert T.launches["cml_epoch"] == before
 
 
-def _lrml_inputs(u_n, i_n, d, mem, steps, b, t0, masked, seed=0):
+def _lrml_inputs(u_n, i_n, d, mem, steps, b, t0, masked, seed=0,
+                 margin=0.2):
     from cleverrec_tpu_torch.config import Config
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
     cfg = Config({"recommender": "LRML", "embed_size": str(d),
-                  "mem_size": str(mem), "reg": "0.001", "margin": "0.2",
+                  "mem_size": str(mem), "reg": "0.001",
+                  "margin": str(margin),
                   "loss_func": "hinge", "stddev": "0.1",
                   "seed": str(seed)})
     model = make_model(cfg, DataMeta(u_n, i_n), device="cpu")
@@ -707,34 +760,89 @@ def _lrml_inputs(u_n, i_n, d, mem, steps, b, t0, masked, seed=0):
     return spec, state, planes
 
 
-# LRML's form: K and M sum every row of a step through shared atomics and
-# one global atomic per element per block, against autograd's products in
-# the plain version, and Adam normalises that rounding into each step.
+# LRML's form: K and M sum a tile's rows in register-tiled products and
+# the blocks' slices in a fixed order, against autograd's products in the
+# plain version; the rows' grads use f32 atomics, and Adam normalises that
+# rounding into each step.  The cases: mem a multiple of 4 and not (6, 7,
+# 50 at d 18: the scalar variant); one row; one row past a tile of 2 (the
+# plan's tile at 3 rows); one row past a wave of 24-row tiles.
 @pytest.mark.parametrize("u_n,i_n,d,mem,steps,b,t0,masked", [
     (29, 41, 16, 6, 4, 64, 0, 0.5), (37, 53, 40, 7, 3, 37, 5, 0.3),
-    (943, 1682, 128, 50, 3, 6144, 17, 0.1)])
+    (943, 1682, 128, 50, 3, 6144, 17, 0.1),
+    (29, 41, 18, 50, 3, 64, 2, 0.3), (29, 41, 16, 6, 2, 1, 1, 0.0),
+    (29, 41, 16, 6, 2, 3, 1, 0.0), (943, 1682, 128, 50, 2, 6145, 17, 0.1)])
 def test_rows_epoch_lrml_matches_plain(cuda, u_n, i_n, d, mem, steps, b, t0,
                                        masked):
     spec, state, planes = _lrml_inputs(u_n, i_n, d, mem, steps, b, t0,
                                        masked)
     assert T.rows_epoch_plan(spec)["form"] == "lrml"
-    got, want = _rows_state(spec, state, cuda), _rows_state(spec, state, cuda)
-    planes = [torch.as_tensor(x).to(cuda) for x in planes]
+    _hold_rows(cuda, "rows_epoch_lrml", spec, state, planes, [], t0)
+
+
+@pytest.mark.parametrize("d,mem,b,sms", [(16, 6, 600, 1),
+                                         (128, 50, 2000, 7)])
+def test_rows_epoch_lrml_blocks_loop_over_tiles(cuda, monkeypatch, d, mem, b,
+                                                sms):
+    """Fewer SMs than tiles: each block sums several tiles' dK and dM."""
+    monkeypatch.setattr(T, "_sms", lambda index: sms)
+    assert T.lrml_plan(d, mem, b, sms)["tiles"] > sms
+    spec, state, planes = _lrml_inputs(29, 41, d, mem, 2, b, 3, 0.2)
+    _hold_rows(cuda, "rows_epoch_lrml", spec, state, planes, [], 3)
+
+
+def _lrml_z(spec, state, planes, margin):
+    """dist_i - dist_j + margin of every row of the draw's step 0, from
+    the plain model's distance at ``state``."""
+    from cleverrec_tpu_torch.models.metric import LRML
+    p = state[0]
+    u, i, j = (torch.as_tensor(x[0]).long() for x in planes)
+    dist = [LRML._dist(p["P"][u], p["Q"][x], p["K"], p["M"]) for x in (i, j)]
+    return dist[0] - dist[1] + margin
+
+
+@pytest.mark.parametrize("case", ["none", "one"])
+def test_rows_epoch_lrml_hinge_edges(cuda, case):
+    """Every hinge inactive (margin -10: only the reg grads remain), and a
+    tile with a single active row (margin 0, every other row with i = j,
+    so z = 0 exactly)."""
+    margin = -10.0 if case == "none" else 0.0
+    spec, state, planes = _lrml_inputs(29, 41, 16, 6, 2, 37, 1, 0.0,
+                                       margin=margin)
+    planes = [x[1:].copy() for x in planes]           # step 0 is masked
+    if case == "one":
+        planes[2][0] = planes[1][0]
+        planes[2][0, 5] = (planes[1][0, 5] + 1) % 41
+        if _lrml_z(spec, state, planes, margin)[5] < 0:
+            planes[1][0, 5], planes[2][0, 5] = planes[2][0, 5], planes[1][0, 5]
+    z = _lrml_z(spec, state, planes, margin)
+    assert int((z > 0).sum()) == (0 if case == "none" else 1)
+    _hold_rows(cuda, "rows_epoch_lrml", spec, state, planes, [], 1)
+
+
+def test_rows_epoch_lrml_contended_ids(cuda):
+    spec, state, planes = _lrml_inputs(29, 41, 16, 6, 2, 256, 3, 0.0)
+    _hold_rows(cuda, "rows_epoch_lrml", spec, state, _one_id(planes), [], 3)
+
+
+def test_rows_epoch_lrml_one_step_is_deterministic(cuda):
+    """dK, dM and the loss leave each block through its slice, summed in
+    block order: one step from one state gives bit-identical K, M, their
+    moments and loss in two launches (the rows' grads use atomics, so a
+    second step would not)."""
+    spec, state, planes = _lrml_inputs(943, 1682, 128, 50, 2, 6144, 17, 0.1)
+    planes = [torch.as_tensor(x[1:]).to(cuda) for x in planes]
     sides = [sd for _, sd in spec["planes"]]
-    before = dict(T.launches)
-    loss = T.fused_rows_epoch(*got, planes, [], t0, sides=sides, spec=spec,
-                              lr=0.01)
-    ref = T.fused_rows_epoch_ref(*want, planes, [], t0, sides=sides,
-                                 row_loss=spec["row_loss"], lr=0.01)
+    runs = []
+    for _ in range(2):
+        got = _rows_state(spec, state, cuda)
+        loss = T.fused_rows_epoch(*got, planes, [], 17, sides=sides,
+                                  spec=spec, lr=0.01)
+        runs.append((loss, got))
     torch.cuda.synchronize()
-    assert T.launches["rows_epoch_lrml"] == before["rows_epoch_lrml"] + 1
-    assert T.launches["rows_epoch"] == before["rows_epoch"]
-    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
-    for k, (g_side, w_side) in enumerate(zip(got, want)):
-        for g, w in zip(g_side, w_side):
-            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
-                                       rtol=EPOCH_RTOL, atol=EPOCH_ATOL,
-                                       err_msg=f"part {k}")
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in (2, 5, 8):                       # K, M and their moments
+        for a, b in zip(runs[0][1][k], runs[1][1][k]):
+            assert torch.equal(a, b), k
 
 
 def test_rows_epoch_lrml_raises_on_bad_input(cuda):

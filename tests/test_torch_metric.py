@@ -433,11 +433,16 @@ def test_rows_epoch_plan_takes_lrml_and_declines_other_forms(toy_dataset):
     spec = model.fused_rows_spec()
     plan = T.rows_epoch_plan(spec)
     assert plan["form"] == "lrml" and (plan["d"], plan["mem"]) == (16, 6)
-    assert (plan["margin"], plan["reg"], plan["warps"]) == (0.2, 0.001, 16)
+    assert (plan["margin"], plan["reg"]) == (0.2, 0.001)
     assert plan["smem_bytes"] <= T.SMEM_LIMIT
-    # The conf's width (d 128, mem 50) fits 16 warps a block.
-    assert T.rows_epoch_plan({**spec, "lrml": {**spec["lrml"], "d": 128,
-                                               "mem": 50}})["warps"] == 16
+    # The conf's width (d 128, mem 50) at its batch of 6,144 rows on an
+    # H100's 132 SMs: tiles of 24 rows, two a block, one wave of 128
+    # blocks; mem padded to 52; a block's slice holds dK, dM and its loss.
+    conf = T.rows_epoch_plan({**spec, "lrml": {**spec["lrml"], "d": 128,
+                                               "mem": 50}}, 6144, 132)
+    assert (conf["rows"], conf["tiles"], conf["blocks"]) == (24, 256, 128)
+    assert (conf["mem_pad"], conf["slice"]) == (52, 2 * 128 * 50 + 1)
+    assert conf["smem_bytes"] <= T.SMEM_LIMIT
     for bad, match in (
             ({"lrml": None}, "neither"),
             ({"lrml": {**spec["lrml"], "loss": "bpr"}}, "hinge"),
@@ -447,6 +452,33 @@ def test_rows_epoch_plan_takes_lrml_and_declines_other_forms(toy_dataset):
              "shared memory")):
         with pytest.raises(ValueError, match=match):
             T.rows_epoch_plan({**spec, **bad})
+
+
+@pytest.mark.parametrize("d,mem,b,sms", [
+    (128, 50, 6144, 132), (128, 50, 6144, 1), (128, 50, 6144, 7),
+    (128, 50, 6144, 100), (128, 50, 6145, 132), (128, 50, 6144, 1000),
+    (18, 50, 6144, 132), (16, 6, 64, 132), (40, 7, 37, 132),
+    (128, 50, 1, 132), (128, 50, 3, 132), (128, 50, 0, 132)])
+def test_lrml_plan_fills_one_wave_within_shared_memory(d, mem, b, sms):
+    """LRML's tiles: even, within shared memory, mem padded to a multiple
+    of 4; at most one block an SM, each taking the fewest tiles that the
+    largest tile which fits allows, in equal shares."""
+    plan = T.lrml_plan(d, mem, b, sms)
+    rows, tiles, blocks = plan["rows"], plan["tiles"], plan["blocks"]
+    fits = [r for r in range(2, T.ROW_MAX + 1, 2)
+            if T._lrml_smem(d, mem, r) <= T.SMEM_LIMIT]
+    assert rows % 2 == 0 and 2 <= rows <= fits[-1]
+    assert plan["smem_bytes"] == T._lrml_smem(d, mem, rows) <= T.SMEM_LIMIT
+    assert plan["mem_pad"] % 4 == 0 and mem <= plan["mem_pad"] < mem + 4
+    assert tiles == -(-b // rows)
+    if not b:
+        assert blocks == 0
+        return
+    per_block = -(-tiles // blocks)
+    assert blocks <= sms and per_block == max(1, -(-(-(-b // fits[-1])) // sms))
+    assert (blocks - 1) * per_block < tiles      # no block left idle
+    # A tile two rows smaller would need more tiles a block.
+    assert rows == 2 or (rows - 2) * per_block < -(-b // sms)
 
 
 # -- ascending ranks ----------------------------------------------------------

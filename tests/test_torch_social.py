@@ -531,7 +531,10 @@ def test_rows_epoch_plan_takes_only_the_chain(toy_social_dataset):
     spec = model.fused_rows_spec()
     assert T.rows_epoch_plan(spec) == {"form": "chain", "items": 3,
                                        "float_link": 0, "dense_link": -1,
-                                       "reg": 0.05}
+                                       "reg": 0.05, "rows": 16, "blocks": 0,
+                                       "slice": 1}
+    # Two rows a warp, 16 a block: a step's 6,144 rows in 384 blocks.
+    assert T.rows_epoch_plan(spec, 6144, 132)["blocks"] == 384
     planes = spec["planes"]
     for bad, match in (
             ({"chain": None}, "chain"),
@@ -545,6 +548,19 @@ def test_rows_epoch_plan_takes_only_the_chain(toy_social_dataset):
              "both")):
         with pytest.raises(ValueError, match=match):
             T.rows_epoch_plan({**spec, **bad})
+
+
+@pytest.mark.parametrize("d,offset,vec", [
+    (128, 0, True), (16, 0, True), (18, 0, False), (5, 0, False),
+    (128, 1, False), (128, 4, True)])
+def test_rows_vec_takes_aligned_rows_only(d, offset, vec):
+    """The rows kernels read 16-byte rows only where d % 4 == 0 and every
+    table is 16-byte aligned: a view that starts ``offset`` floats into
+    its storage is unless offset % 4 == 0, whichever table it is."""
+    table = torch.zeros(10 * d + offset)[offset:].view(10, d)
+    other = torch.zeros(7, d)
+    assert T.rows_vec((table, other)) is vec
+    assert T.rows_vec((other, other, torch.zeros(d, 3), table)) is vec
 
 
 def test_rows_epoch_rejects_bad_input(toy_social_dataset):
