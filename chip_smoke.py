@@ -88,7 +88,10 @@ width of ``conf/BPR.properties`` (embed_size 128):
   (``device_ms``, its row and Adam kernels, ``device_split``) at NeuMF's
   and MLP's, SBPR's, TBPR's and CUNE_BPR's, and LRML's shapes, with the
   plan each took; LRML's row also the share of real rows whose hinge was
-  active in the timed epoch (``active_share``).
+  active in the timed epoch (``active_share``).  So do the ``bpr_epoch``,
+  ``gmf_epoch`` and ``cml_epoch`` rows, with each kernel's launches an
+  epoch (``device_launches``): the persistent GMF and CML kernels must
+  take one launch an epoch.
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, and again before and after each training run.  Exits non-zero, with no
@@ -270,9 +273,12 @@ def device_ms(fn, match=None, iters: int = 20):
     return None
 
 
-def kernel_split(fn, names, calls: int = 5) -> dict:
+def kernel_split(fn, names, calls: int = 5, counts=None) -> dict:
     """Device ms of one fn() call spent in the kernels whose name holds
-    each of ``names``, from torch.profiler over ``calls`` calls."""
+    each of ``names``, from torch.profiler over ``calls`` calls; with a
+    dict ``counts``, also each one's launches a call recorded on the
+    device, ``api`` the host's kernel launches a call (runtime API calls,
+    every kernel's) and ``device`` the device's kernel records a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -282,10 +288,92 @@ def kernel_split(fn, names, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+    every = prof.key_averages()
+    events = [e for e in every if e.device_type == DeviceType.CUDA]
+    if counts is not None:
+        counts.update({n: sum(e.count for e in events if n in e.key) / calls
+                       for n in names})
+        counts["api"] = sum(e.count for e in every
+                            if e.key in LAUNCH_APIS) / calls
+        counts["device"] = sum(e.count for e in events
+                               if not e.key.startswith(("Memcpy",
+                                                        "Memset"))) / calls
     return {n: sum(e.self_device_time_total for e in events if n in e.key)
             / 1e3 / calls for n in names}
+
+
+# The runtime calls that launch a kernel, as torch.profiler names them.
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+               "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+               "cuLaunchKernelEx")
+
+
+def epoch_split(epoch, names, one_launch=None) -> dict:
+    """The device time of one epoch kernel call: ``device_ms``,
+    ``device_split`` by kernel (``names``) and ``device_launches``,
+    kernel_split's counts.
+
+    ``one_launch``: the kernel's tag, whose epoch must be one launch of its
+    single kernel (the persistent kernels).  Its time is CUDA events around
+    single calls queued behind a spin (``single_call_ms``: the launch, and
+    its counters' memset and bias-correction copy), and one trace checks that the host made one
+    launch call a call and that every kernel record on the device, if
+    any, is that kernel's.  Otherwise the split is torch.profiler's: in a
+    long process a trace may hold the device records of only some
+    launches (seen on an H100), so a second trace is taken where the
+    first missed some, the one with more is kept, and its sums are
+    printed as recorded beside ``recorded_share``, the device's records
+    over the host's launch calls (a share below 1 undercounts)."""
+    counts = {}
+    split = kernel_split(epoch, names, counts=counts)
+    if one_launch:
+        check(counts["api"] == 1 and counts["device"] <= 1
+              and counts[names[0]] == counts["device"],
+              f"{one_launch}: an epoch launched {counts} (profiled), not "
+              "one kernel")
+        ms = single_call_ms(epoch)
+        return {"device_ms": ms, "device_split": {names[0]: ms},
+                "device_launches": counts,
+                "device_ms_from": "CUDA events around queued single calls"}
+
+    def share(c):
+        return c["device"] / c["api"] if c["api"] else 0.0
+    if share(counts) < 1.0:
+        again = {}
+        split2 = kernel_split(epoch, names, counts=again)
+        if share(again) > share(counts):
+            counts, split = again, split2
+    return {"device_ms": sum(split.values()), "device_split": split,
+            "device_launches": counts, "recorded_share": share(counts),
+            "device_ms_from": "torch.profiler"}
+
+
+def single_call_ms(fn, calls: int = 5) -> float:
+    """Mean device ms of one fn() call: CUDA events around it, queued
+    behind a spin kernel, so that the host has queued the whole call
+    before the device reaches the first event and the events hold the
+    device's time of the call, not the host's.  The spin doubles until
+    the first event is still pending when the call returns."""
+    fn()
+    torch.cuda.synchronize()
+    total, spin = 0.0, 1 << 22          # cycles, ~2 ms at 1.98 GHz
+    for _ in range(calls):
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            start.record()
+            fn()
+            end.record()
+            covered = not start.query()
+            torch.cuda.synchronize()
+            if covered:
+                break
+            spin *= 2
+        check(covered, "single_call_ms: the host did not queue the call "
+              "before the device reached it")
+        total += start.elapsed_time(end)
+    return total / calls
 
 
 def bound(moved, flops):
@@ -956,12 +1044,17 @@ def gmf_row(launches, profiles):
     # two squared norms, two row grads, dh, two scatter-adds) and 14 per
     # element of P, Q and h per step for Adam.
     flops = 19 * d * n_real + 14 * n_state * steps
+    def epoch():
+        return train_ops.fused_gmf_epoch(*k_state, *ids, y, state.count,
+                                         **opts)
     row = {"name": "gmf_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/gmf_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:440",
            "launches": launches, "max_abs_err": max(errors.values()),
-           "ms": time_ms(lambda: train_ops.fused_gmf_epoch(
-               *k_state, *ids, y, state.count, **opts)),
+           "ms": time_ms(epoch),
+           # The kernel's own device time in one epoch: one launch.
+           **epoch_split(epoch, ("gmf_persist",), "gmf_epoch"),
+           "variant": "float4" if train_ops.rows_vec(k_state) else "scalar",
            "plain_ms": time_ms(lambda: train_ops.fused_gmf_epoch_ref(
                *r_state, *ids, y, state.count, **opts), iters=5),
            **bound(moved, flops),
@@ -1311,12 +1404,18 @@ def cml_row(launches, profiles):
     # Adam.  The hinge's row grads (9 d an active row) are left out, so
     # the bound is below the work.
     flops = (k + 1) * 3 * d * n_real + 22 * n_state * steps
+    def epoch():
+        return train_ops.fused_cml_epoch(*k_state, u, i, negs, state.count,
+                                         **opts)
     row = {"name": "cml_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/cml_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:1610",
            "launches": launches, "max_abs_err": max(errors.values()),
-           "ms": time_ms(lambda: train_ops.fused_cml_epoch(
-               *k_state, u, i, negs, state.count, **opts)),
+           "ms": time_ms(epoch),
+           # The kernel's own device time in one epoch: one launch.
+           **epoch_split(epoch, ("cml_persist",), "cml_epoch"),
+           "variant": "float4" if train_ops.cml_width(*k_state) == 4
+           else "scalar",
            "plain_ms": time_ms(lambda: train_ops.fused_cml_epoch_ref(
                *r_state, u, i, negs, state.count, **opts), iters=3),
            **bound(moved, flops),
@@ -1439,12 +1538,16 @@ def epoch_row(launches, profiles):
     # squared norms, three row grads, three scatter-adds) and 14 per
     # element of P and Q per step for Adam.
     flops = 21 * d * n_real + 14 * (u_n + i_n) * d * steps
+    def epoch():
+        return train_ops.fused_bpr_epoch(*k_state, *ids, state.count, **opts)
     row = {"name": "bpr_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/bpr_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:276",
            "launches": launches, "max_abs_err": max(errors.values()),
-           "ms": time_ms(lambda: train_ops.fused_bpr_epoch(
-               *k_state, *ids, state.count, **opts)),
+           "ms": time_ms(epoch),
+           # The kernel's own device time in one epoch: its slot and Adam
+           # kernels.
+           **epoch_split(epoch, ("bpr_slots", "adam_dense")),
            "plain_ms": time_ms(lambda: train_ops.fused_bpr_epoch_ref(
                *r_state, *ids, state.count, **opts), iters=5),
            **bound(moved, flops),

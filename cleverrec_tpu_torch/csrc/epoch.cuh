@@ -2,7 +2,8 @@
 // rows_epoch.cu, cml_epoch.cu) share: a warp's shuffle sum and max, and
 // dense Adam over a list of f32 tensors (adam_dense; adam_slices, with
 // float4 tables and dense gradients summed from per-block slices, for
-// rows_epoch.cu), or one element at a time inside a kernel of their own
+// rows_epoch.cu; its table pass adam_tables inside the persistent GMF
+// kernel), or one element at a time inside a kernel of their own
 // (cml_epoch.cu fuses it with its regulariser, mlp_epoch.cu with the sum
 // of its blocks' dense gradients).
 //
@@ -90,7 +91,7 @@ adam_dense(AdamSegs s, AdamStep a) {
 }
 
 // Appends a tensor of n elements, its moments and its gradient scratch.
-inline void adam_add(AdamSegs& s, float* p, float* m, float* v, float* g,
+__host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m, float* v, float* g,
                      int64_t n) {
   s.p[s.count] = p;
   s.m[s.count] = m;
@@ -163,6 +164,52 @@ struct AdamSlices {
   bool vec[ADAM_MAX_SEGS];
 };
 
+// Adam over the tables of ``tab`` as one run of units, unit e for e =
+// first, first + stride, ...: a segment's float4s where vec[k] (its four
+// pointers 16-byte aligned), then its remaining elements one by one, so
+// that every unit is in flight at once; the gradients are zeroed.
+__device__ __forceinline__ void adam_tables(const AdamSegs& tab,
+                                            const bool (&vec)[ADAM_MAX_SEGS],
+                                            const AdamStep& a, int64_t first,
+                                            int64_t stride) {
+  for (int64_t e = first;; e += stride) {
+    int k = 0;
+    int64_t j = e, n4 = 0;
+    for (; k < tab.count; ++k) {
+      n4 = vec[k] ? tab.n[k] / 4 : 0;
+      const int64_t units = tab.n[k] - 3 * n4;
+      if (j < units) break;
+      j -= units;
+    }
+    if (k == tab.count) return;
+    float* p = tab.p[k];
+    float* m = tab.m[k];
+    float* v = tab.v[k];
+    float* g = tab.g[k];
+    if (j < n4) {
+      adam4(p + 4 * j, m + 4 * j, v + 4 * j, g + 4 * j, a);
+    } else {
+      j += 3 * n4;
+      adam_elem(p + j, m + j, v + j, g[j], a);
+      g[j] = 0.f;
+    }
+  }
+}
+
+// Sets vec[k] for each table of ``tab`` (its p, m, v and g 16-byte
+// aligned) and returns adam_tables' count of units.
+inline int64_t adam_units(const AdamSegs& tab, bool (&vec)[ADAM_MAX_SEGS]) {
+  int64_t units = 0;
+  for (int k = 0; k < tab.count; ++k) {
+    vec[k] = ((reinterpret_cast<uintptr_t>(tab.p[k]) |
+               reinterpret_cast<uintptr_t>(tab.m[k]) |
+               reinterpret_cast<uintptr_t>(tab.v[k]) |
+               reinterpret_cast<uintptr_t>(tab.g[k])) & 15) == 0;
+    units += tab.n[k] - (vec[k] ? 3 * (tab.n[k] / 4) : 0);
+  }
+  return units;
+}
+
 // Blocks [0, dense_blocks) take s.epb elements of a slice each (a power
 // of two up to 32): an element's sum over the blocks' slices, each of the
 // ADAM_THREADS / epb groups of threads adding the slices of its own run of
@@ -200,32 +247,9 @@ adam_slices(AdamSlices s, AdamStep a, float* loss, int dense_blocks) {
     adam_elem(s.p[t] + j, s.m[t] + j, s.v[t] + j, g, a);
     return;
   }
-  // The tables as one run of units: a segment's float4s where its four
-  // pointers are 16-byte aligned, then its remaining elements one by one.
-  const int64_t stride = (int64_t)(gridDim.x - dense_blocks) * ADAM_THREADS;
-  for (int64_t e = (int64_t)(blockIdx.x - dense_blocks) * ADAM_THREADS +
-                   threadIdx.x;; e += stride) {
-    int k = 0;
-    int64_t j = e, n4 = 0;
-    for (; k < s.tab.count; ++k) {
-      n4 = s.vec[k] ? s.tab.n[k] / 4 : 0;
-      const int64_t units = s.tab.n[k] - 3 * n4;
-      if (j < units) break;
-      j -= units;
-    }
-    if (k == s.tab.count) return;
-    float* p = s.tab.p[k];
-    float* m = s.tab.m[k];
-    float* v = s.tab.v[k];
-    float* g = s.tab.g[k];
-    if (j < n4) {
-      adam4(p + 4 * j, m + 4 * j, v + 4 * j, g + 4 * j, a);
-    } else {
-      j += 3 * n4;
-      adam_elem(p + j, m + j, v + j, g[j], a);
-      g[j] = 0.f;
-    }
-  }
+  adam_tables(s.tab, s.vec, a,
+              (int64_t)(blockIdx.x - dense_blocks) * ADAM_THREADS + threadIdx.x,
+              (int64_t)(gridDim.x - dense_blocks) * ADAM_THREADS);
 }
 
 // Launches one adam_slices pass at step t, the loss into *loss; returns
@@ -233,14 +257,7 @@ adam_slices(AdamSlices s, AdamStep a, float* loss, int dense_blocks) {
 inline int adam_slices_launch(AdamSlices s, int t, float lr, double b1,
                               double b2, float eps, float* loss,
                               cudaStream_t stream) {
-  int64_t units = 0;
-  for (int k = 0; k < s.tab.count; ++k) {
-    s.vec[k] = ((reinterpret_cast<uintptr_t>(s.tab.p[k]) |
-                 reinterpret_cast<uintptr_t>(s.tab.m[k]) |
-                 reinterpret_cast<uintptr_t>(s.tab.v[k]) |
-                 reinterpret_cast<uintptr_t>(s.tab.g[k])) & 15) == 0;
-    units += s.tab.n[k] - (s.vec[k] ? 3 * (s.tab.n[k] / 4) : 0);
-  }
+  const int64_t units = adam_units(s.tab, s.vec);
   // A short slice over many blocks takes a block per element or two, its
   // threads split over the blocks' slices.
   s.epb = 1;

@@ -47,7 +47,10 @@ padding of the wrapper's own enters the loss.
 
 A wrapper given CPU tensors runs its ``*_ref`` plain version; given CUDA
 tensors it launches its kernel or raises; it never falls back.
-``launches`` counts kernel launches (one per epoch each).
+``launches`` counts kernel launches (one per epoch each).  The GMF and CML
+kernels are persistent (``csrc/persist.cuh``): one cooperative launch of
+one wave of blocks (``persist_plan``) walks every step of the epoch; a
+card that refuses the wave makes the wrapper raise.
 """
 
 from __future__ import annotations
@@ -88,9 +91,19 @@ def _bias_corrections(t: int, b1: float, b2: float):
             np.float32(1) - np.exp(t32 * np.float32(math.log(b2))))
 
 
-def _adam_dense(state, t: int, lr: float, b1: float, b2: float, eps: float):
-    """Adam at step t over (param, m, v, grad) quadruples, in place."""
-    bc1, bc2 = _bias_corrections(t, b1, b2)
+def _epoch_bias_corrections(t0: int, steps: int, b1: float, b2: float):
+    """[steps, 2] float32: ``_bias_corrections`` of steps t0 + 1 ..
+    t0 + steps.  The persistent kernels read their Adam step's from it,
+    and their plain versions take the same numbers."""
+    t = np.arange(t0 + 1, t0 + steps + 1)
+    return np.stack(_bias_corrections(t, b1, b2), axis=1).astype(np.float32)
+
+
+def _adam_dense(state, t: int, lr: float, b1: float, b2: float, eps: float,
+                bc=None):
+    """Adam at step t over (param, m, v, grad) quadruples, in place; ``bc``
+    the step's bias corrections where given."""
+    bc1, bc2 = _bias_corrections(t, b1, b2) if bc is None else bc
     for x, m, v, g in state:
         m.copy_(b1 * m + (1.0 - b1) * g)
         v.copy_(b2 * v + (1.0 - b2) * (g * g))
@@ -140,9 +153,18 @@ def _check_moments(pairs):
                              f"parameter {tuple(like.shape)}")
 
 
-def _launch_ok(name: str, err: int) -> None:
+def _launch_ok(name: str, err: int, lib=None) -> None:
+    """Counts a launch of kernel ``name``, or raises with the cudaError
+    (named by ``lib``'s ``<name>_error`` where it has one)."""
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}")
+        why = ""
+        if lib is not None:
+            fn = getattr(lib, f"{name}_error")
+            fn.restype = ctypes.c_char_p
+            fn.argtypes = [ctypes.c_int]
+            why = f": {fn(err).decode()}"
+        raise RuntimeError(f"{name}: kernel launch failed, cudaError {err}"
+                           f"{why}")
     launches[name] += 1
 
 
@@ -247,6 +269,7 @@ def fused_gmf_epoch_ref(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y,
     place."""
     steps = u_idx.shape[0]
     losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    bcs = _epoch_bias_corrections(t0, steps, b1, b2)
     for s in range(steps):
         pe, u = _rows(p, u_idx[s].long())
         qi, i = _rows(q, i_idx[s].long())
@@ -258,7 +281,7 @@ def fused_gmf_epoch_ref(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y,
         _adam_dense(((p, mp, vp, _scatter(p, (u, g * (qi * h) + reg * pe))),
                      (q, mq, vq, _scatter(q, (i, g * (pe * h) + reg * qi))),
                      (h, mh, vh, (g * prod).sum(dim=0))),
-                    t0 + s + 1, lr, b1, b2, eps)
+                    t0 + s + 1, lr, b1, b2, eps, bcs[s])
     return losses.sum()
 
 
@@ -293,33 +316,137 @@ def fused_gmf_epoch(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y,
     return _launch_gmf(*args, **opts)
 
 
+# csrc/persist.cuh's PERSIST_THREADS, a block of the persistent kernels.
+PERSIST_THREADS = 512
+# csrc/gmf_epoch.cu's GMF_MAX_D: past d 64 each half-warp of a block of 128
+# threads keeps d floats of dh in shared memory.
+GMF_MAX_D = 4096
+# csrc/cml_epoch.cu's CML_SMEM_D: up to it each of a block's 16 warps keeps
+# d column sums in shared memory, past it in ``colwarp`` [blocks, 16, d].
+CML_SMEM_D = 3584
+_per_sm: dict = {}
+
+
+def persist_plan(sms: int, per_sm: int, steps: int = 0,
+                 threads: int = PERSIST_THREADS) -> dict:
+    """The grid of a persistent epoch kernel (``csrc/persist.cuh``) on a
+    card of ``sms`` SMs that each hold ``per_sm`` of its blocks of
+    ``threads`` at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``):
+    one wave, ``sms * per_sm`` blocks, so that a cooperative launch can
+    keep every block resident across the grid barriers; and ``part_loss``,
+    the [steps, blocks] scratch of the blocks' losses.  Raises ValueError
+    where no block fits an SM."""
+    if sms < 1 or per_sm < 1:
+        raise ValueError(f"persistent epoch kernel: {per_sm} blocks an SM "
+                         f"on {sms} SMs (no block of the kernel fits an SM)")
+    blocks = sms * per_sm
+    return {"blocks": blocks, "threads": threads,
+            "warps": blocks * threads // 32, "part_loss": (steps, blocks)}
+
+
+def gmf_epoch_plan(d: int, steps: int = 0, sms: int = 1, per_sm: int = 1,
+                   threads: int = PERSIST_THREADS) -> dict:
+    """``persist_plan`` for the GMF kernel at width ``d``, with ``part``,
+    the [blocks, d] scratch of the blocks' dh.  Raises ValueError for a
+    width the kernel does not take (d past ``GMF_MAX_D``)."""
+    if not 1 <= d <= GMF_MAX_D:
+        raise ValueError(f"fused_gmf_epoch: d {d} outside the kernel's 1 to "
+                         f"{GMF_MAX_D} (dh sits in shared memory)")
+    plan = persist_plan(sms, per_sm, steps, threads)
+    return {**plan, "part": (plan["blocks"], d)}
+
+
+def cml_epoch_plan(d: int, steps: int = 0, sms: int = 1, per_sm: int = 1,
+                   threads: int = PERSIST_THREADS) -> dict:
+    """``persist_plan`` for the CML kernel at width ``d``, with ``part``,
+    the [blocks, d] scratch of the blocks' column sums, and ``colwarp``,
+    the [blocks, 16, d] scratch of the warps' column sums past
+    ``CML_SMEM_D`` (else None: they sit in shared memory)."""
+    if d < 1:
+        raise ValueError(f"fused_cml_epoch: d {d} must be at least 1")
+    plan = persist_plan(sms, per_sm, steps, threads)
+    return {**plan, "part": (plan["blocks"], d),
+            "colwarp": ((plan["blocks"], threads // 32, d)
+                        if d > CML_SMEM_D else None)}
+
+
+def _persist_blocks(lib, name: str, device, *variant) -> tuple[int, int]:
+    """(the blocks an SM of ``device`` holds, the threads a block) of
+    kernel ``name``'s variant (its C ``<name>_occupancy``), cached."""
+    key = (name, device.index, variant)
+    if key not in _per_sm:
+        fn = getattr(lib, f"{name}_occupancy")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * len(variant) + [ctypes.c_void_p] * 2
+        per_sm, threads = ctypes.c_int(0), ctypes.c_int(0)
+        err = fn(*variant, ctypes.byref(per_sm), ctypes.byref(threads))
+        if err != 0:
+            raise RuntimeError(f"{name}: occupancy query failed, cudaError "
+                               f"{err}")
+        _per_sm[key] = (per_sm.value, threads.value)
+    return _per_sm[key]
+
+
+def _device_bias_corrections(t0, steps, b1, b2, dev):
+    """``_epoch_bias_corrections`` on ``dev``, by an asynchronous copy
+    from pinned memory (a pageable copy would wait for the stream)."""
+    return torch.from_numpy(_epoch_bias_corrections(
+        t0, steps, b1, b2)).pin_memory().to(dev, non_blocking=True)
+
+
+_P = ctypes.c_void_p
+
+
+class _GmfArgs(ctypes.Structure):
+    """``GmfArgs`` of csrc/gmf_epoch.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in ("P", "Q", "h", "mP", "vP", "mQ", "vQ",
+                                   "mh", "vh", "dP", "dQ", "u", "i", "y",
+                                   "bc", "part", "part_loss", "loss",
+                                   "bar")]
+                + [(n, ctypes.c_int) for n in ("U", "I", "d", "steps", "B",
+                                               "blocks", "vec")]
+                + [(n, ctypes.c_float) for n in ("lr", "reg", "eps")]
+                + [(n, ctypes.c_double) for n in ("b1", "b2")])
+
+
 def _launch_gmf(p, q, h, mp, vp, mq, vq, mh, vh, u_idx, i_idx, y, t0, *, lr,
                 reg, b1, b2, eps):
     state = (p, q, h, mp, vp, mq, vq, mh, vh)
     _contiguous("fused_gmf_epoch", (*state, u_idx, i_idx, y))
     steps, b = u_idx.shape
     d = p.shape[1]
-    if d > 4096:
-        raise ValueError(f"fused_gmf_epoch: d {d} past the kernel's 4096 "
-                         "(h and its gradient sit in shared memory)")
-    if max(*p.shape, q.shape[0], steps, b, t0 + steps) >= 2 ** 31:
+    if max(p.numel(), q.numel(), steps * b, t0 + steps) >= 2 ** 31:
         raise ValueError("fused_gmf_epoch: a size or step count past the "
                          "kernel's int32 arguments")
+    gmf_epoch_plan(d)                 # a width the kernel takes, before building
     from cleverrec_tpu_torch.ops.build import load
-    fn = load("gmf_epoch").gmf_epoch
+    lib = load("gmf_epoch")
+    vec = int(rows_vec(state))
+    plan = gmf_epoch_plan(d, steps, _sms(p.device.index),
+                          *_persist_blocks(lib, "gmf_epoch", p.device, d,
+                                           vec))
+    dev = p.device
+    dp, dq = torch.empty_like(p), torch.empty_like(q)
+    part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
+    part_loss = torch.empty(plan["part_loss"], dtype=torch.float32,
+                            device=dev)
+    loss = torch.empty(steps + 1, dtype=torch.float32, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    ptrs = (*state, dp, dq, u_idx, i_idx, y,
+            _device_bias_corrections(t0, steps, b1, b2, dev), part,
+            part_loss, loss, bar)
+    a = _GmfArgs(*(t.data_ptr() for t in ptrs),
+                 U=p.shape[0], I=q.shape[0], d=d, steps=steps, B=b,
+                 blocks=plan["blocks"], vec=vec, lr=lr, reg=reg, eps=eps,
+                 b1=b1, b2=b2)
+    fn = lib.gmf_epoch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_double] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
-    grads = [torch.zeros_like(x) for x in (p, q, h)]
-    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        err = fn(*(t.data_ptr() for t in (*state, *grads, u_idx, i_idx, y,
-                                          loss)),
-                 p.shape[0], q.shape[0], d, steps, b, t0, lr, reg, b1, b2,
-                 eps, _stream(p.device))
-    _launch_ok("gmf_epoch", err)
-    return loss.sum()
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(a), _stream(dev))
+    _launch_ok("gmf_epoch", err, lib)
+    return loss[steps]
 
 
 # -- MLP / NeuMF tower ----------------------------------------------------
@@ -840,8 +967,9 @@ class _RowsArgs(ctypes.Structure):
 
 def rows_vec(tables) -> bool:
     """Do the rows kernels take 16-byte rows of ``tables`` (P, Q and for
-    LRML K, M): d % 4 == 0 and every table 16-byte aligned
-    (``ops.scores._aligned``)?  Else they take the scalar variant."""
+    LRML K, M; for the GMF and CML kernels their whole state): d % 4 == 0
+    and every table 16-byte aligned (``ops.scores._aligned``)?  Else they
+    take the scalar variant."""
     return _aligned(*tables[:2]) and all(t.data_ptr() % 16 == 0
                                          for t in tables[2:])
 
@@ -926,23 +1054,36 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
 
 # -- CML ------------------------------------------------------------------
 
-def _lane_sq_dist(a, b):
-    """|a - b|^2 over the last axis, summed as csrc/cml_epoch.cu sums it:
-    lane l of a warp adds the squares of elements l, l + 32, .. in turn
-    (no FMA), then an xor butterfly adds the 32 lanes.  Each step is an
-    f32 product or sum rounded on its own, so both versions get the same
-    distances and pick the same negatives."""
+def _lane_sq_dist(a, b, width: int = 1):
+    """|a - b|^2 over the last axis, summed as csrc/cml_epoch.cu sums it
+    with ``width``-column pieces (4: the float4 variant, 1: the scalar
+    one): lane l of a warp owns columns width l + 32 width p + e and adds
+    their squares in turn, p-major (no FMA), then an xor butterfly adds
+    the 32 lanes.  Each step is an f32 product or sum rounded on its own,
+    so both versions get the same distances and pick the same negatives."""
     diff = a - b
-    diff = torch.nn.functional.pad(diff, (0, (-diff.shape[-1]) % 32))
+    span = 32 * width
+    diff = torch.nn.functional.pad(diff, (0, (-diff.shape[-1]) % span))
     sq = diff * diff
-    sq = sq.reshape(*sq.shape[:-1], -1, 32)
-    acc = sq[..., 0, :]
-    for t in range(1, sq.shape[-2]):
-        acc = acc + sq[..., t, :]
+    lead, passes = sq.shape[:-1], sq.shape[-1] // span
+    # [..., pass, lane, e] -> [..., lane, (pass, e)]: each lane's squares
+    # in the order it adds them.
+    sq = sq.reshape(*lead, passes, 32, width).transpose(-3, -2).reshape(
+        *lead, 32, passes * width)
+    acc = sq[..., 0]
+    for t in range(1, sq.shape[-1]):
+        acc = acc + sq[..., t]
     while acc.shape[-1] > 1:
         half = acc.shape[-1] // 2
         acc = acc[..., :half] + acc[..., half:]
     return acc[..., 0]
+
+
+def cml_width(p, q, mp, vp, mq, vq) -> int:
+    """The columns a lane of csrc/cml_epoch.cu reads at once: 4 (float4)
+    where d % 4 == 0 and the six state tensors are 16-byte aligned, else
+    1.  The plain version sums its distances in that variant's order."""
+    return 4 if rows_vec((p, q, mp, vp, mq, vq)) else 1
 
 
 def cml_sentinel_bias(margin: float, item_nums: int, neg_ratio: int) -> float:
@@ -962,15 +1103,17 @@ def fused_cml_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
     result; updates the state in place."""
     steps, _, k = n_idx.shape
     n_users, n_rows = p.shape[0], p.shape[0] + q.shape[0]
+    width = cml_width(p, q, mp, vp, mq, vq)
+    bcs = _epoch_bias_corrections(t0, steps, b1, b2)
     big = torch.iinfo(torch.int64).max
     losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
     for s in range(steps):
         pe, u = _rows(p, u_idx[s].long())
         qi, i = _rows(q, i_idx[s].long())
         negs = n_idx[s].long()                               # [B, K]
-        qn = _rows(q, negs.reshape(-1))[0].reshape(*negs.shape, -1)
-        d_ui = _lane_sq_dist(pe, qi)
-        d_un = _lane_sq_dist(pe[:, None], qn)
+        qn = _rows(q, negs.reshape(-1))[0].reshape(*negs.shape, q.shape[1])
+        d_ui = _lane_sq_dist(pe, qi, width)
+        d_un = _lane_sq_dist(pe[:, None], qn, width)
         d_min = d_un.min(dim=1).values
         # The nearest negative; exact ties go to the lowest item id.
         sel = torch.where(d_un == d_min[:, None], negs, big).min(dim=1).values
@@ -990,7 +1133,7 @@ def fused_cml_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
         dq = _scatter(q, (i, -c * (pe - qi)), (sel, c * (pe - qs))) + (
             g_cov[:-n_users])
         _adam_dense(((p, mp, vp, dp), (q, mq, vq, dq)), t0 + s + 1, lr, b1,
-                    b2, eps)
+                    b2, eps, bcs[s])
     return losses.sum()
 
 
@@ -1036,30 +1179,56 @@ def fused_cml_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
     return _launch_cml(*args, **opts)
 
 
+class _CmlArgs(ctypes.Structure):
+    """``CmlArgs`` of csrc/cml_epoch.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in ("P", "Q", "mP", "vP", "mQ", "vQ", "dP",
+                                   "dQ", "u", "i", "negs", "bc", "colsum",
+                                   "colpart", "colwarp", "part_loss",
+                                   "loss", "bar")]
+                + [(n, ctypes.c_int) for n in ("U", "I", "d", "steps", "B",
+                                               "K", "blocks", "vec")]
+                + [(n, ctypes.c_float) for n in ("lr", "reg", "margin",
+                                                 "item_nums", "eps")]
+                + [(n, ctypes.c_double) for n in ("b1", "b2")])
+
+
 def _launch_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0, *, lr, reg,
                 margin, item_nums, b1, b2, eps):
-    _contiguous("fused_cml_epoch", (p, q, mp, vp, mq, vq, u_idx, i_idx,
-                                    n_idx))
+    state = (p, q, mp, vp, mq, vq)
+    _contiguous("fused_cml_epoch", (*state, u_idx, i_idx, n_idx))
     steps, b, k = n_idx.shape
     if max(p.numel(), q.numel(), n_idx.numel(), t0 + steps) >= 2 ** 31:
         raise ValueError("fused_cml_epoch: a size or step count past the "
                          "kernel's int32 arguments")
+    d = p.shape[1]
     from cleverrec_tpu_torch.ops.build import load
-    fn = load("cml_epoch").cml_epoch
+    lib = load("cml_epoch")
+    vec = int(cml_width(*state) == 4)
+    dev = p.device
+    plan = cml_epoch_plan(d, steps, _sms(dev.index),
+                          *_persist_blocks(lib, "cml_epoch", dev, vec, d))
+    dp, dq = torch.empty_like(p), torch.empty_like(q)
+    colsum = torch.empty(d, dtype=torch.float32, device=dev)
+    colpart = torch.empty(plan["part"], dtype=torch.float32, device=dev)
+    colwarp = torch.empty(plan["colwarp"] or 0, dtype=torch.float32,
+                          device=dev)
+    part_loss = torch.empty(plan["part_loss"], dtype=torch.float32,
+                            device=dev)
+    loss = torch.empty(steps + 1, dtype=torch.float32, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    ptrs = (*state, dp, dq, u_idx, i_idx, n_idx,
+            _device_bias_corrections(t0, steps, b1, b2, dev), colsum,
+            colpart, colwarp, part_loss, loss, bar)
+    a = _CmlArgs(*(t.data_ptr() for t in ptrs), U=p.shape[0], I=q.shape[0],
+                 d=d, steps=steps, B=b, K=k,
+                 blocks=plan["blocks"], vec=vec, lr=lr, reg=reg,
+                 margin=margin, item_nums=float(item_nums), eps=eps, b1=b1,
+                 b2=b2)
+    fn = lib.cml_epoch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 4 + [ctypes.c_double] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
-    dp, dq = torch.zeros_like(p), torch.zeros_like(q)
-    colsum = torch.zeros((steps, p.shape[1]), dtype=torch.float32,
-                         device=p.device)
-    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        err = fn(*(t.data_ptr() for t in (p, q, mp, vp, mq, vq, dp, dq,
-                                          u_idx, i_idx, n_idx, colsum,
-                                          loss)),
-                 p.shape[0], q.shape[0], p.shape[1], steps, b, k, t0, lr,
-                 reg, margin, float(item_nums), b1, b2, eps,
-                 _stream(p.device))
-    _launch_ok("cml_epoch", err)
-    return loss.sum()
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(a), _stream(dev))
+    _launch_ok("cml_epoch", err, lib)
+    return loss[steps]

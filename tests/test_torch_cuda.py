@@ -305,14 +305,28 @@ def _gmf_inputs(u_n, i_n, d, steps, b, t0, seed=0):
     return state, ids, y
 
 
-@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
-    (29, 41, 16, 4, 64, 0), (29, 41, 16, 4, 64, 7), (37, 53, 40, 3, 37, 2),
-    (943, 1682, 64, 3, 6144, 81)])
-def test_gmf_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
-    state, ids, y = _gmf_inputs(u_n, i_n, d, steps, b, t0)
-    got = [torch.as_tensor(x).to(cuda) for x in state]
-    want = [torch.as_tensor(x).to(cuda) for x in state]
-    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+def _on_card(arrays, dev, offset=False):
+    """numpy arrays as tensors on the card; with ``offset`` each one a
+    contiguous view 4 bytes past a 16-byte boundary (the kernels' scalar
+    variant)."""
+    out = []
+    for x in arrays:
+        t = torch.as_tensor(x)
+        if offset:
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            out.append(buf[1:].view(t.shape).copy_(t))
+            assert out[-1].data_ptr() % 16 != 0
+        else:
+            out.append(t.to(dev))
+    return out
+
+
+def _hold_gmf(cuda, state, ids, y, t0, offset=False):
+    """One epoch through the kernel and the plain version from one state:
+    one launch, the loss and every state tensor within the tolerances."""
+    got = _on_card(state, cuda, offset)
+    want = _on_card(state, cuda, offset)
+    ids = _on_card(ids, cuda)
     y = torch.as_tensor(y).to(cuda)
     before = T.launches["gmf_epoch"]
     loss = T.fused_gmf_epoch(*got, *ids, y, t0, lr=0.01, reg=0.02)
@@ -323,6 +337,53 @@ def test_gmf_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+# The persistent kernel's edges: d % 4 != 0 (18: the narrow kernel's
+# scalar variant; 130, 258: the wide kernel's), d 200, 300 and 4096 (the
+# wide kernel's float4 variant, 4096 its widest); B 1 (below a warp's two
+# slots); 210 steps (420 grid barriers); no steps; B 0.
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
+    (29, 41, 16, 4, 64, 0), (29, 41, 16, 4, 64, 7), (37, 53, 40, 3, 37, 2),
+    (943, 1682, 64, 3, 6144, 81), (29, 41, 18, 3, 37, 2),
+    (29, 41, 130, 2, 64, 1), (29, 41, 200, 2, 64, 1), (29, 41, 16, 2, 1, 1),
+    (97, 113, 16, 210, 8, 3), (29, 41, 16, 0, 64, 0), (29, 41, 16, 3, 0, 2),
+    (29, 41, 258, 2, 37, 1), (29, 41, 300, 2, 64, 1),
+    (29, 41, 4096, 2, 64, 1)])
+def test_gmf_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
+    _hold_gmf(cuda, *_gmf_inputs(u_n, i_n, d, steps, b, t0), t0)
+
+
+@pytest.mark.parametrize("case", ["offset", "one_id"])
+def test_gmf_epoch_offset_tables_and_contended_ids(cuda, case):
+    """Tables 4 bytes off a 16-byte boundary (the scalar variant at d
+    16); every real slot of a step at one user and one item, beside
+    sentinel slots (the atomics all contend)."""
+    state, ids, y = _gmf_inputs(29, 41, 16, 3, 256, 3)
+    if case == "one_id":
+        ids = [np.where(x == x.max(), x, 3 + k) for k, x in enumerate(ids)]
+    _hold_gmf(cuda, state, ids, y, 3, offset=case == "offset")
+
+
+@pytest.mark.parametrize("d", [64, 300])
+def test_gmf_epoch_one_step_is_deterministic(cuda, d):
+    """dh and the loss leave each block through its slice, summed in
+    block order: one step from one state gives a bit-identical loss, h
+    and h's moments in two launches (the tables' row sums use atomics,
+    so a second step would not); d 300 is the wide kernel's, dh in
+    shared memory."""
+    state, ids, y = _gmf_inputs(943, 1682, d, 1, 6144, 81)
+    ids = _on_card(ids, cuda)
+    y = torch.as_tensor(y).to(cuda)
+    runs = []
+    for _ in range(2):
+        got = _on_card(state, cuda)
+        loss = T.fused_gmf_epoch(*got, *ids, y, 81, lr=0.01, reg=0.02)
+        runs.append((loss, got))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k in (2, 7, 8):                       # h, mh, vh
+        assert torch.equal(runs[0][1][k], runs[1][1][k]), k
 
 
 def test_gmf_epoch_rejects_bad_input(cuda):
@@ -663,15 +724,24 @@ def test_fused_stream_launches_the_same_kernel(cuda, tmp_path):
 # regulariser's column sums) in a run-dependent order.  Both versions sum
 # the distances in one order, so they pick the same negatives, exact ties
 # (duplicate ids, identical rows) to the lowest item id.
+# The persistent kernel's edges: d % 4 != 0 (18: the scalar variant);
+# d 200 (two passes of float4 columns); K 30 (two chunks of candidates);
+# B 1 (below a warp's row); 210 steps (420 grid barriers); no steps; B 0;
+# d 3600 and 3601 (past shared memory: the warps' column sums in global
+# memory, float4 and scalar).
 CML_CASES = [(29, 41, 16, 4, 4, 64, 0), (37, 53, 40, 5, 3, 37, 7),
-             (943, 1682, 128, 20, 3, 6144, 17)]
+             (943, 1682, 128, 20, 3, 6144, 17), (29, 41, 18, 4, 3, 37, 2),
+             (29, 41, 200, 5, 2, 64, 1), (29, 41, 16, 30, 2, 64, 1),
+             (29, 41, 16, 4, 2, 1, 1), (97, 997, 16, 4, 210, 4, 3),
+             (29, 41, 16, 4, 0, 64, 0), (29, 41, 16, 4, 3, 0, 2),
+             (29, 41, 3600, 4, 2, 37, 1), (29, 41, 3601, 4, 2, 37, 1)]
 
 
 def _cml_inputs(u_n, i_n, d, k, steps, b, t0, seed=0):
     rng = np.random.default_rng(seed)
     u_pad, i_pad = T.sentinel_dims(u_n, i_n)
     invalid = rng.random((steps, b)) < 0.15
-    invalid[0, :3] = True
+    invalid[:1, :3] = True
     negs = rng.integers(0, i_n, (steps, b, k))
     negs[:, :, 1] = negs[:, :, 0]                  # a duplicated negative
     negs[:, :, 2], negs[:, :, 3] = 2, 1            # two items of one row
@@ -690,12 +760,12 @@ def _cml_inputs(u_n, i_n, d, k, steps, b, t0, seed=0):
     return state, ids
 
 
-@pytest.mark.parametrize("u_n,i_n,d,k,steps,b,t0", CML_CASES)
-def test_cml_epoch_matches_plain(cuda, u_n, i_n, d, k, steps, b, t0):
-    state, ids = _cml_inputs(u_n, i_n, d, k, steps, b, t0)
-    got = [torch.as_tensor(x).to(cuda) for x in state]
-    want = [torch.as_tensor(x).to(cuda) for x in state]
-    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+def _hold_cml(cuda, state, ids, t0, i_n, offset=False):
+    """One epoch through the kernel and the plain version from one state:
+    one launch, the loss and every state tensor within the tolerances."""
+    got = _on_card(state, cuda, offset)
+    want = _on_card(state, cuda, offset)
+    ids = _on_card(ids, cuda)
     opts = dict(lr=0.01, reg=10.0, margin=1.0, item_nums=i_n)
     before = T.launches["cml_epoch"]
     loss = T.fused_cml_epoch(*got, *ids, t0, **opts)
@@ -706,6 +776,51 @@ def test_cml_epoch_matches_plain(cuda, u_n, i_n, d, k, steps, b, t0):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+@pytest.mark.parametrize("u_n,i_n,d,k,steps,b,t0", CML_CASES)
+def test_cml_epoch_matches_plain(cuda, u_n, i_n, d, k, steps, b, t0):
+    _hold_cml(cuda, *_cml_inputs(u_n, i_n, d, k, steps, b, t0), t0, i_n)
+
+
+@pytest.mark.parametrize("case", ["offset", "one_id"])
+def test_cml_epoch_offset_tables_and_contended_ids(cuda, case):
+    """Tables 4 bytes off a 16-byte boundary (the scalar variant at d
+    16, its distances in the scalar order); every real row of a step at
+    one user and one item, the negatives at two items, beside sentinel
+    rows (the atomics all contend)."""
+    state, ids = _cml_inputs(29, 41, 16, 4, 3, 256, 3)
+    if case == "one_id":
+        u, i, negs = ids
+        sent = i.max()
+        ids = [np.where(u == u.max(), u, 3), np.where(i == sent, i, 5),
+               np.where(negs == sent, negs, 7 + np.arange(4) % 2)
+               .astype(np.int32)]
+    _hold_cml(cuda, state, ids, 3, 41, offset=case == "offset")
+
+
+def test_cml_epoch_column_sums_are_deterministic(cuda):
+    """The column sums of concat(Q, P) come from one block a piece of
+    columns in a fixed order: with no rows (B 0) nothing else moves the
+    state, so five steps of the regulariser and Adam give bit-identical
+    state and loss in two launches; and one step at the conf's shape (the
+    rows' loss through the blocks' slices) a bit-identical loss; at d
+    3600 the warps' column sums are in global memory."""
+    opts = dict(lr=0.01, reg=10.0, margin=1.0, item_nums=1682)
+    for shape, whole in (((943, 1682, 128, 20, 5, 0, 17), True),
+                         ((943, 1682, 128, 20, 1, 6144, 17), False),
+                         ((97, 113, 3600, 4, 3, 0, 17), True)):
+        state, ids = _cml_inputs(*shape)
+        ids = _on_card(ids, cuda)
+        runs = []
+        for _ in range(2):
+            got = _on_card(state, cuda)
+            runs.append((T.fused_cml_epoch(*got, *ids, 17, **opts), got))
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0]), shape
+        if whole:
+            for a, b in zip(runs[0][1], runs[1][1]):
+                assert torch.equal(a, b)
 
 
 def test_cml_epoch_raises_on_bad_input(cuda):
