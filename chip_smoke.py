@@ -90,8 +90,10 @@ width of ``conf/BPR.properties`` (embed_size 128):
   plan each took; LRML's row also the share of real rows whose hinge was
   active in the timed epoch (``active_share``).  So do the ``bpr_epoch``,
   ``gmf_epoch`` and ``cml_epoch`` rows, with each kernel's launches an
-  epoch (``device_launches``): the persistent GMF and CML kernels must
-  take one launch an epoch.
+  epoch (``device_launches``): the persistent BPR, GMF and CML kernels
+  must take one launch an epoch, seen on the device (in a fresh process
+  of this script, ``--trace``, where the smoke's own trace records no
+  device kernel; ``device_trace_from``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, and again before and after each training run.  Exits non-zero, with no
@@ -308,44 +310,69 @@ LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                "cuLaunchKernelEx")
 
 
-def epoch_split(epoch, names, one_launch=None) -> dict:
-    """The device time of one epoch kernel call: ``device_ms``,
-    ``device_split`` by kernel (``names``) and ``device_launches``,
-    kernel_split's counts.
+def epoch_split(one_launch, args, opts, names) -> dict:
+    """The device time of one call of a persistent epoch kernel, whose
+    epoch must be one launch of its single kernel: ``one_launch`` the
+    kernel's tag (its wrapper ``train_ops.fused_<tag>``, called with
+    ``args`` and ``opts``), ``names[0]`` its device name.  ``device_ms``
+    and ``device_split``: CUDA events around single calls queued behind
+    a spin (``single_call_ms``: the launch, and its counters' memset and
+    bias-correction copy).  ``device_launches``: kernel_split's counts
+    from one trace, which must show one host launch call a call and that
+    kernel's device records, and no other kernel's.  In a long process a
+    trace may record no device kernel at all (seen on an H100); then the
+    trace is taken in a fresh process (``--trace``), and
+    ``device_trace_from`` says which trace the counts are."""
+    fn = getattr(train_ops, f"fused_{one_launch}")
 
-    ``one_launch``: the kernel's tag, whose epoch must be one launch of its
-    single kernel (the persistent kernels).  Its time is CUDA events around
-    single calls queued behind a spin (``single_call_ms``: the launch, and
-    its counters' memset and bias-correction copy), and one trace checks that the host made one
-    launch call a call and that every kernel record on the device, if
-    any, is that kernel's.  Otherwise the split is torch.profiler's: in a
-    long process a trace may hold the device records of only some
-    launches (seen on an H100), so a second trace is taken where the
-    first missed some, the one with more is kept, and its sums are
-    printed as recorded beside ``recorded_share``, the device's records
-    over the host's launch calls (a share below 1 undercounts)."""
+    def epoch():
+        return fn(*args, **opts)
+    counts, where = {}, "this process"
+    kernel_split(epoch, names, counts=counts)
+    if counts["device"] == 0:
+        counts, where = fresh_trace(one_launch, args, opts, names), \
+            "a fresh process"
+    check(counts["api"] == 1 and 0 < counts["device"] <= 1
+          and counts[names[0]] == counts["device"],
+          f"{one_launch}: an epoch launched {counts} (profiled in {where}), "
+          "not one kernel")
+    ms = single_call_ms(epoch)
+    return {"device_ms": ms, "device_split": {names[0]: ms},
+            "device_launches": counts, "device_trace_from": where,
+            "device_ms_from": "CUDA events around queued single calls"}
+
+
+def fresh_trace(one_launch, args, opts, names) -> dict:
+    """kernel_split's counts of ``train_ops.fused_<one_launch>(*args,
+    **opts)`` traced in a new process of this script (``--trace``), on a
+    copy of the inputs saved under build/."""
+    path = os.path.join(ROOT, "build", "trace", f"{one_launch}.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save({"tag": one_launch, "names": list(names), "opts": opts,
+                "args": [a.cpu() if torch.is_tensor(a) else a
+                         for a in args]}, path)
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--trace", path], capture_output=True, text=True,
+                         timeout=600)
+    check(run.returncode == 0 and run.stdout.strip(),
+          f"{one_launch}: the fresh process's trace failed: "
+          f"{run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def trace_main(path: str) -> int:
+    """``--trace PATH``: fresh_trace's child; prints the counts."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    rec = torch.load(path)
+    args = [a.cuda() if torch.is_tensor(a) else a for a in rec["args"]]
+    fn = getattr(train_ops, f"fused_{rec['tag']}")
     counts = {}
-    split = kernel_split(epoch, names, counts=counts)
-    if one_launch:
-        check(counts["api"] == 1 and counts["device"] <= 1
-              and counts[names[0]] == counts["device"],
-              f"{one_launch}: an epoch launched {counts} (profiled), not "
-              "one kernel")
-        ms = single_call_ms(epoch)
-        return {"device_ms": ms, "device_split": {names[0]: ms},
-                "device_launches": counts,
-                "device_ms_from": "CUDA events around queued single calls"}
-
-    def share(c):
-        return c["device"] / c["api"] if c["api"] else 0.0
-    if share(counts) < 1.0:
-        again = {}
-        split2 = kernel_split(epoch, names, counts=again)
-        if share(again) > share(counts):
-            counts, split = again, split2
-    return {"device_ms": sum(split.values()), "device_split": split,
-            "device_launches": counts, "recorded_share": share(counts),
-            "device_ms_from": "torch.profiler"}
+    kernel_split(lambda: fn(*args, **rec["opts"]), rec["names"],
+                 counts=counts)
+    print(json.dumps(counts))
+    return 0
 
 
 def single_call_ms(fn, calls: int = 5) -> float:
@@ -1044,16 +1071,17 @@ def gmf_row(launches, profiles):
     # two squared norms, two row grads, dh, two scatter-adds) and 14 per
     # element of P, Q and h per step for Adam.
     flops = 19 * d * n_real + 14 * n_state * steps
+    args = (*k_state, *ids, y, state.count)
+
     def epoch():
-        return train_ops.fused_gmf_epoch(*k_state, *ids, y, state.count,
-                                         **opts)
+        return train_ops.fused_gmf_epoch(*args, **opts)
     row = {"name": "gmf_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/gmf_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:440",
            "launches": launches, "max_abs_err": max(errors.values()),
            "ms": time_ms(epoch),
            # The kernel's own device time in one epoch: one launch.
-           **epoch_split(epoch, ("gmf_persist",), "gmf_epoch"),
+           **epoch_split("gmf_epoch", args, opts, ("gmf_persist",)),
            "variant": "float4" if train_ops.rows_vec(k_state) else "scalar",
            "plain_ms": time_ms(lambda: train_ops.fused_gmf_epoch_ref(
                *r_state, *ids, y, state.count, **opts), iters=5),
@@ -1404,16 +1432,17 @@ def cml_row(launches, profiles):
     # Adam.  The hinge's row grads (9 d an active row) are left out, so
     # the bound is below the work.
     flops = (k + 1) * 3 * d * n_real + 22 * n_state * steps
+    args = (*k_state, u, i, negs, state.count)
+
     def epoch():
-        return train_ops.fused_cml_epoch(*k_state, u, i, negs, state.count,
-                                         **opts)
+        return train_ops.fused_cml_epoch(*args, **opts)
     row = {"name": "cml_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/cml_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:1610",
            "launches": launches, "max_abs_err": max(errors.values()),
            "ms": time_ms(epoch),
            # The kernel's own device time in one epoch: one launch.
-           **epoch_split(epoch, ("cml_persist",), "cml_epoch"),
+           **epoch_split("cml_epoch", args, opts, ("cml_persist",)),
            "variant": "float4" if train_ops.cml_width(*k_state) == 4
            else "scalar",
            "plain_ms": time_ms(lambda: train_ops.fused_cml_epoch_ref(
@@ -1538,16 +1567,23 @@ def epoch_row(launches, profiles):
     # squared norms, three row grads, three scatter-adds) and 14 per
     # element of P and Q per step for Adam.
     flops = 21 * d * n_real + 14 * (u_n + i_n) * d * steps
+    args = (*k_state, *ids, state.count)
+
     def epoch():
-        return train_ops.fused_bpr_epoch(*k_state, *ids, state.count, **opts)
+        return train_ops.fused_bpr_epoch(*args, **opts)
+    vec = train_ops.rows_vec(k_state)
+    plan = train_ops.bpr_epoch_plan(
+        u_n, i_n, d, steps,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        *train_ops._persist_blocks(build.load("bpr_epoch"), "bpr_epoch",
+                                   k_state[0].device, d, int(vec)))
     row = {"name": "bpr_epoch", "route": "cuda",
            "source": "cleverrec_tpu_torch/csrc/bpr_epoch.cu",
            "replaces": "cleverrec_tpu/ops/pallas_train.py:276",
            "launches": launches, "max_abs_err": max(errors.values()),
            "ms": time_ms(epoch),
-           # The kernel's own device time in one epoch: its slot and Adam
-           # kernels.
-           **epoch_split(epoch, ("bpr_slots", "adam_dense")),
+           # The kernel's own device time in one epoch: one launch.
+           **epoch_split("bpr_epoch", args, opts, ("bpr_persist",)),
            "plain_ms": time_ms(lambda: train_ops.fused_bpr_epoch_ref(
                *r_state, *ids, state.count, **opts), iters=5),
            **bound(moved, flops),
@@ -1555,7 +1591,9 @@ def epoch_row(launches, profiles):
            "library_ms": None,
            "errors": errors, "loss_rel_err": loss_rel,
            "shape": {"U": u_n, "I": i_n, "d": d, "B": b, "steps": steps,
-                     "real_slots": n_real, "bytes": moved, "flops": flops}}
+                     "real_slots": n_real, "bytes": moved, "flops": flops,
+                     "blocks": plan["blocks"], "threads": plan["threads"],
+                     "pieces": "float4" if vec else "scalar"}}
     profiles["C_epoch"] = breakdown(
         lambda: trainer.train_epoch(params, state))
     return row
@@ -1698,6 +1736,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--trace":
+            sys.exit(trace_main(sys.argv[2]))
         sys.exit(main())
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -50,7 +50,8 @@
 //             128, a variant of one piece a lane).  Each lane adds its
 //             squares without FMA (add_sq), an xor butterfly adds the
 //             lanes; the count, the argmin and, for an active row, three
-//             row gradients by float4 atomicAdd (sm_90).  Then the grid's last
+//             row gradients by float4 reductions (persist.cuh's
+//             atomic_add, sm_90).  Then the grid's last
 //             warps (the fewest rows) sum the blocks' column-sum slices in
 //             block order into colsum [d], the column sums of concat(Q, P)
 //             before the step.  A barrier.
@@ -158,14 +159,6 @@ __device__ __forceinline__ void st4(float* p, const Piece<W>& v) {
     *reinterpret_cast<float4*>(p) = make_float4(v.a[0], v.a[1], v.a[2], v.a[3]);
   else
     *p = v.a[0];
-}
-
-template <int W>
-__device__ __forceinline__ void atomic_add(float* p, const float (&a)[W]) {
-  if constexpr (W == 4)
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
-  else
-    atomicAdd(p, a[0]);
 }
 
 // Row r of concat(Q, P): Q's rows first, then P's.

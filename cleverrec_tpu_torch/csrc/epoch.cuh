@@ -1,21 +1,23 @@
 // What the epoch kernels (bpr_epoch.cu, gmf_epoch.cu, mlp_epoch.cu,
 // rows_epoch.cu, cml_epoch.cu) share: a warp's shuffle sum and max, and
-// dense Adam over a list of f32 tensors (adam_dense; adam_slices, with
-// float4 tables and dense gradients summed from per-block slices, for
-// rows_epoch.cu; its table pass adam_tables inside the persistent GMF
-// kernel), or one element at a time inside a kernel of their own
-// (cml_epoch.cu fuses it with its regulariser, mlp_epoch.cu with the sum
-// of its blocks' dense gradients).
+// dense Adam: on one element (adam_elem in memory, adam_val in registers,
+// which cml_epoch.cu fuses with its regulariser and mlp_epoch.cu with the
+// sum of its blocks' dense gradients) or four (adam4); adam_tables, a
+// grid-stride pass over a list of tables inside the persistent BPR and GMF
+// kernels; and adam_slices, a kernel of its own for rows_epoch.cu, whose
+// dense gradients are summed from per-block slices.
 //
 // The TPU epoch kernels apply optax's Adam (b1, b2, eps) to every element
 // of every resident parameter after each step (_adam_apply of
-// cleverrec_tpu/ops/pallas_train.py), untouched rows included.  Here one
-// grid-stride pass walks the segments in turn: each element reads its
-// gradient from the scratch, updates its two moments and the parameter,
-// and zeroes the gradient for the next step.  The bias corrections are
-// 1 - exp(t log b) in f32, with log b rounded to f32 once, as the TPU
-// kernels compute them.  The pass is bound by memory traffic (5 f32 reads
-// and 4 writes an element); at the ml-100k shapes the state stays in L2.
+// cleverrec_tpu/ops/pallas_train.py), untouched rows included.  Here each
+// element reads its gradient from the scratch, updates its two moments
+// and the parameter, and zeroes the gradient for the next step.  The bias
+// corrections are 1 - exp(t log b) in f32, with log b rounded to f32 once,
+// as the TPU kernels compute them: adam_step computes them on the host for
+// the kernels launched a step at a time; the persistent kernels read them
+// from their wrapper's table (persist.cuh's step_at).  A pass over tables
+// in device memory is bound by memory traffic (5 f32 reads and 4 writes an
+// element); at the ml-100k shapes the state stays in L2.
 
 #pragma once
 
@@ -74,22 +76,6 @@ struct AdamSegs {
   int count;
 };
 
-__global__ void __launch_bounds__(ADAM_THREADS)
-adam_dense(AdamSegs s, AdamStep a) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int k = 0; k < s.count; ++k) {
-    float* __restrict__ p = s.p[k];
-    float* __restrict__ m = s.m[k];
-    float* __restrict__ v = s.v[k];
-    float* __restrict__ g = s.g[k];
-    for (int64_t e = first; e < s.n[k]; e += stride) {
-      adam_elem(p + e, m + e, v + e, g[e], a);
-      g[e] = 0.f;
-    }
-  }
-}
-
 // Appends a tensor of n elements, its moments and its gradient scratch.
 __host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m, float* v, float* g,
                      int64_t n) {
@@ -100,21 +86,6 @@ __host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m, float*
   s.n[s.count] = n;
   ++s.count;
 }
-
-// Launches one Adam pass at step t on ``stream``; returns the launch's
-// cudaError_t.
-inline int adam_launch(const AdamSegs& s, int t, float lr, double b1,
-                       double b2, float eps, cudaStream_t stream) {
-  int64_t longest = 0;
-  for (int k = 0; k < s.count; ++k) longest = s.n[k] > longest ? s.n[k] : longest;
-  if (longest == 0) return 0;
-  const int64_t want = (longest + ADAM_THREADS - 1) / ADAM_THREADS;
-  const int blocks = (int)(want < 65535 ? want : 65535);
-  adam_dense<<<blocks, ADAM_THREADS, 0, stream>>>(
-      s, adam_step(t, lr, b1, b2, eps));
-  return (int)cudaGetLastError();
-}
-
 
 // Adam on one element held in registers (adam_elem's arithmetic).
 __device__ __forceinline__ void adam_val(float& p, float& m, float& v, float g,

@@ -35,7 +35,8 @@
 //             (W = 4: float4 rows, where d % 4 == 0 and the state is
 //             16-byte aligned; W = 1 the scalar variant), reads its pieces
 //             of the slot's two rows and of h before the first FMA,
-//             and sends each row gradient as one float4 atomicAdd (sm_90).
+//             and sends each row gradient as one float4 reduction
+//             (red.global.add.v4.f32, sm_90; persist.cuh's atomic_add).
 //             dh sums in registers (a lane always owns the same columns),
 //             then over the warp's two halves and the block's warps in
 //             shared memory, in a fixed order, into the block's slice of
@@ -97,36 +98,6 @@ namespace {
 // WIDE_THREADS keep 8 rows of d floats of dh in shared memory, 128 KB at
 // GMF_MAX_D.
 constexpr int GMF_NARROW_D = 64, GMF_MAX_D = 4096, WIDE_THREADS = 128;
-
-// W consecutive floats of a table (plain loads: the tables change during
-// the launch).
-template <int W>
-__device__ __forceinline__ void ld(float (&r)[W], const float* p) {
-  if constexpr (W == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r[0] = t.x;
-    r[1] = t.y;
-    r[2] = t.z;
-    r[3] = t.w;
-  } else {
-    r[0] = *p;
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void atomic_add(float* p, const float (&a)[W]) {
-  if constexpr (W == 4)
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(a[0], a[1], a[2], a[3]));
-  else
-    atomicAdd(p, a[0]);
-}
-
-// Sum over the 16 lanes of a half-warp.
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // A slot's ids and label.
 struct Ids {

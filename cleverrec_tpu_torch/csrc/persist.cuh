@@ -1,7 +1,7 @@
-// The scaffolding of the persistent epoch kernels (gmf_epoch.cu,
-// cml_epoch.cu): one cooperative launch an epoch, one wave of blocks that
-// walks the steps itself and crosses a grid barrier between a step's
-// phases.
+// The scaffolding of the persistent epoch kernels (bpr_epoch.cu,
+// gmf_epoch.cu, cml_epoch.cu): one cooperative launch an epoch, one wave
+// of blocks that walks the steps itself and crosses a grid barrier
+// between a step's phases.
 //
 // - The plan: ops/train.py's persist_plan sizes the grid to one wave,
 //   blocks = the SM count x the blocks an SM holds
@@ -112,6 +112,43 @@ __device__ __forceinline__ void prefetch_l2(const void* p, int64_t bytes) {
                      * 32 * 128 + (threadIdx.x & 31) * 128;
        off < bytes; off += stride)
     asm volatile("prefetch.global.L2 [%0];" :: "l"(c + off));
+}
+
+// W consecutive floats of a table (plain loads: the tables change during
+// the launch).
+template <int W>
+__device__ __forceinline__ void ld(float (&r)[W], const float* p) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x;
+    r[1] = t.y;
+    r[2] = t.z;
+    r[3] = t.w;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// W floats added into a table by one reduction, red.global.add (its v4
+// form where W = 4, sm_90).  atomicAdd with its result unused compiles to
+// ATOMG, whose answer the warp waits for; red's REDG sends the sum and
+// goes on (PERF.md section 5).
+template <int W>
+__device__ __forceinline__ void atomic_add(float* p, const float (&a)[W]) {
+  if constexpr (W == 4)
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+                 :: "l"(p), "f"(a[0]), "f"(a[1]), "f"(a[2]), "f"(a[3])
+                 : "memory");
+  else
+    asm volatile("red.global.add.f32 [%0], %1;" :: "l"(p), "f"(a[0])
+                 : "memory");
+}
+
+// Sum over the 16 lanes of a half-warp.
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
 }
 
 // Adam's constants of the epoch, as adam_step rounds them; step s's bias
@@ -251,7 +288,7 @@ barrier_probe(unsigned* bar, int iters, int cg) {
 }  // namespace
 
 #ifdef PERSIST_CLOCKS
-// The phase cycles of the last launch: [1024 blocks][4] into host memory
+// The phase cycles of the last launch: [1024 blocks][5] into host memory
 // ``out``; returns 0 or a cudaError_t.
 extern "C" int persist_read_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, persist_clocks, sizeof(persist_clocks));

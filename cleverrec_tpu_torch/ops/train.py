@@ -47,10 +47,10 @@ padding of the wrapper's own enters the loss.
 
 A wrapper given CPU tensors runs its ``*_ref`` plain version; given CUDA
 tensors it launches its kernel or raises; it never falls back.
-``launches`` counts kernel launches (one per epoch each).  The GMF and CML
-kernels are persistent (``csrc/persist.cuh``): one cooperative launch of
-one wave of blocks (``persist_plan``) walks every step of the epoch; a
-card that refuses the wave makes the wrapper raise.
+``launches`` counts kernel launches (one per epoch each).  The BPR, GMF
+and CML kernels are persistent (``csrc/persist.cuh``): one cooperative
+launch of one wave of blocks (``persist_plan``) walks every step of the
+epoch; a card that refuses the wave makes the wrapper raise.
 """
 
 from __future__ import annotations
@@ -188,6 +188,7 @@ def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
     result; updates the state in place."""
     steps = u_idx.shape[0]
     losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
+    bcs = _epoch_bias_corrections(t0, steps, b1, b2)
     for s in range(steps):
         pe, u = _rows(p, u_idx[s].long())
         qi, i = _rows(q, i_idx[s].long())
@@ -199,7 +200,7 @@ def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
         g = -torch.sigmoid(-diff)[:, None]
         dq = _scatter(q, (i, g * pe + reg * qi), (j, -g * pe + reg * qj))
         _adam_dense(((p, mp, vp, _scatter(p, (u, g * qd + reg * pe))),
-                     (q, mq, vq, dq)), t0 + s + 1, lr, b1, b2, eps)
+                     (q, mq, vq, dq)), t0 + s + 1, lr, b1, b2, eps, bcs[s])
     return losses.sum()
 
 
@@ -234,27 +235,35 @@ def fused_bpr_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
 
 def _launch_bpr(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg,
                 b1, b2, eps):
-    _contiguous("fused_bpr_epoch", (p, q, mp, vp, mq, vq, u_idx, i_idx,
-                                    j_idx))
+    state = (p, q, mp, vp, mq, vq)
+    _contiguous("fused_bpr_epoch", (*state, u_idx, i_idx, j_idx))
     steps, b = u_idx.shape
-    if max(*p.shape, q.shape[0], steps, b, t0 + steps) >= 2 ** 31:
-        raise ValueError("fused_bpr_epoch: a size or step count past the "
-                         "kernel's int32 arguments")
+    u_n, i_n, d = p.shape[0], q.shape[0], p.shape[1]
     from cleverrec_tpu_torch.ops.build import load
-    fn = load("bpr_epoch").bpr_epoch
+    lib = load("bpr_epoch")
+    dev = p.device
+    vec = int(rows_vec(state))
+    plan = bpr_epoch_plan(u_n, i_n, d, steps, _sms(dev.index),
+                          *_persist_blocks(lib, "bpr_epoch", dev, d, vec),
+                          b=b, t0=t0)
+    dp, dq = torch.empty_like(p), torch.empty_like(q)
+    part_loss = torch.empty(plan["part_loss"], dtype=torch.float32,
+                            device=dev)
+    loss = torch.empty(steps + 1, dtype=torch.float32, device=dev)
+    bar = torch.empty(2, dtype=torch.int32, device=dev)
+    ptrs = (*state, dp, dq, u_idx, i_idx, j_idx,
+            _device_bias_corrections(t0, steps, b1, b2, dev), part_loss,
+            loss, bar)
+    a = _BprArgs(*(t.data_ptr() for t in ptrs), U=u_n, I=i_n, d=d,
+                 steps=steps, B=b, blocks=plan["blocks"], vec=vec, lr=lr,
+                 reg=reg, eps=eps, b1=b1, b2=b2)
+    fn = lib.bpr_epoch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_double] * 2
-                   + [ctypes.c_float, ctypes.c_void_p])
-    dp, dq = torch.zeros_like(p), torch.zeros_like(q)
-    loss = torch.zeros(steps, dtype=torch.float32, device=p.device)
-    with torch.cuda.device(p.device):
-        err = fn(*(t.data_ptr() for t in (p, q, mp, vp, mq, vq, dp, dq,
-                                          u_idx, i_idx, j_idx, loss)),
-                 p.shape[0], q.shape[0], p.shape[1], steps, b, t0,
-                 lr, reg, b1, b2, eps, _stream(p.device))
-    _launch_ok("bpr_epoch", err)
-    return loss.sum()
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(a), _stream(dev))
+    _launch_ok("bpr_epoch", err, lib)
+    return loss[steps]
 
 
 # -- GMF ------------------------------------------------------------------
@@ -344,6 +353,19 @@ def persist_plan(sms: int, per_sm: int, steps: int = 0,
             "warps": blocks * threads // 32, "part_loss": (steps, blocks)}
 
 
+def bpr_epoch_plan(u: int, i: int, d: int, steps: int = 0, sms: int = 1,
+                   per_sm: int = 1, threads: int = PERSIST_THREADS, *,
+                   b: int = 0, t0: int = 0) -> dict:
+    """``persist_plan`` for the BPR kernel (``csrc/bpr_epoch.cu``): tables
+    of ``u`` and ``i`` rows of width ``d``, ``steps`` of ``b`` slots from
+    Adam step ``t0``.  The kernel takes every shape its int32 arguments
+    hold; the plan raises ValueError for any other."""
+    if not all(0 <= n < 2 ** 31 for n in (u, i, d, steps, b, t0 + steps)):
+        raise ValueError("fused_bpr_epoch: a size or step count past the "
+                         "kernel's int32 arguments")
+    return persist_plan(sms, per_sm, steps, threads)
+
+
 def gmf_epoch_plan(d: int, steps: int = 0, sms: int = 1, per_sm: int = 1,
                    threads: int = PERSIST_THREADS) -> dict:
     """``persist_plan`` for the GMF kernel at width ``d``, with ``part``,
@@ -395,6 +417,18 @@ def _device_bias_corrections(t0, steps, b1, b2, dev):
 
 
 _P = ctypes.c_void_p
+
+
+class _BprArgs(ctypes.Structure):
+    """``BprArgs`` of csrc/bpr_epoch.cu, field for field."""
+
+    _fields_ = ([(n, _P) for n in ("P", "Q", "mP", "vP", "mQ", "vQ", "dP",
+                                   "dQ", "u", "i", "j", "bc", "part_loss",
+                                   "loss", "bar")]
+                + [(n, ctypes.c_int) for n in ("U", "I", "d", "steps", "B",
+                                               "blocks", "vec")]
+                + [(n, ctypes.c_float) for n in ("lr", "reg", "eps")]
+                + [(n, ctypes.c_double) for n in ("b1", "b2")])
 
 
 class _GmfArgs(ctypes.Structure):

@@ -249,14 +249,13 @@ def _epoch_inputs(u_n, i_n, d, steps, b, t0, seed=0):
     return state, ids
 
 
-@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
-    (37, 53, 16, 4, 64, 0), (37, 53, 16, 4, 64, 7), (29, 41, 40, 3, 37, 2),
-    (943, 1682, 128, 3, 6144, 65)])
-def test_bpr_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
-    state, ids = _epoch_inputs(u_n, i_n, d, steps, b, t0)
-    got = [torch.as_tensor(x).to(cuda) for x in state]
-    want = [torch.as_tensor(x).to(cuda) for x in state]
-    ids = [torch.as_tensor(x).to(cuda) for x in ids]
+def _hold_bpr(cuda, state, ids, t0, offset=False):
+    """One epoch through the kernel and the plain version from one state:
+    one launch, the loss and every state tensor within the tolerances; no
+    steps leave the state as it was and the loss 0."""
+    got = _on_card(state, cuda, offset)
+    want = _on_card(state, cuda, offset)
+    ids = _on_card(ids, cuda)
     before = T.launches["bpr_epoch"]
     loss = T.fused_bpr_epoch(*got, *ids, t0, lr=0.01, reg=0.02)
     ref = T.fused_bpr_epoch_ref(*want, *ids, t0, lr=0.01, reg=0.02)
@@ -266,6 +265,83 @@ def test_bpr_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+    if ids[0].shape[0] == 0:
+        assert float(loss) == 0.0
+        for g, x in zip(got, state):
+            np.testing.assert_array_equal(g.cpu().numpy(), x)
+
+
+# The persistent kernel's edges: the half-warp variant (d 16, 40, 64, its
+# widest), the warp (d 128), 128-column chunks walked twice (d 1024), the
+# scalar variant (d 30; d 130, two chunks), larger tables (12,000 + 9,000
+# rows, many Adam units a thread), no steps.
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
+    (37, 53, 16, 4, 64, 0), (37, 53, 16, 4, 64, 7), (29, 41, 40, 3, 37, 2),
+    (943, 1682, 128, 3, 6144, 65), (12000, 9000, 128, 2, 6144, 3),
+    (29, 41, 30, 3, 37, 2), (29, 41, 130, 2, 37, 1), (29, 41, 64, 3, 64, 2),
+    (29, 41, 1024, 2, 64, 1), (29, 41, 16, 0, 64, 0)])
+def test_bpr_epoch_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
+    _hold_bpr(cuda, *_epoch_inputs(u_n, i_n, d, steps, b, t0), t0)
+
+
+@pytest.mark.parametrize("case", ["offset", "one_id"])
+def test_bpr_epoch_offset_tables_and_contended_ids(cuda, case):
+    """Tables 4 bytes off a 16-byte boundary (the scalar variant at d
+    128); every real slot of a step at one user and two items, beside
+    sentinel slots (the atomics all contend)."""
+    state, ids = _epoch_inputs(29, 41, 128, 3, 256, 3)
+    if case == "one_id":
+        ids = [np.where(x == x.max(), x, 3 + k % 2)
+               for k, x in enumerate(ids)]
+    _hold_bpr(cuda, state, ids, 3, offset=case == "offset")
+
+
+@pytest.mark.parametrize("u_n,i_n", [(943, 1682), (12000, 9000)])
+def test_bpr_epoch_one_step_is_deterministic(cuda, u_n, i_n):
+    """The loss leaves each block through its slice, summed in block
+    order: one step from one state gives a bit-identical loss in two
+    launches, and bit-identical m and v on every row no slot touched
+    (their gradient is exactly 0; the touched rows' sums use atomics), at
+    ml-100k's tables and at 12,000 + 9,000 rows.  The slots name only the
+    first half of each table."""
+    state, ids = _epoch_inputs(u_n, i_n, 128, 1, 6144, 65)
+    sizes = (u_n, i_n, i_n)
+    ids = [np.where(x < n, x % (n // 2), x).astype(np.int32)
+           for x, n in zip(ids, sizes)]
+    on_card = _on_card(ids, cuda)
+    runs = []
+    for _ in range(2):
+        got = _on_card(state, cuda)
+        loss = T.fused_bpr_epoch(*got, *on_card, 65, lr=0.01, reg=0.02)
+        runs.append((loss, got))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    free_u = np.setdiff1d(np.arange(u_n), ids[0])
+    free_i = np.setdiff1d(np.arange(i_n), np.concatenate(ids[1:]))
+    assert len(free_u) >= u_n // 2 and len(free_i) >= i_n // 2
+    for k, free in ((2, free_u), (3, free_u), (4, free_i), (5, free_i)):
+        rows = torch.as_tensor(free, device=cuda)
+        assert torch.equal(runs[0][1][k][rows], runs[1][1][k][rows]), k
+        assert not torch.equal(runs[0][1][k][rows],
+                               torch.as_tensor(state[k], device=cuda)[rows])
+
+
+def test_bpr_epoch_raises_on_a_refused_wave(cuda, monkeypatch):
+    """A plan of more blocks than the card's SMs hold at once: the
+    cooperative launch is refused, the wrapper raises with the error's
+    text and counts nothing, and the state is as it was (no other path
+    ran)."""
+    state, ids = _epoch_inputs(29, 41, 16, 2, 64, 1)
+    got, ids = _on_card(state, cuda), _on_card(ids, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    monkeypatch.setattr(T, "_sms", lambda index: 4 * sms)
+    before = T.launches["bpr_epoch"]
+    with pytest.raises(RuntimeError, match="cooperative"):
+        T.fused_bpr_epoch(*got, *ids, 1, lr=0.01, reg=0.02)
+    torch.cuda.synchronize()
+    assert T.launches["bpr_epoch"] == before
+    for g, x in zip(got, state):
+        np.testing.assert_array_equal(g.cpu().numpy(), x)
 
 
 def test_bpr_epoch_rejects_bad_input(cuda):

@@ -1,8 +1,8 @@
 """The persistent epoch kernels' host side on the CPU: the grid plan of
 ``csrc/persist.cuh`` (one wave from the SM count and the blocks an SM
-holds), GMF's width limit and CML's scratch past shared memory, the
-trainer keeping both on the fused tier at any width the kernels take,
-and the order in which CML's plain version sums its distances (the order
+holds), BPR's plan (every shape its int32 arguments hold), GMF's width
+limit and CML's scratch past shared memory, the trainer keeping both on
+the fused tier at any width the kernels take, and the order in which CML's plain version sums its distances (the order
 of ``csrc/cml_epoch.cu``), held against an independent numpy emulation."""
 
 import math
@@ -41,8 +41,46 @@ def test_persist_plan_refuses_a_kernel_that_fits_no_sm(sms, per_sm):
         T.persist_plan(sms, per_sm)
 
 
+@pytest.mark.parametrize("sms,per_sm,threads,steps", [
+    (132, 1, 768, 67), (132, 1, 768, 0), (1, 1, 768, 3), (7, 2, 256, 210),
+    (100000, 1, 768, 2)])
+def test_bpr_epoch_plan_takes_one_wave(sms, per_sm, threads, steps):
+    """The SMs times the blocks an SM holds, at the kernel's own threads a
+    block (bpr_epoch_occupancy reports both); part_loss a slice of the
+    blocks a step."""
+    plan = T.bpr_epoch_plan(943, 1682, 128, steps, sms, per_sm, threads)
+    assert plan["blocks"] == sms * per_sm and plan["threads"] == threads
+    assert plan["part_loss"] == (steps, sms * per_sm)
+    assert plan["warps"] == sms * per_sm * threads // 32
+
+
+@pytest.mark.parametrize("u,i,d,steps,b,t0", [
+    (2 ** 31 - 1, 2 ** 31 - 1, 1, 1, 1, 0), (5, 7, 2 ** 31 - 1, 1, 1, 0),
+    (2 ** 31 - 1, 1, 2 ** 31 - 1, 0, 0, 0), (0, 0, 0, 0, 0, 0),
+    (943, 1682, 128, 65, 2 ** 31 - 1, 0),
+    (943, 1682, 128, 65, 6144, 2 ** 31 - 66)])
+def test_bpr_epoch_plan_has_no_limit_short_of_int32(u, i, d, steps, b, t0):
+    """Every shape the kernel's int32 arguments hold has a plan: no width
+    or size limit, no other tier."""
+    assert T.bpr_epoch_plan(u, i, d, steps, 132, b=b, t0=t0)["blocks"] == 132
+
+
+@pytest.mark.parametrize("u,i,d,steps,b,t0", [
+    (-1, 5, 8, 1, 1, 0), (5, -1, 8, 1, 1, 0), (5, 7, -1, 1, 1, 0),
+    (2 ** 31, 5, 8, 1, 1, 0), (5, 7, 2 ** 31, 1, 1, 0),
+    (5, 7, 8, 1, 2 ** 31, 0), (5, 7, 8, 65, 6144, 2 ** 31 - 65)])
+def test_bpr_epoch_plan_refuses_shapes_past_int32(u, i, d, steps, b, t0):
+    with pytest.raises(ValueError, match="fused_bpr_epoch.*int32"):
+        T.bpr_epoch_plan(u, i, d, steps, 132, b=b, t0=t0)
+
+
+def test_bpr_epoch_plan_refuses_a_kernel_that_fits_no_sm():
+    with pytest.raises(ValueError, match="fits an SM"):
+        T.bpr_epoch_plan(943, 1682, 128, 65, 132, 0, 768)
+
+
 @pytest.mark.parametrize("d", [1, 18, 64, 65, 200, 256, 300, 4096])
-def test_gmf_epoch_plan_takes_widths_up_to_256(d):
+def test_gmf_epoch_plan_takes_widths_up_to_4096(d):
     """And on up to GMF_MAX_D, 4096 (past 64 the wide kernel)."""
     plan = T.gmf_epoch_plan(d, steps=81, sms=132, per_sm=2)
     assert plan["blocks"] == 264 and plan["part"] == (264, d)

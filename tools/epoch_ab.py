@@ -1,19 +1,21 @@
-"""Time the GMF and CML epoch kernels (``gmf_epoch``, ``cml_epoch``) of this
-checkout against another checkout's (the parent commit's) on one GPU, in
-turns: parent, change, change, parent; or, with ``--phases``, where a
-block of this checkout's persistent kernels spends its cycles.
+"""Time the BPR, GMF and CML epoch kernels (``bpr_epoch``, ``gmf_epoch``,
+``cml_epoch``) of this checkout against another checkout's (the parent
+commit's) on one GPU, in turns: parent, change, change, parent; or, with
+``--phases``, where a block of this checkout's persistent kernels spends
+its cycles.
 
     python3 tools/epoch_ab.py --parent DIR
     python3 tools/epoch_ab.py --phases
 
 The inputs are made once, by this checkout, at the shapes of
-``chip_smoke.py``'s phases E and G: ml-100k rebuilt from the repo, GMF
-(embed 64, B 6,144, 81 steps) and CML (embed 128, K 20, B 6,144, 17
-steps) at their confs and seeds, each the state one epoch in and the next
-epoch's draw (``chip_smoke.one_epoch_in``), into
-``build/epoch_ab/inputs.pt``.  Each turn is a process that imports one
-checkout's package, which builds that checkout's ``csrc/gmf_epoch.cu``
-and ``csrc/cml_epoch.cu`` on first use, and for each input:
+``chip_smoke.py``'s phases C, E and G: ml-100k rebuilt from the repo, BPR
+(the default recipe: embed 128, B 6,144, 65 steps), GMF (embed 64, B
+6,144, 81 steps) and CML (embed 128, K 20, B 6,144, 17 steps) at their
+confs and seeds, each the state one epoch in and the next epoch's draw
+(``chip_smoke.one_epoch_in``), into ``build/epoch_ab/inputs.pt``.  Each
+turn is a process that imports one checkout's package, which builds that
+checkout's ``csrc/bpr_epoch.cu``, ``csrc/gmf_epoch.cu`` and
+``csrc/cml_epoch.cu`` on first use, and for each input:
 
 - holds the kernel to its plain version over the epoch with that
   checkout's ``chip_smoke.hold``, at the smoke's tolerances;
@@ -25,17 +27,19 @@ and ``csrc/cml_epoch.cu`` on first use, and for each input:
 Prints one JSON line per (input, version, turn), then the card's name and
 power limit; exits 1 if any hold failed.
 
-``--phases`` builds this checkout's two sources with ``-DPERSIST_CLOCKS``
-(nvcc, ``sm_90a``) into ``build/kernels/phases/``: thread 0 of each block
-then adds up the ``clock64()`` cycles of each part of every step (phase
-A's two parts, the wait at the barrier after it, phase B, the wait after
-B).  It runs one epoch of each input through the port's wrapper, and
-prints a JSON line each: the cycles a step of each part, the median and
-the largest over the blocks, and the time of one grid barrier at the
-kernel's grid (a launch of 2,000 barriers and nothing else, less a launch
-of none, CUDA events), the kernels' own barrier and cooperative_groups'
-``grid.sync()`` in turns (ours, cg, cg, ours); then the card's name,
-power limit and SM clock (``nvidia-smi``), at which cycles become time.
+``--phases`` builds this checkout's three sources with
+``-DPERSIST_CLOCKS`` (nvcc, ``sm_90a``) into ``build/kernels/phases/``:
+thread 0 of each block then adds up the ``clock64()`` cycles of each part
+of every step (phase A's two parts, the wait at the barrier after it,
+phase B, the wait after B).  It runs one epoch of each input through the
+port's wrapper, and prints a JSON line each: the cycles a step of each
+part, the median and the largest over the blocks, the epoch's ms (CUDA
+events over 20 epochs, the clocks' build), and the time of one grid
+barrier at the kernel's grid (a launch of 2,000 barriers and nothing
+else, less a launch of none, CUDA events), the kernels' own barrier and
+cooperative_groups' ``grid.sync()`` in turns (ours, cg, cg, ours).  Then
+the card's name, power limit and SM clock (``nvidia-smi``), at which
+cycles become time.
 """
 
 from __future__ import annotations
@@ -54,9 +58,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TURNS = ("parent", "change", "change", "parent")
 INPUTS = os.path.join(ROOT, "build", "epoch_ab", "inputs.pt")
-KERNELS = {"GMF": "gmf_epoch", "CML": "cml_epoch"}
+KERNELS = {"BPR": "bpr_epoch", "GMF": "gmf_epoch", "CML": "cml_epoch"}
 # csrc/persist.cuh's PERSIST_PHASES: the parts of a step each kernel stamps.
-PARTS = {"GMF": ("slots", "dh and loss into the slices", "barrier after A",
+PARTS = {"BPR": ("slots", "loss into part_loss", "barrier after A",
+                 "phase B", "barrier after B"),
+         "GMF": ("slots", "dh and loss into the slices", "barrier after A",
                  "phase B", "barrier after B"),
          "CML": ("rows", "column sums from the slices", "barrier after A",
                  "phase B", "barrier after B")}
@@ -77,7 +83,10 @@ def make_inputs() -> None:
                + [t[n].cpu().clone() for n in tables
                   for t in (state.mu, state.nu)],
                "opts": {"lr": cfg.lr, "reg": model.reg}}
-        if name == "GMF":
+        if name == "BPR":
+            rec["ids"] = [x.cpu() for x in cs.sentinel_ids(data, draw,
+                                                           ("u", "i", "j"))]
+        elif name == "GMF":
             rec["ids"] = [x.cpu() for x in cs.sentinel_ids(data, draw,
                                                            ("u", "i"))]
             rec["ids"].append(draw["y"].contiguous().cpu())
@@ -97,6 +106,11 @@ def make_inputs() -> None:
 def epoch_fns(T, rec):
     """(kernel epoch, plain epoch) of one input: each takes the state."""
     ids = [x.cuda() for x in rec["ids"]]
+    if rec["model"] == "BPR":
+        return (lambda st: T.fused_bpr_epoch(*st, *ids, rec["t0"],
+                                             **rec["opts"]),
+                lambda st: T.fused_bpr_epoch_ref(*st, *ids, rec["t0"],
+                                                 **rec["opts"]))
     if rec["model"] == "GMF":
         return (lambda st: T.fused_gmf_epoch(*st, *ids, rec["t0"],
                                              **rec["opts"]),
@@ -229,6 +243,7 @@ def phases() -> int:
         print(json.dumps({
             "model": rec["model"], "blocks": blocks, "threads": threads,
             "steps": steps,
+            "ms": cs.timed(lambda: kernel(state), iters=20)[0],
             "cycles_a_step": {n: {"median": float(np.median(c[:, k])),
                                   "max": float(c[:, k].max())}
                               for k, n in enumerate(parts)},
