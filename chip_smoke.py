@@ -72,6 +72,28 @@ width of ``conf/BPR.properties`` (embed_size 128):
   epochs on a random split, whose ``full_fused`` eval (``dot_scores`` on
   the negated decomposition) must equal its ``full`` eval, and whose
   fused retrieval must give the dense retrieval's answers.
+- Phase I, the rest of the social family and the trainer's features (no
+  new kernel): on phase F's trust graph, the same CLI with ``--model
+  SAMN`` on its conf (embed 64, mem 8, atten 16, Adagrad at lr 0.05,
+  batch 6144, neg_ratio 1), 100 epochs through the grouped pairwise
+  epoch: no epoch kernel launches, the loss falls and the best HR@10 is
+  at least the JAX package's on the same files less ``JAX_BAND``; then
+  SAMN_single 10 epochs, and SAMN's grouped against its flat epoch
+  (``train.grouped_pairs=False``), 30 epochs each (the flat one
+  converges faster at first), the two within ``JAX_BAND``.  SBPR and TBPR 3 epochs on the per-step samplers
+  (``train.sbpr_epoch_tensors=False``) through ``rows_epoch``, once an
+  epoch, within ``JAX_BAND`` of phase F's 3-epoch fused runs.  The lazy
+  row-Adam tier (``train.sparse_rows_force=True``) for SBPR and BPR, 3
+  epochs: no epoch kernel, the loss falls, best HR@10 within
+  ``JAX_BAND`` of the fused tier's.  BPR 2 epochs with ``save.best``,
+  then ``--resume`` to 4, its last epoch's metrics within ``TIER_BAND``
+  of an uninterrupted 4-epoch run's (the largest parameter gap
+  printed); GMF and MLP 3 epochs saved, then NeuMF warm-started from
+  them (``gmf_pretrain``, ``mlp_pretrain``), its first epoch's loss
+  below phase E's cold start's; ``--tune`` on a 2 x 1 grid of
+  embed_size, 2 epochs a trial.  The ``phase I`` line gives each run's
+  epoch and eval ms beside its reference's, and phase I's seconds; the
+  profiles line SAMN's epoch and eval by kernel.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -96,7 +118,8 @@ width of ``conf/BPR.properties`` (embed_size 128):
   device kernel; ``device_trace_from``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
-and H, and again before and after each training run.  Exits non-zero, with no
+and H, and again before and after each training run (phase I's
+included).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -107,6 +130,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -142,6 +166,7 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "cleverrec_tpu_torch/csrc/rows_epoch.cu",
           "cleverrec_tpu_torch/csrc/cml_epoch.cu", "conf/CML.properties",
           "conf/LRML.properties", "conf/TransCF.properties",
+          "conf/SAMN.properties", "conf/SAMN_single.properties",
           "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
@@ -200,6 +225,20 @@ METRIC_KERNEL = {"CML": "cml_epoch", "LRML": "rows_epoch_lrml",
 # PERF.md).
 JAX_METRIC_HR10 = {"CML": 0.8017, "LRML": 0.8271, "TransCF": 0.8314}
 TRAP_EPOCHS = 5       # CML's epochs before the distance-model trap
+SAMN_EPOCHS = 100     # the epoches of conf/SAMN.properties
+# Phase I: the JAX package's best HR@10 for SAMN on the same rebuilt
+# ml-100k and the trust graph of write_trusts(TRUST_SEED), the conf's
+# recipe, 100 epochs (the JAX CLI on the CPU; the command is in PERF.md).
+JAX_SAMN_HR10 = 0.8303
+SAMN_SINGLE_EPOCHS = 10
+# SAMN's grouped against its flat epoch: they converge at different
+# rates.  On the same files the JAX CLI's flat epoch leads the grouped one
+# by 0.025 HR@10 at epoch 10 and by 0.01 or less from epoch 25 on (best
+# HR@10 over 100 epochs 0.8388 flat, 0.8303 grouped), so they are held to
+# each other after 30 epochs.
+GROUPED_FLAT_EPOCHS = 30
+CKPT_EPOCHS = (2, 4)     # BPR: saved after the first, resumed to the second
+PRETRAIN_EPOCHS = 3      # GMF and MLP before NeuMF's warm start
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -813,7 +852,11 @@ class Records(logging.Handler):
 
     def __init__(self):
         super().__init__()
-        self.train, self.eval, self.best = [], [], None
+        self.train, self.eval, self.bests = [], [], []
+
+    @property
+    def best(self):
+        return self.bests[-1] if self.bests else None
 
     def emit(self, record):
         if hasattr(record, "train"):
@@ -821,19 +864,24 @@ class Records(logging.Handler):
         if hasattr(record, "eval"):
             self.eval.append(record.eval)
         if hasattr(record, "best"):
-            self.best = record.best
+            self.bests.append(record.best)
 
 
-def drive_cli(tag, model="BPR", epochs=EPOCHS, **overrides):
+def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
+              trials=1, **overrides):
     """Run the port's CLI on ``model``'s recipe (CleverRec.properties and
     its conf), on the rebuilt ml-100k, for ``epochs`` epochs with
-    ``overrides``; its log goes to build/logs/<tag>.log.  Returns the
-    run's numbers and its kernel launches (counts set to 0 first)."""
+    ``overrides`` and the further ``flags``; its log goes to
+    build/logs/<tag>.log.  ``runs`` is the epochs a run trains (all of
+    them unless it resumes), ``trials`` the runs (``--tune``'s grid).
+    Returns the (last) run's numbers and all the kernel launches (counts
+    set to 0 first)."""
     values = {"data.root_dir": DATA, "data.file_name": "ratings.csv",
               "data.sep": ",", "log.dir": LOGS, "epoches": epochs}
     values.update(overrides)
     argv = ["--config", os.path.join(ROOT, "CleverRec.properties"),
-            "--conf-dir", os.path.join(ROOT, "conf"), "--model", model]
+            "--conf-dir", os.path.join(ROOT, "conf"), "--model", model,
+            *flags]
     for k, v in values.items():
         argv += ["--set", f"{k}={v}"]
     os.makedirs(LOGS, exist_ok=True)
@@ -841,7 +889,8 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, **overrides):
     log_file = logging.FileHandler(os.path.join(LOGS, f"{tag}.log"))
     log_file.setFormatter(logging.Formatter("%(asctime)s  %(message)s"))
     # Handlers set before the CLI's get_logger keep its log off stdout.
-    logger = logging.getLogger(f"cleverrec_tpu_torch.{model}")
+    logger = logging.getLogger(f"cleverrec_tpu_torch.{model}"
+                               + ("_tune" if "--tune" in flags else ""))
     logger.setLevel(logging.INFO)
     logger.propagate = False
     for h in (records, log_file):
@@ -856,9 +905,11 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, **overrides):
         log_file.close()
     launches = {**scores.launches, **train_ops.launches}
     check(rc == 0, f"{tag}: cli exit code {rc}")
-    check(len(records.train) == epochs == len(records.eval)
-          and records.best is not None,
-          f"{tag}: {len(records.train)} epochs, {len(records.eval)} evals")
+    runs = (epochs if runs is None else runs) * trials
+    check(len(records.train) == runs == len(records.eval)
+          and len(records.bests) == trials,
+          f"{tag}: {len(records.train)} epochs, {len(records.eval)} evals, "
+          f"{len(records.bests)} runs")
     losses = [r["losses"][-1] for r in records.train]
     check(all(np.isfinite(losses)), f"{tag}: losses {losses}")
     train_ms = [r["seconds"] * 1e3 for r in records.train]
@@ -867,12 +918,16 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, **overrides):
             for name, v in zip(("HR", "MRR", "NDCG"), vals)}
     check(all(np.isfinite(v) and 0 <= v <= 1 for v in best.values()),
           f"{tag}: best metrics {best}")
+    last = {f"{name}@{k}": v
+            for k, vals in records.eval[-1]["metrics"].items()
+            for name, v in zip(("HR", "MRR", "NDCG"), vals)}
     return {"wall_s": wall, "launches": launches,
             "epoch_first_ms": train_ms[0],
             "epoch_ms_median": statistics.median(train_ms[1:] or train_ms),
             "eval_ms_median": statistics.median(eval_ms),
             "loss_first": losses[0], "loss_last": losses[-1],
             "best_epoch": records.best["epoch"], "best": best,
+            "last": last, "bests": [b["ndcg"] for b in records.bests],
             "epoch_ms": train_ms, "losses": losses}
 
 
@@ -1394,6 +1449,175 @@ def phase_g(profiles):
             "launches": launches}
 
 
+SAVED = os.path.join(ROOT, "build", "saved")
+
+
+def epoch_kernels(res):
+    """The epoch kernels a run launched, with their counts."""
+    return {k: n for k, n in res["launches"].items()
+            if k in train_ops.launches and n}
+
+
+def within(tag, a, b, band, keys=("HR@10", "NDCG@10")):
+    for key in keys:
+        check(abs(a[key] - b[key]) <= band,
+              f"{tag}: {key} {a[key]} vs {b[key]} (band {band})")
+
+
+def summary(res, ref=None):
+    out = {k: res[k] for k in ("best", "loss_first", "loss_last",
+                               "epoch_ms_median", "eval_ms_median",
+                               "wall_s")}
+    if ref is not None:
+        out["reference"] = {k: ref[k] for k in ("best", "epoch_ms_median")}
+    return out
+
+
+def param_gap(a: str, b: str):
+    """The largest gap between two checkpoints' parameters, or None when
+    they hold different epochs."""
+    from cleverrec_tpu_torch.train.checkpoint import load_checkpoint
+    ca, cb = load_checkpoint(a), load_checkpoint(b)
+    if ca["epoch"] != cb["epoch"]:
+        return None
+    return max((ca["params"][k] - cb["params"][k]).abs().max().item()
+               for k in ca["params"])
+
+
+def phase_i(train, profiles):
+    """SAMN on its conf (the grouped epoch, no epoch kernel), SAMN_single
+    and the flat epoch; SBPR and TBPR on the per-step samplers through
+    the rows kernel; the lazy row-Adam tier for SBPR and BPR; BPR saved
+    and resumed, NeuMF warm-started from saved GMF and MLP runs, and
+    --tune on a 2 x 1 grid."""
+    t0 = time.perf_counter()
+    out = {}
+    samn = drive_cli("I_SAMN", model="SAMN", epochs=SAMN_EPOCHS)
+    check(not epoch_kernels(samn), f"I SAMN: launches {samn['launches']}")
+    check(samn["loss_last"] < samn["loss_first"],
+          f"I SAMN: loss {samn['loss_first']} -> {samn['loss_last']}")
+    floor = JAX_SAMN_HR10 - JAX_BAND
+    check(samn["best"]["HR@10"] >= floor,
+          f"I SAMN: best HR@10 {samn['best']['HR@10']} < {floor}")
+    out["SAMN"] = {**summary(samn), "jax_hr10": JAX_SAMN_HR10}
+    print("phase I SAMN: " + json.dumps(out["SAMN"]), flush=True)
+    short = {}
+    for tag, name, epochs, opts in (
+            ("single", "SAMN_single", SAMN_SINGLE_EPOCHS, {}),
+            ("grouped", "SAMN", GROUPED_FLAT_EPOCHS, {}),
+            ("flat", "SAMN", GROUPED_FLAT_EPOCHS,
+             {"train.grouped_pairs": "False"})):
+        res = short[tag] = drive_cli(f"I_SAMN_{tag}", model=name,
+                                     epochs=epochs, **opts)
+        check(not epoch_kernels(res) and res["loss_last"] < res["loss_first"],
+              f"I SAMN {tag}: launches {res['launches']}, loss "
+              f"{res['loss_first']} -> {res['loss_last']}")
+    print("phase I SAMN_short: " + json.dumps(
+        {t: summary(r) for t, r in short.items()}), flush=True)
+    # Grouped and flat epochs draw differently: JAX_BAND, not TIER_BAND.
+    within("I SAMN grouped vs flat", short["grouped"]["best"],
+           short["flat"]["best"], JAX_BAND)
+    out["SAMN_short"] = {t: summary(r) for t, r in short.items()}
+
+    steps = {}
+    for name in ("SBPR", "TBPR"):
+        res = drive_cli(f"I_{name}_steps", model=name, epochs=TIER_EPOCHS,
+                        **{"train.sbpr_epoch_tensors": "False"})
+        check(epoch_kernels(res) == {"rows_epoch": TIER_EPOCHS},
+              f"I {name} per-step: launches {res['launches']}")
+        ref = train["F"]["tiers"][name]["fused"]
+        within(f"I {name} per-step vs epoch tensors", res["best"],
+               ref["best"], JAX_BAND)
+        steps[name] = summary(res, ref)
+    out["per_step"] = steps
+    print("phase I per_step: " + json.dumps(steps), flush=True)
+
+    lazy = {}
+    refs = {"SBPR": train["F"]["tiers"]["SBPR"]["fused"],
+            "BPR": drive_cli("I_BPR_fused", epochs=TIER_EPOCHS)}
+    check(epoch_kernels(refs["BPR"]) == {"bpr_epoch": TIER_EPOCHS},
+          f"I BPR fused: launches {refs['BPR']['launches']}")
+    for name, ref in refs.items():
+        res = drive_cli(f"I_{name}_lazy", model=name, epochs=TIER_EPOCHS,
+                        **{"train.sparse_rows_force": "True"})
+        check(not epoch_kernels(res), f"I {name} lazy: {res['launches']}")
+        check(res["loss_last"] < res["loss_first"],
+              f"I {name} lazy: loss {res['loss_first']} -> "
+              f"{res['loss_last']}")
+        # LazyAdam is not dense Adam: a metric-level band.
+        within(f"I {name} lazy vs fused", res["best"], ref["best"], JAX_BAND,
+               keys=("HR@10",))
+        lazy[name] = summary(res, ref)
+    out["lazy"] = lazy
+    print("phase I lazy: " + json.dumps(lazy), flush=True)
+
+    first_dir, whole_dir, resumed_dir, pre_dir = (
+        os.path.join(SAVED, d) for d in ("first", "whole", "resumed", "pre"))
+    for d in (first_dir, whole_dir, resumed_dir, pre_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    first = drive_cli("I_BPR_first", epochs=CKPT_EPOCHS[0],
+                      **{"save.best": "True", "saved_dir": first_dir})
+    from cleverrec_tpu_torch.train.checkpoint import load_checkpoint
+    ckpt = os.path.join(first_dir, "BPR")
+    done = load_checkpoint(ckpt)["epoch"]
+    check(done == first["best_epoch"], f"I: saved epoch {done}, best "
+          f"{first['best_epoch']}")
+    resumed = drive_cli("I_BPR_resumed", epochs=CKPT_EPOCHS[1],
+                        flags=("--resume", ckpt),
+                        runs=CKPT_EPOCHS[1] - done,
+                        **{"save.best": "True", "saved_dir": resumed_dir})
+    whole = drive_cli("I_BPR_whole", epochs=CKPT_EPOCHS[1],
+                      **{"save.best": "True", "saved_dir": whole_dir})
+    check(epoch_kernels(resumed) == {"bpr_epoch": CKPT_EPOCHS[1] - done},
+          f"I resumed: launches {resumed['launches']}")
+    # The fused kernel's f32 atomics sum in a run-dependent order: the
+    # resumed run is held to the whole one by TIER_BAND, not bit for bit.
+    within("I resumed vs whole (last epoch)", resumed["last"],
+           whole["last"], TIER_BAND["HR@10"], keys=("HR@10",))
+    within("I resumed vs whole (last epoch)", resumed["last"],
+           whole["last"], TIER_BAND["NDCG@10"], keys=("NDCG@10",))
+    out["resume"] = {
+        "saved_epoch": done, "resumed": summary(resumed),
+        "whole": summary(whole), "last": {"resumed": resumed["last"],
+                                          "whole": whole["last"]},
+        "max_param_gap": param_gap(os.path.join(resumed_dir, "BPR"),
+                                   os.path.join(whole_dir, "BPR"))}
+
+    pre = {name: drive_cli(f"I_{name}_pre", model=name,
+                           epochs=PRETRAIN_EPOCHS,
+                           **{"save.best": "True", "saved_dir": pre_dir})
+           for name in ("GMF", "MLP")}
+    warm = drive_cli("I_NeuMF_warm", model="NeuMF", epochs=TIER_EPOCHS,
+                     gmf_pretrain=os.path.join(pre_dir, "GMF"),
+                     mlp_pretrain=os.path.join(pre_dir, "MLP"))
+    cold = train["E"]["tiers"]["NeuMF"]["fused"]
+    check(epoch_kernels(warm) == {"mlp_epoch": TIER_EPOCHS},
+          f"I NeuMF warm: launches {warm['launches']}")
+    check(warm["losses"][0] < cold["losses"][0],
+          f"I NeuMF warm: first loss {warm['losses'][0]} not below the cold "
+          f"start's {cold['losses'][0]}")
+    out["warm_start"] = {"pretrain": {n: summary(r) for n, r in pre.items()},
+                         "warm": summary(warm), "cold": summary(cold)}
+
+    tune = drive_cli("I_tune", epochs=2, flags=("--tune",), trials=2,
+                     embed_size="[64,128]")
+    check(epoch_kernels(tune) == {"bpr_epoch": 4},
+          f"I tune: launches {tune['launches']}")
+    out["tune"] = {"ndcg_by_trial": tune["bests"], "wall_s": tune["wall_s"]}
+
+    cfg = config("ml-100k", recommender="SAMN")
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    params, state = trainer.init_state()
+    trainer.train_epoch(params, state)
+    profiles["I_SAMN_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    profiles["I_SAMN_eval"] = breakdown(trainer.evaluate)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def cml_row(launches, profiles):
     """cml_epoch against its plain version at CML's main shape (ml-100k,
     embed 128, K 20, B 6144) on the state one epoch in and the next draw:
@@ -1713,6 +1937,8 @@ def main() -> int:
                           for t in ("fused", "scan")}
                 if name in train["G"]["tiers"] else None}
          for name, run in train["G"]["runs"].items()}), flush=True)
+    train["I"] = phase_i(train, profiles)
+    print("phase I: " + json.dumps(train["I"]), flush=True)
     rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
     rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
                          profiles))

@@ -9,6 +9,11 @@ run on the CPU).
 Usage:
     python -m cleverrec_tpu_torch.cli --config CleverRec.properties
            [--model BPR] [--set epoches=5 --set lr=0.01] [--device cpu]
+           [--resume saved_model/BPR] [--tune]
+
+``--resume`` restarts a run from a checkpoint that ``save.best=True``
+wrote (``saved_dir/<model>``); ``--tune`` grid-searches the list-valued
+embed_size, reg and neg_ratio (``tuning.py``) instead of one run.
 """
 
 from __future__ import annotations
@@ -27,8 +32,6 @@ _UNPORTED_FLAGS = {
     "mesh": ("--mesh", "queue 1, item 16 (parallel)"),
     "distributed": ("--distributed", "queue 1, item 16 (parallel)"),
     "export_serving": ("--export-serving", "queue 1, item 6 (export)"),
-    "resume": ("--resume", "queue 1, item 15 (checkpoints)"),
-    "tune": ("--tune", "queue 1, item 15 (tuning)"),
 }
 
 
@@ -54,14 +57,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--export-serving", default=None, metavar="DIR",
                    help="not ported yet")
     p.add_argument("--resume", default=None, metavar="CKPT",
-                   help="not ported yet")
-    p.add_argument("--tune", action="store_true", help="not ported yet")
+                   help="resume from a train-state checkpoint directory")
+    p.add_argument("--tune", action="store_true",
+                   help="grid-search list-valued keys (embed_size/reg/"
+                        "neg_ratio, the main_tuning.py axes) instead of a "
+                        "single run")
     return p
 
 
-def run_experiment(cfg: Config, device="cuda", logger=None):
-    """Load data, build the model and trainer, run the full loop; returns
-    the trainer's best-epoch summary."""
+def run_experiment(cfg: Config, device="cuda", logger=None,
+                   resume_from=None):
+    """Load data, build the model and trainer, run the full loop (from
+    the checkpoint ``resume_from`` if given); returns the trainer's
+    best-epoch summary."""
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
@@ -74,7 +82,8 @@ def run_experiment(cfg: Config, device="cuda", logger=None):
                              logger=logger)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
                        device=device)
-    return Trainer(model, data, cfg, logger=logger, device=device).run()
+    return Trainer(model, data, cfg, logger=logger, device=device).run(
+        resume_from=resume_from)
 
 
 def main(argv=None) -> int:
@@ -83,8 +92,10 @@ def main(argv=None) -> int:
         from cleverrec_tpu_torch.models import available_models
         print("\n".join(available_models()))
         return 0
+    # --tune ignores --export-serving, as the JAX CLI does.
     for attr, (flag, where) in _UNPORTED_FLAGS.items():
-        if getattr(args, attr):
+        if getattr(args, attr) and not (args.tune
+                                        and attr == "export_serving"):
             print(f"{flag} is not ported yet (ROADMAP.md {where})",
                   file=sys.stderr)
             return 2
@@ -102,7 +113,14 @@ def main(argv=None) -> int:
         print(f"model_type={cfg.model_type} is not ported yet (ROADMAP.md "
               "queue 1, item 13: rating)", file=sys.stderr)
         return 2
-    run_experiment(cfg, device=args.device)
+    if args.tune:
+        from cleverrec_tpu_torch.tuning import run_grid
+        logger = get_logger(cfg.get("log.dir"), cfg.recommender + "_tune")
+        if args.resume or args.export_serving:
+            logger.info("--resume/--export-serving are ignored with --tune")
+        run_grid(cfg, logger=logger, device=args.device)
+        return 0
+    run_experiment(cfg, device=args.device, resume_from=args.resume)
     return 0
 
 

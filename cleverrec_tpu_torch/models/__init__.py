@@ -1,5 +1,5 @@
-"""Model registry: BPR, the NCF family (GMF, MLP, NeuMF), the
-social-triple family (SBPR, TBPR, CUNE_BPR) and the metric-learning
+"""Model registry: BPR, the NCF family (GMF, MLP, NeuMF), the social
+family (SBPR, TBPR, CUNE_BPR, SAMN, SAMN_single) and the metric-learning
 family (CML, LRML, TransCF)."""
 
 from __future__ import annotations
@@ -12,14 +12,13 @@ from cleverrec_tpu_torch.models.base import DataMeta, RecModel
 from cleverrec_tpu_torch.models.bpr import BPR
 from cleverrec_tpu_torch.models.metric import CML, LRML, TransCF
 from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
-from cleverrec_tpu_torch.models.social import CUNE_BPR, SBPR, TBPR
+from cleverrec_tpu_torch.models.social import (CUNE_BPR, SAMN, SBPR, TBPR,
+                                               SAMNSingle)
 
 _REGISTRY: dict[str, type] = {m.name: m for m in (BPR, GMF, MLP, NeuMF, SBPR,
-                                                  TBPR, CUNE_BPR, CML, LRML,
+                                                  TBPR, CUNE_BPR, SAMN,
+                                                  SAMNSingle, CML, LRML,
                                                   TransCF)}
-
-# Where each model of the JAX package's zoo arrives in the port.
-_LATER_SLICES = {"SAMN": "social", "SAMN_single": "social"}
 
 
 def available_models() -> list[str]:
@@ -33,10 +32,10 @@ def make_model(cfg: Config, meta: DataMeta, device="cuda",
     dev = resolve_device(device)
     name = cfg.recommender
     if name not in _REGISTRY:
-        where = _LATER_SLICES.get(name, "other-ranking-models")
         raise NotImplementedError(
             f"model {name!r} is not ported yet: it comes with the port's "
-            f"{where} slice; ported: {available_models()}")
+            "other-ranking-models slice (ROADMAP.md queue 1, item 11); "
+            f"ported: {available_models()}")
     model = _REGISTRY[name](cfg, meta)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)

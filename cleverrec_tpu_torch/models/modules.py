@@ -1,8 +1,9 @@
 """Shared model building blocks (as ``cleverrec_tpu/models/modules.py``).
 
-Only the neighbourhood mean that TransCF needs is here so far; the rest
-of the JAX module (history attention and the other layers) comes with
-the other ranking models.
+The neighbourhood mean that TransCF needs and the one-hidden-layer
+attention scorer of SAMN are here so far; the rest of the JAX module
+(history attention and the other layers) comes with the other ranking
+models.
 """
 
 from __future__ import annotations
@@ -22,3 +23,10 @@ def segment_mean_embeddings(ids_seg: torch.Tensor, ids_val: torch.Tensor,
                       device=table.device)
     out = out.index_add(0, ids_seg.long(), table[ids_val.long()])
     return out * inv_counts[:, None]
+
+
+def relu_mlp_logits(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    h: torch.Tensor) -> torch.Tensor:
+    """h^T ReLU(x W + b): the one-hidden-layer attention scorer of SAMN
+    (and of NAIS and the GAT models), over x's last axis."""
+    return torch.relu(x @ w + b) @ h

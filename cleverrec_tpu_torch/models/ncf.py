@@ -7,7 +7,7 @@
 - NeuMF (model/ranking/NeuMF.py:27-110): GMF and MLP embeddings side by
   side, output h_neumf over concat(gmf, mlp).  ``h_gmf`` and ``h_mlp``
   take no part in its loss: they are kept for the warm start from
-  pretrained GMF and MLP models (ROADMAP.md queue 1, item 15).
+  pretrained GMF and MLP models (``NeuMF.warm_start``).
 
 Parameters keep the JAX names and shapes: ``W_l`` is [in, out] and is
 applied as ``x @ W_l``; biases and output weights are 1-D.
@@ -28,6 +28,7 @@ from torch import nn
 from cleverrec_tpu_torch.common import (init_param, l2_loss, sigmoid_xent,
                                         sigmoid_xent_loss)
 from cleverrec_tpu_torch.models.base import Aux, RecModel
+from cleverrec_tpu_torch.train.checkpoint import graft_neumf, load_params
 
 
 def mlp_tower(params, x, n_layers: int):
@@ -158,6 +159,8 @@ class MLP(_NCFBase):
 class NeuMF(_NCFBase):
     name = "NeuMF"
     fused_protocol = "pointwise_mlp"
+    # The warm start's checkpoints: both keys set, or neither.
+    pretrain_keys = ("gmf_pretrain", "mlp_pretrain")
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)
@@ -175,6 +178,12 @@ class NeuMF(_NCFBase):
         self._param("h_mlp", self.layers[-1] // 2)
         self._tower = self._tower_params()
         self._param("h_neumf", d + self.layers[-1] // 2)
+
+    def warm_start(self, params: dict, cfg) -> dict:
+        """``params`` grafted from the GMF and MLP checkpoints that
+        ``gmf_pretrain`` and ``mlp_pretrain`` name."""
+        return graft_neumf(params, load_params(cfg.str("gmf_pretrain")),
+                           load_params(cfg.str("mlp_pretrain")))
 
     def fused_mlp_spec(self) -> dict:
         """The fused tower epoch's view of NeuMF: the user tables ride one

@@ -1,4 +1,4 @@
-"""Social-triple models: SBPR, TBPR and CUNE_BPR (as
+"""Social models: SBPR, TBPR, CUNE_BPR, SAMN and SAMN_single (as
 ``cleverrec_tpu/models/social.py``).
 
 - SBPR (model/ranking/SBPR.py:41-66): the chain i > social item k >
@@ -12,12 +12,24 @@
 - CUNE_BPR (model/ranking/CUNE_BPR.py:41-66): SBPR's chain over latent
   friends (``data/social.py``), bpr(x_ui - x_uk) +
   bpr((x_uk - x_uj) / (s + 1)) with a learned 0-d scalar s.
+- SAMN (model/ranking/SAMN.py:56-107): memory-attended friend vectors
+  (key-addressed memory over the normalised joint embeddings of a user
+  and each friend), friend-level attention, u_vec = P[u] + u_frien, and
+  the pairwise loss over x(u, m) = <u_vec, Q[m]> + i_b[m].  Masked friend
+  slots keep their softmax mass in the friend-level attention (their
+  logits come from zero rows, h . ReLU(b)) and add zero vectors, as in
+  the reference (SAMN.py:77-85).  SAMN_single is the same model: the
+  reference's per-user variant computes the same math a user at a time.
 
 Parameters keep the JAX names and shapes: ``P`` [U, d], ``Q`` [I, d],
 ``bias`` [I + 1] (the last slot is the eval PAD item's and is never
-trained) and CUNE_BPR's ``s`` [].  Each epoch covers only the pairs of
-users with social positives (SBPR, CUNE_BPR; utils/sampler.py:105-106)
-or with both tie classes (TBPR).
+trained) and CUNE_BPR's ``s`` []; SAMN's ``P`` [U + 1, d] (the last row
+is the sentinel friend's), ``Q`` [I, d], ``i_b`` [I], ``Key`` [d, mem],
+``Mem`` [mem, d], ``W3`` [d, atten], ``b`` and ``h`` [atten].  Each
+triple epoch covers only the pairs of users with social positives
+(SBPR, CUNE_BPR; utils/sampler.py:105-106) or with both tie classes
+(TBPR); SAMN's covers every train pair, in user groups
+(``pairwise_grouped``: the trainer's grouped pairwise epoch).
 
 ``fused_rows_spec`` describes the fused rows epoch (ops/train.py
 ``fused_rows_epoch``): the id planes and the table side of each, the
@@ -36,8 +48,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from cleverrec_tpu_torch.common import bpr_loss, init_param, l2_loss
+from cleverrec_tpu_torch.common import (bpr_loss, init_param, l2_loss,
+                                        pairwise_loss)
 from cleverrec_tpu_torch.models.base import Aux, RecModel
+from cleverrec_tpu_torch.models.modules import relu_mlp_logits
 from cleverrec_tpu_torch.sampling import build_csr_lists, build_member_table
 
 
@@ -296,3 +310,136 @@ class CUNE_BPR(_SocialTripleBase):
 
     def _chain(self) -> dict:
         return {"float_link": None, "dense_link": 1, "reg": self.reg}
+
+
+class SAMN(RecModel):
+    """SAMN (WSDM'19): social attentional memory network, trained on the
+    user-grouped pairwise epoch, where the friend attention runs once
+    per (user, cell chunk) group instead of once per pair row."""
+
+    name = "SAMN"
+    sampler = "pairwise"
+    pairwise_grouped = True
+    TARGET_CHUNK = 128
+
+    def __init__(self, cfg, meta):
+        super().__init__(cfg, meta)
+        cfg.require("embed_size", "mem_size", "atten_size", "reg1", "reg2")
+        self.embed_size = d = cfg.int("embed_size")
+        self.mem_size = m = cfg.int("mem_size")
+        self.atten_size = a = cfg.int("atten_size")
+        self.reg1 = cfg.float("reg1")
+        self.reg2 = cfg.float("reg2")
+        self.P = nn.Parameter(torch.zeros(meta.user_nums + 1, d))
+        self.Q = nn.Parameter(torch.zeros(meta.item_nums, d))
+        self.i_b = nn.Parameter(torch.zeros(meta.item_nums))
+        self.Key = nn.Parameter(torch.zeros(d, m))
+        self.Mem = nn.Parameter(torch.zeros(m, d))
+        self.W3 = nn.Parameter(torch.zeros(d, a))
+        self.b = nn.Parameter(torch.zeros(a))
+        self.h = nn.Parameter(torch.zeros(a))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for p in self.parameters():
+            p.copy_(init_param(generator, self.initializer, p.shape))
+
+    def build_aux(self, dd, data) -> dict:
+        if dd.friends_padded is None:
+            raise ValueError(f"{self.name} requires social_file")
+        return {"friends_padded": dd.friends_padded}
+
+    @staticmethod
+    def _rows(table, ids):
+        """table[ids] for any shape of ids, through ``embedding``: its
+        backward sums each row's gradients in sorted segments, where
+        indexing's sums each row's duplicates one after another (most of
+        a step's device time on a card, with many friends a row)."""
+        if table.dim() == 1:
+            return torch.nn.functional.embedding(ids.long(),
+                                                 table[:, None])[..., 0]
+        return torch.nn.functional.embedding(ids.long(), table)
+
+    def _user_vec(self, u, aux: Aux):
+        """u_vec = P[u] + the attention-weighted memory friend vectors
+        (SAMN.py:56-89); rsqrt(|x|^2 + 1e-12) keeps the masked friend
+        slots' zero rows finite through the normalisation."""
+        friends = aux["friends_padded"][u].long()          # [B, F]
+        ue = self._rows(self.P, u)                         # [B, d]
+        exists = (friends != self.meta.user_nums).to(ue.dtype)
+        fe = self._rows(self.P, friends) * exists[:, :, None]  # [B, F, d]
+        un = ue * torch.rsqrt(torch.sum(ue * ue, dim=1, keepdim=True)
+                              + 1e-12)
+        fn = fe * torch.rsqrt(torch.sum(fe * fe, dim=2, keepdim=True)
+                              + 1e-12)
+        joint = un[:, None, :] * fn
+        atten_key = torch.softmax(joint @ self.Key, dim=-1)
+        atten_key = atten_key * exists[:, :, None]
+        f_vec = (atten_key @ self.Mem) * fe                # [B, F, d]
+        att = torch.softmax(relu_mlp_logits(f_vec, self.W3, self.b, self.h),
+                            dim=1)                         # [B, F]
+        return ue + torch.einsum("bf,bfd->bd", att, f_vec)
+
+    def _tower_l2(self):
+        return l2_loss(self.W3) + l2_loss(self.b) + l2_loss(self.h)
+
+    def loss(self, batch, aux: Aux):
+        w = batch["w"]
+        uv = self._user_vec(batch["u"], aux)
+        ie, je = (self._rows(self.Q, batch[k]) for k in ("i", "j"))
+        ib, jb = (self._rows(self.i_b, batch[k]) for k in ("i", "j"))
+        s_i = torch.sum(uv * ie, dim=1) + ib
+        s_j = torch.sum(uv * je, dim=1) + jb
+        main = pairwise_loss(self.loss_func, s_i - s_j, weight=w)
+        wc = w[:, None]
+        l2_1 = (l2_loss(uv * wc) + l2_loss(ie * wc) + l2_loss(je * wc)
+                + l2_loss(ib * w) + l2_loss(jb * w))
+        return main + self.reg1 * l2_1 + self.reg2 * self._tower_l2()
+
+    def loss_grouped_pairwise(self, batch, aux: Aux):
+        """The user-grouped pairwise loss: ``gu`` [G] users, ``gi`` and
+        ``gj`` [G, T] positive and negative cells, ``gw`` [G, T] their
+        validity.  A valid cell (g, t) is one flat pair row, with the
+        flat loss's terms (uv's L2 becomes |uv_g|^2 times the group's
+        valid-cell count); the friend attention runs once a group.  Pad
+        cells hold the id ``item_nums``: they read the last item's row,
+        as JAX's clamped gather does, at weight 0."""
+        gw = batch["gw"]
+        last = self.meta.item_nums - 1
+        gi = torch.clamp(batch["gi"], max=last)
+        gj = torch.clamp(batch["gj"], max=last)
+        uv = self._user_vec(batch["gu"], aux)              # [G, d]
+        ie, je = self._rows(self.Q, gi), self._rows(self.Q, gj)  # [G, T, d]
+        ib, jb = self._rows(self.i_b, gi), self._rows(self.i_b, gj)
+        s_i = torch.einsum("gd,gtd->gt", uv, ie) + ib
+        s_j = torch.einsum("gd,gtd->gt", uv, je) + jb
+        main = pairwise_loss(self.loss_func, s_i - s_j, weight=gw)
+        wc = gw[..., None]
+        l2_1 = (0.5 * torch.sum(torch.sum(uv * uv, dim=1)
+                                * torch.sum(gw, dim=1))
+                + l2_loss(ie * wc) + l2_loss(je * wc) + l2_loss(ib * gw)
+                + l2_loss(jb * gw))
+        return main + self.reg1 * l2_1 + self.reg2 * self._tower_l2()
+
+    def score_pairs(self, u, i, aux: Aux):
+        uv = self._user_vec(u, aux)
+        return torch.sum(uv * self.Q[i], dim=1) + self.i_b[i]
+
+    def score_candidates(self, u, cand, aux: Aux):
+        # The friend attention once a user, then one dot a candidate.
+        uv = self._user_vec(u, aux)
+        return torch.einsum("bd,bcd->bc", uv, self.Q[cand]) + self.i_b[cand]
+
+    def score_all(self, u, aux: Aux):
+        return self._user_vec(u, aux) @ self.Q.T + self.i_b[None, :]
+
+    def dot_decomposition(self, u, aux: Aux):
+        """(user_vecs, item_table, item_bias) for the masked dot-scoring
+        kernels (ops/scores.py)."""
+        return self._user_vec(u, aux), self.Q, self.i_b
+
+
+class SAMNSingle(SAMN):
+    """The reference's per-user SAMN variant: the same math, batched."""
+
+    name = "SAMN_single"

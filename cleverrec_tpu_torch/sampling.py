@@ -25,6 +25,17 @@ The social epochs (SBPR and CUNE_BPR: rows (u, i, k, j, suk); TBPR:
 Their negative avoids the union of the user's seen items and social
 items, drawn by rank from that union's ``MemberTable``; k, s and t are
 uniform picks from CSR-flat per-user lists (``build_csr_lists``).
+
+The per-step batch builders (``pairwise_batch``, ``pointwise_batch``,
+``cml_batch``, ``sbpr_batch``, ``tbpr_batch``, ``samn_batch``) take one
+step's shuffled row ids of ``epoch_permutation`` and draw that step's
+rows (utils/sampler.py's per-batch layout; the trainer's
+``train.sbpr_epoch_tensors=False``).  Their tables are ``MemberTable``s
+of tensors on the generator's device (``table_to``): ``member`` tests
+membership through the bitmap, else the sorted rows;
+``sample_not_in`` draws exactly by rank from the sorted rows, and
+``_reject`` draws uniforms and redraws those in a set, the fallback
+where a table has no rows or a draw must avoid several sets.
 """
 
 from __future__ import annotations
@@ -38,6 +49,9 @@ import torch
 # are the only membership structure and ranking builds each batch's
 # bitmaps on the fly (rows_to_bits).
 BITMAP_BUDGET_BYTES = 1 << 30
+# Rejection: candidates drawn at once per slot, then corrective redraws.
+TRIES = 32
+EXTRA_ROUNDS = 2
 
 
 class MemberTable(NamedTuple):
@@ -75,6 +89,13 @@ def build_member_table(sets: dict[int, list[int]], n_entities: int,
     slot = np.arange(len(pairs)) - starts[pairs[:, 0]]
     rows[pairs[:, 0], slot] = pairs[:, 1]
     return MemberTable(rows=rows, lens=lens, bits=bits)
+
+
+def table_to(table: MemberTable, device) -> MemberTable:
+    """The table's arrays as tensors on ``device`` (None stays None)."""
+    return MemberTable(*(None if a is None else torch.as_tensor(a,
+                                                                device=device)
+                         for a in table))
 
 
 def rows_to_bits(rows: torch.Tensor, id_range: int) -> torch.Tensor:
@@ -121,6 +142,62 @@ def unseen_by_rank(rows: torch.Tensor, lens: torch.Tensor, e: torch.Tensor,
         lo = torch.where(pred, mid + 1, lo)
         hi = torch.where(pred, hi, mid)
     return (r2 + lo).to(torch.int32).reshape(r.shape)
+
+
+def member(table: MemberTable, e: torch.Tensor,
+           x: torch.Tensor) -> torch.Tensor:
+    """Is x[b, ...] in entity e[b]'s set?  e [B]; x [B] or [B, ...]
+    (batch axis leading); ``table`` holds tensors.  The bitmap when the
+    table has one, else a binary search of the sorted rows."""
+    flat = x.reshape(x.shape[0], -1).long()               # [B, M]
+    e = e.long()
+    if table.bits is not None:
+        word = torch.gather(table.bits[e], 1, flat >> 5).long()
+        return ((word >> (flat & 31)) & 1).bool().reshape(x.shape)
+    rows = table.rows[e]                                  # [B, L]
+    idx = torch.searchsorted(rows, flat.to(rows.dtype))
+    hit = torch.gather(rows, 1, torch.clamp(idx, max=rows.shape[1] - 1))
+    return (hit == flat).reshape(x.shape)
+
+
+def _randint(gen: torch.Generator, high: int, shape) -> torch.Tensor:
+    return torch.randint(0, high, tuple(shape), generator=gen,
+                         device=gen.device, dtype=torch.int64)
+
+
+def _reject(gen: torch.Generator, n_range: int, shape, is_bad,
+            extra_rounds: int = EXTRA_ROUNDS,
+            tries: int = TRIES) -> torch.Tensor:
+    """Uniform draws from [0, n_range) avoiding ``is_bad``: one round of
+    ``tries`` candidates a slot (the first good one wins), then up to
+    ``extra_rounds`` redraws of the slots still bad, each taken only
+    where it is good.  A slot stays bad with probability
+    density^(tries + extra_rounds).  ``is_bad`` maps [*shape, T] ids to
+    [*shape, T] bools."""
+    draws = _randint(gen, n_range, tuple(shape) + (tries,))
+    bad = is_bad(draws)
+    first = torch.argmax((~bad).to(torch.int8), dim=-1)
+    j = torch.gather(draws, -1, first[..., None])[..., 0]
+    for _ in range(extra_rounds):
+        new = _randint(gen, n_range, j.shape)
+        bad2 = is_bad(torch.stack([j, new], dim=-1))
+        j = torch.where(bad2[..., 0] & ~bad2[..., 1], new, j)
+    return j.to(torch.int32)
+
+
+def sample_not_in(gen: torch.Generator, table: MemberTable, e: torch.Tensor,
+                  n_range: int, shape) -> torch.Tensor:
+    """Uniform draws from [0, n_range) outside entity e's set; ``shape``
+    is [B] or [B, K] with B = len(e), int32.  With sorted rows the draw
+    is exact: a rank below the unseen count resolved by
+    ``unseen_by_rank`` (the JAX complement table's entry for that rank);
+    a table of bitmaps alone rejects with ``_reject``."""
+    if table.rows is None:
+        return _reject(gen, n_range, shape, lambda q: member(table, e, q))
+    n_un = torch.clamp(n_range - table.lens[e.long()].long(), min=1)
+    r = _randint(gen, 2 ** 31 - 1, shape)
+    return unseen_by_rank(table.rows, table.lens, e,
+                          r % (n_un[:, None] if len(shape) == 2 else n_un))
 
 
 def epoch_permutation(gen: torch.Generator, epoch_rows: int,
@@ -354,3 +431,103 @@ def tbpr_epoch_tensors(gen: torch.Generator, static: dict,
     out = {key: v[perm].reshape(steps, b) for key, v in cols.items()}
     out["w"] = w.reshape(steps, b)
     return out
+
+
+# -- the per-step batch builders -----------------------------------------
+
+def _pair_rows(rows, pos_u, pos_i, group: int):
+    """Each row's train pair when pair p fills ``group`` rows."""
+    n = pos_u.shape[0]
+    p = (rows.long() % (n * group)) // group
+    return pos_u[p], pos_i[p]
+
+
+def pairwise_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable,
+                   item_nums, neg_ratio):
+    """(u, i, j, w) rows: pair p repeated neg_ratio times
+    (utils/sampler.py:46-74)."""
+    u, i = _pair_rows(rows, pos_u, pos_i, neg_ratio)
+    j = sample_not_in(gen, seen, u, item_nums, u.shape)
+    return {"u": u, "i": i, "j": j, "w": valid}
+
+
+def pointwise_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable,
+                    item_nums, neg_ratio):
+    """(u, i, y, w) rows: a positive and neg_ratio negatives a pair
+    (utils/sampler.py:10-43)."""
+    n, grp = pos_u.shape[0], 1 + neg_ratio
+    r = rows.long() % (n * grp)
+    u, i_pos = pos_u[r // grp], pos_i[r // grp]
+    is_pos = (r % grp) == 0
+    j = sample_not_in(gen, seen, u, item_nums, u.shape)
+    return {"u": u, "i": torch.where(is_pos, i_pos, j),
+            "y": is_pos.to(torch.float32), "w": valid}
+
+
+def cml_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
+              neg_ratio):
+    """(u, i, negs [B, K], w) rows: one a pair (utils/sampler.py:77-99)."""
+    u, i = _pair_rows(rows, pos_u, pos_i, 1)
+    negs = sample_not_in(gen, seen, u, item_nums, (u.shape[0], neg_ratio))
+    return {"u": u, "i": i, "negs": negs, "w": valid}
+
+
+def _pick(gen, table: MemberTable, csr: dict, u):
+    """The flat index of a uniform pick from each user's CSR list."""
+    raw = _randint(gen, 2 ** 31 - 1, u.shape)
+    return csr["off"][u.long()].long() + raw % torch.clamp(
+        table.lens[u.long()].long(), min=1)
+
+
+def sbpr_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
+               neg_ratio, spu: MemberTable, spu_csr: dict,
+               social_neg: MemberTable | None = None):
+    """(u, i, social item k, negative j, suk, w) rows
+    (utils/sampler.py:102-141).  The pairs must be those of users with
+    SPu; ``spu_csr`` holds ``build_csr_lists``'s ``flat``, ``off`` and
+    ``suk`` as tensors, and ``spu`` the lists' lengths (``lens``).  The
+    negative avoids seen(u) and SPu(u): exactly through their union's
+    table ``social_neg`` when given (``seen`` is then unused), else by
+    rejection against ``seen`` and ``spu``, which then need their rows
+    or bitmaps."""
+    u, i = _pair_rows(rows, pos_u, pos_i, neg_ratio)
+    idx = _pick(gen, spu, spu_csr, u)
+    if social_neg is not None:
+        j = sample_not_in(gen, social_neg, u, item_nums, u.shape)
+    else:
+        j = _reject(gen, item_nums, u.shape,
+                    lambda q: member(seen, u, q) | member(spu, u, q))
+    return {"u": u, "i": i, "k": spu_csr["flat"][idx], "j": j,
+            "suk": spu_csr["suk"][idx].to(torch.float32), "w": valid}
+
+
+def tbpr_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
+               neg_ratio, strong: MemberTable, weak: MemberTable,
+               ts_csr: dict, tw_csr: dict,
+               social_neg: MemberTable | None = None):
+    """(u, i, strong-tie item s, weak-tie item t, negative j, w) rows for
+    TBPR's chain i > s > t > j, over users with both tie classes (the
+    lists CSR-flat in ``ts_csr`` and ``tw_csr``, their lengths in
+    ``strong`` and ``weak``); j avoids seen(u), strong(u) and weak(u),
+    exactly through their union's table ``social_neg`` when given, else
+    by rejection."""
+    u, i = _pair_rows(rows, pos_u, pos_i, neg_ratio)
+    s = ts_csr["flat"][_pick(gen, strong, ts_csr, u)]
+    t = tw_csr["flat"][_pick(gen, weak, tw_csr, u)]
+    if social_neg is not None:
+        j = sample_not_in(gen, social_neg, u, item_nums, u.shape)
+    else:
+        j = _reject(gen, item_nums, u.shape,
+                    lambda q: (member(seen, u, q) | member(strong, u, q)
+                               | member(weak, u, q)))
+    return {"u": u, "i": i, "s": s, "t": t, "j": j, "w": valid}
+
+
+def samn_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
+               neg_ratio, friends_padded):
+    """Pairwise rows and each row's padded friend list
+    (utils/sampler.py:144-166)."""
+    b = pairwise_batch(gen, rows, valid, pos_u, pos_i, seen, item_nums,
+                       neg_ratio)
+    b["friends"] = friends_padded[b["u"].long()]
+    return b

@@ -7,9 +7,13 @@ drawn in one pass from an explicit generator on the trainer's device:
 w) for the pointwise one (GMF, MLP, NeuMF), (u, i, w) and negs
 [steps, B, neg_ratio] for ``cml`` (CML), (u, i, k, j, suk, w) for
 ``sbpr`` (SBPR, CUNE_BPR) and (u, i, s, t, j, w) for ``tbpr`` (TBPR).
-The model's ``build_aux`` runs first (the social models' SPu lists and
-exclusion tables, TransCF's inverse degrees) and its ``epoch_pairs``
-give the pairs the epoch covers.  ``Trainer.aux``, which the loss and
+With ``train.sbpr_epoch_tensors=False`` SBPR, TBPR and CUNE_BPR draw
+the same columns step by step instead (``sampling.sbpr_batch``,
+``tbpr_batch`` over one ``epoch_permutation``; ``_build_batch``), and
+either tier takes them.  The model's ``build_aux`` runs first (the social
+models' SPu lists and exclusion tables, SAMN's friend lists, TransCF's
+inverse degrees) and its ``epoch_pairs`` give the pairs the epoch
+covers.  ``Trainer.aux``, which the loss and
 the evaluator read, holds those pairs as ``pos_u`` and ``pos_i`` and
 the numeric arrays of ``build_aux`` as device tensors (as the JAX
 trainer's ``arrays``); the sampler's tables stay out of it.  It is
@@ -32,8 +36,29 @@ trained through one of two tiers:
   slots at the sentinel ids, masked in the kernel, with no correction
   (``train.fused_stream`` selects the same kernel: on the card the state
   stays in device memory either way);
+- the lazy row-Adam tier (``train.sparse_rows_force``; BPR and the
+  social-triple family with Adam): per step, autograd of the model's
+  ``fused_rows_spec`` row loss over the gathered rows, then
+  ``ops.sparse_adam`` on the touched rows only (LazyAdam) and plain Adam
+  on the dense params.  Forced, it takes precedence over the fused tier,
+  and the force on a model or optimizer the tier does not take raises;
+  ``train.sparse_rows=False`` is its opt-out, moot while nothing but the
+  force selects it (the card has no VMEM ceiling to overflow);
+- the user-grouped pairwise epoch (a ``pairwise_grouped`` model, SAMN,
+  unless ``train.grouped_pairs=False``): every user's pair cells laid
+  into groups of ``TARGET_CHUNK`` once a run (``_build_grouped``), a
+  fresh negative a valid cell and a permutation of groups each epoch,
+  ``batch_size // TARGET_CHUNK`` groups a step through
+  ``model.loss_grouped_pairwise`` and the optimizer;
 - the scan tier: per step, autograd of ``model.loss``, the optax-semantics
   update of ``common.make_optimizer``, then ``model.postprocess``.
+
+``run(resume_from=...)`` restarts from a ``train/checkpoint.py``
+checkpoint at its epoch + 1, and ``save.best=True`` checkpoints the best
+epoch under ``saved_dir/<model>``; ``init_state`` applies the config's
+warm start through the model's ``warm_start`` (NeuMF from
+``gmf_pretrain`` and ``mlp_pretrain``).  A warm-start key that the model
+does not read, or one of its keys without the others, raises.
 
 Parameters live in the model (``params`` is ``dict(model.named_parameters())``)
 and are updated in place, so the evaluator always scores the current
@@ -44,6 +69,7 @@ averaged over the number of batches (RankingRecommender.py:61).
 from __future__ import annotations
 
 import functools
+import os
 import time
 
 import numpy as np
@@ -56,11 +82,15 @@ from cleverrec_tpu_torch.data.arrays import DeviceData, build_device_data
 from cleverrec_tpu_torch.data.dataset import RankingData
 from cleverrec_tpu_torch.evalx import Evaluator
 from cleverrec_tpu_torch.models.base import RecModel
-from cleverrec_tpu_torch.ops.train import (LOG2, cml_sentinel_bias,
+from cleverrec_tpu_torch.ops.sparse_adam import (dense_adam_leaf,
+                                                 sparse_rows_adam)
+from cleverrec_tpu_torch.ops.train import (LOG2, _cols, _side,
+                                           cml_sentinel_bias,
                                            fused_bpr_epoch, fused_cml_epoch,
                                            fused_gmf_epoch, fused_mlp_epoch,
                                            fused_rows_epoch, mlp_epoch_plan,
                                            rows_epoch_plan, sentinel_dims)
+from cleverrec_tpu_torch.train import checkpoint
 
 # Options of the JAX trainer that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
@@ -70,14 +100,8 @@ _UNPORTED = (
     ("train.fused_bf16", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_grouped", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_groups", lambda c, k: c.int(k, 0) > 1, _TIERS),
-    ("train.sparse_rows_force", lambda c, k: c.bool(k),
-     "queue 1, item 9 (the lazy row-Adam tier)"),
-    ("train.sbpr_epoch_tensors", lambda c, k: not c.bool(k, True),
-     "queue 1, item 9 (the per-step social samplers)"),
-    ("save.best", lambda c, k: c.bool(k), "queue 1, item 15 (checkpoints)"),
-    ("gmf_pretrain", lambda c, k: k in c, "queue 1, item 15 (warm starts)"),
-    ("mlp_pretrain", lambda c, k: k in c, "queue 1, item 15 (warm starts)"),
-    ("fism_pretrain", lambda c, k: k in c, "queue 1, item 15 (warm starts)"),
+    ("fism_pretrain", lambda c, k: k in c,
+     "queue 1, item 11 (NAIS's warm start from FISM comes with them)"),
     ("profile.dir", lambda c, k: bool(c.get(k)),
      "queue 1, item 4 (the port's benchmark and traces)"),
 )
@@ -128,11 +152,12 @@ class Trainer:
             raise NotImplementedError(
                 f"sampler {model.sampler!r} is not ported yet: the port "
                 "trains the pairwise, pointwise, cml, sbpr and tbpr "
-                "protocols (ROADMAP.md queue 1)")
+                "protocols (ROADMAP.md queue 1, item 11)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.logger = logger
+        self._warm = self._warm_start_keys()
         self.dd: DeviceData = build_device_data(data)
         # build_aux may restrict the epoch's pairs (the social family), so
         # it runs before epoch_pairs.
@@ -141,14 +166,17 @@ class Trainer:
         self.n_pairs = len(pos_u)
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
-        # A pointwise pair is one positive row and neg_ratio negatives; a
-        # CML pair is one row that carries its neg_ratio negatives.
-        self._epoch_rows = self.n_pairs * {
-            "pointwise": self.neg_ratio + 1, "cml": 1}.get(model.sampler,
-                                                          self.neg_ratio)
+        self._epoch_rows = self._rows_per_epoch()
         self.steps_per_epoch = cdiv(self._epoch_rows, self.batch_size)
         padded = self.steps_per_epoch * self.batch_size
         self._n_sent = padded - self._epoch_rows
+        # The per-step social samplers (utils/sampler.py's batch layout).
+        self._per_step = (model.sampler in ("sbpr", "tbpr")
+                          and not cfg.bool("train.sbpr_epoch_tensors", True))
+        self._grid = None
+        if (getattr(model, "pairwise_grouped", False)
+                and cfg.bool("train.grouped_pairs", True)):
+            self._build_grouped(pos_u, pos_i)
         self._build_layout(pos_u, pos_i, padded)
         self.aux: dict[str, torch.Tensor] = {
             name: torch.as_tensor(a, device=self.device)
@@ -156,20 +184,77 @@ class Trainer:
                             *self.model_aux.items())
             if isinstance(a, np.ndarray)}
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr)
-        self.fused = self._fused_epoch_eligible()
+        self.sparse_rows = self._sparse_rows_eligible()
+        self.fused = not self.sparse_rows and self._fused_epoch_eligible()
         self._gen: torch.Generator | None = None
         self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
 
+    def _rows_per_epoch(self) -> int:
+        """Rows an epoch: a pairwise or social pair fills neg_ratio rows, a
+        pointwise pair one positive and neg_ratio negatives, a CML pair
+        one row that carries its neg_ratio negatives."""
+        s = self.model.sampler
+        if s in ("pairwise", "sbpr", "tbpr"):
+            return self.n_pairs * self.neg_ratio
+        if s == "pointwise":
+            return self.n_pairs * (1 + self.neg_ratio)
+        return self.n_pairs
+
+    def _build_grouped(self, pos_u, pos_i) -> None:
+        """The grouped pairwise epoch's grid: each user's pairs repeated
+        neg_ratio times, laid in order into that user's groups of
+        ``TARGET_CHUNK`` cells; ``pg_user`` [G_pad], ``pg_pos`` and
+        ``pg_w`` [G_pad, T] (pad cells hold ``item_nums`` and weight 0).
+        G_pad fills the last step of ``batch_size // TARGET_CHUNK``
+        groups."""
+        tc, nr = self.model.TARGET_CHUNK, self.neg_ratio
+        item_nums = self.dd.item_nums
+        order = np.argsort(pos_u, kind="stable")
+        su, si = pos_u[order], pos_i[order]
+        users, starts = np.unique(su, return_index=True)
+        cells = np.diff(np.append(starts, len(su))) * nr
+        n_groups = -(-cells // tc)
+        g_total = int(n_groups.sum())
+        per_step = max(self.batch_size // tc, 1)
+        steps = cdiv(g_total, per_step)
+        g_pad = steps * per_step
+        # Cell c of user k lands at slot_off[k] + (c - c_off[k]).
+        c_off = np.concatenate([[0], np.cumsum(cells)])
+        slot_off = np.concatenate([[0], np.cumsum(n_groups * tc)])
+        k_of_cell = np.repeat(np.arange(len(users)), cells)
+        dest = slot_off[k_of_cell] + (np.arange(int(cells.sum()))
+                                      - c_off[k_of_cell])
+        flat_pos = np.full(g_pad * tc, item_nums, np.int32)
+        flat_pos[dest] = np.repeat(si, nr)
+        flat_w = np.zeros(g_pad * tc, np.float32)
+        flat_w[dest] = 1.0
+        pg_user = np.zeros(g_pad, np.int32)
+        pg_user[:g_total] = np.repeat(users, n_groups)
+        self._grid = {
+            "pg_user": pg_user, "pg_pos": flat_pos.reshape(g_pad, tc),
+            "pg_w": flat_w.reshape(g_pad, tc)}
+        self._grid_steps, self._grid_per_step = steps, per_step
+        self.steps_per_epoch = steps
+        if self.logger:
+            self.logger.info(
+                "grouped pairwise epoch: %d groups x %d cells, %d steps",
+                g_total, tc, steps)
+
     def _build_layout(self, pos_u, pos_i, padded: int) -> None:
         """The sampler's per-run constants on the device: the static epoch
-        layout, the membership table its negatives avoid (the seen items,
-        or the social models' seen-union-social table), and the social
-        models' CSR lists."""
+        layout (none for the per-step samplers and the grouped epoch),
+        the membership table its negatives avoid (the seen items, or the
+        social models' seen-union-social table), the social models' CSR
+        lists and, for the per-step samplers, each list's lengths and the
+        union table as ``MemberTable``s (the negative is drawn by rank
+        from the union, so no bitmap and no seen table)."""
         aux, dd, sampler = self.model_aux, self.dd, self.model.sampler
         neg = aux.get("social_neg", dd.seen)
         head = (pos_u, pos_i, neg.lens)
         tail = (dd.item_nums, padded, self.neg_ratio)
-        if sampler == "sbpr":
+        if self._per_step or self._grid is not None:
+            static = {}
+        elif sampler == "sbpr":
             spu = aux["spu_csr"]
             static = sampling.sbpr_epoch_static(
                 *head, sampling.csr_lens(spu), spu["off"], *tail)
@@ -192,8 +277,51 @@ class Trainer:
 
         self._static = {k: put(v) for k, v in static.items()}
         self._neg_rows, self._neg_lens = put(neg.rows), put(neg.lens)
-        self._csr = {name: {k: put(c[k]) for k in ("flat", "suk")}
+        self._csr = {name: {k: put(c[k]) for k in ("flat", "off", "suk")}
                      for name, c in aux.items() if name.endswith("_csr")}
+        if self._grid is not None:
+            self._pg = {k: put(v) for k, v in self._grid.items()}
+        self._tables = {}
+        if self._per_step:
+            self._tables = {
+                name: sampling.MemberTable(None, put(sampling.csr_lens(c)),
+                                           None)
+                for name, c in aux.items() if name.endswith("_csr")}
+            self._tables["social_neg"] = sampling.MemberTable(
+                self._neg_rows, self._neg_lens, None)
+
+    def _warm_start_keys(self) -> tuple[str, ...]:
+        """The warm-start keys set in the config: all of the model's
+        ``pretrain_keys`` or none.  A key the model does not read, or
+        some of its keys without the others, raises."""
+        own = getattr(self.model, "pretrain_keys", ())
+        given = tuple(k for k in checkpoint.PRETRAIN_KEYS if k in self.cfg)
+        if given and set(given) != set(own):
+            raise ValueError(
+                f"{', '.join(given)} set, but {self.model.name} warm-starts "
+                f"from {' and '.join(own) if own else 'no checkpoint'}: set "
+                "all of its keys or none")
+        return given
+
+    def _sparse_rows_eligible(self) -> bool:
+        """The lazy row-Adam tier: ``train.sparse_rows_force`` on a model
+        with a ``fused_rows_spec`` on the rows or BPR protocol, under
+        Adam; the force on any other model or optimizer raises.  The JAX
+        trainer also takes it, unless ``train.sparse_rows=False``, where
+        the TPU's resident plan overflows VMEM; the card has no such
+        ceiling, so here only the force selects it."""
+        if not self.cfg.bool("train.sparse_rows_force", False):
+            return False
+        if (getattr(self.model, "fused_protocol", None)
+                not in ("rows", "pairwise_bpr")
+                or not hasattr(self.model, "fused_rows_spec")
+                or self.cfg.optimizer != "Adam"):
+            raise ValueError(
+                "train.sparse_rows_force: the lazy row-Adam tier takes a "
+                "model with a rows spec (BPR and the social-triple family) "
+                f"under Adam, not {self.model.name} under "
+                f"{self.cfg.optimizer}")
+        return True
 
     def _fused_epoch_eligible(self) -> bool:
         """The fused epoch kernels hard-code their model's form and Adam;
@@ -237,9 +365,21 @@ class Trainer:
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict[str, torch.Tensor]:
         """The next epoch's draw of the model's sampler, each column
-        [steps, B] on the device."""
+        [steps, B] on the device; for the grouped epoch, ``j`` [G_pad, T]
+        (a negative a cell, ``item_nums`` on pad cells) and ``perm``
+        [steps, G/step] (the groups of each step)."""
         if self._gen is None:
             raise RuntimeError("call init_state first")
+        if self._grid is not None:
+            return self._sample_grouped()
+        if self._per_step:
+            steps, b = self.steps_per_epoch, self.batch_size
+            perm, valid = sampling.epoch_permutation(
+                self._gen, self._epoch_rows, steps * b)
+            batches = [self._build_batch(r, v) for r, v in zip(
+                perm.reshape(steps, b), valid.reshape(steps, b))]
+            return {k: torch.stack([bt[k] for bt in batches])
+                    for k in batches[0]}
         head = (self._gen, self._static, self._neg_rows, self._neg_lens)
         lists = {"sbpr": ("spu_csr",), "tbpr": ("ts_csr", "tw_csr")}.get(
             self.model.sampler, ())
@@ -254,22 +394,55 @@ class Trainer:
                           self._epoch_rows, self.steps_per_epoch,
                           self.batch_size)
 
+    def _build_batch(self, rows, valid) -> dict[str, torch.Tensor]:
+        """One step's rows of the per-step social sampler, from that
+        step's shuffled row ids ``rows`` [B] and weights ``valid`` [B]."""
+        t, csr = self._tables, self._csr
+        common = (self._gen, rows, valid, self.aux["pos_u"],
+                  self.aux["pos_i"], None, self.dd.item_nums,
+                  self.neg_ratio)
+        if self.model.sampler == "sbpr":
+            return sampling.sbpr_batch(*common, t["spu_csr"], csr["spu_csr"],
+                                       social_neg=t["social_neg"])
+        return sampling.tbpr_batch(*common, t["ts_csr"], t["tw_csr"],
+                                   csr["ts_csr"], csr["tw_csr"],
+                                   social_neg=t["social_neg"])
+
+    def _sample_grouped(self) -> dict[str, torch.Tensor]:
+        """A fresh unseen negative for every cell of the grid (weight-0
+        cells get ``item_nums``) and a permutation of the groups."""
+        pg, g_pad = self._pg, self._grid["pg_user"].shape[0]
+        j = sampling.sample_not_in(
+            self._gen, sampling.MemberTable(self._neg_rows, self._neg_lens,
+                                            None),
+            pg["pg_user"], self.dd.item_nums, pg["pg_pos"].shape)
+        j = torch.where(pg["pg_w"] > 0, j, self.dd.item_nums)
+        perm = torch.randperm(g_pad, generator=self._gen, device=self.device)
+        return {"j": j, "perm": perm.reshape(self._grid_steps,
+                                             self._grid_per_step)}
+
     def _run_epoch(self, params, opt_state, tensors):
-        """Train one epoch on given sampled tensors ([steps, B] each);
-        returns (params, opt_state, mean per-step loss as a 0-dim tensor).
-        ``params`` must be the model's own parameters."""
+        """Train one epoch on given sampled tensors ([steps, B] each, or
+        the grouped epoch's ``j`` and ``perm``); returns (params,
+        opt_state, mean per-step loss as a 0-dim tensor).  ``params``
+        must be the model's own parameters."""
+        if self._grid is not None:
+            return self._grouped_epoch(params, opt_state, tensors)
+        if self.sparse_rows:
+            return self._sparse_rows_epoch(params, opt_state, tensors)
         if self.fused:
             return self._fused_epoch(params, opt_state, tensors)
         return self._scan_epoch(params, opt_state, tensors)
 
-    def _scan_epoch(self, params, opt_state, tensors):
+    def _steps(self, params, opt_state, batches, loss_fn):
+        """One optimizer step a batch on ``loss_fn(batch, aux)``; returns
+        (params, opt_state, mean loss)."""
         names = list(params)
         leaves = [params[k] for k in names]
-        steps = tensors["u"].shape[0]
-        losses = torch.zeros(steps, dtype=torch.float32, device=self.device)
-        for s in range(steps):
-            batch = {k: v[s] for k, v in tensors.items()}
-            loss = self.model.loss(batch, self.aux)
+        losses = torch.zeros(len(batches), dtype=torch.float32,
+                             device=self.device)
+        for s, batch in enumerate(batches):
+            loss = loss_fn(batch, self.aux)
             # A parameter outside the loss (NeuMF's h_gmf and h_mlp, kept
             # for the warm start) gets a zero gradient, as under JAX:
             # Adam then leaves it and its moments as they were.
@@ -280,6 +453,67 @@ class Trainer:
                                               opt_state)
             self.model.postprocess()
             losses[s] = loss.detach()
+        return params, opt_state, losses.mean()
+
+    def _scan_epoch(self, params, opt_state, tensors):
+        batches = [{k: v[s] for k, v in tensors.items()}
+                   for s in range(tensors["u"].shape[0])]
+        return self._steps(params, opt_state, batches, self.model.loss)
+
+    def _grouped_epoch(self, params, opt_state, tensors):
+        pg, j = self._pg, tensors["j"]
+        batches = [{"gu": pg["pg_user"][sel], "gi": pg["pg_pos"][sel],
+                    "gj": j[sel], "gw": pg["pg_w"][sel]}
+                   for sel in tensors["perm"]]
+        return self._steps(params, opt_state, batches,
+                           self.model.loss_grouped_pairwise)
+
+    def _sparse_rows_epoch(self, params, opt_state, tensors):
+        """Per step: the model's rows loss over each plane's gathered rows
+        (a side's tables joined on the feature axis), its gradients with
+        respect to those rows, then LazyAdam on the rows each side's
+        planes touched (every row of the batch, weight-0 rows too, as the
+        JAX tier) and plain Adam on the dense params."""
+        spec = self.model.fused_rows_spec()
+        names = [n for n, _ in spec["planes"]]
+        sides = [sd for _, sd in spec["planes"]]
+        packs = [spec["pack"](t) for t in (params, opt_state.mu,
+                                           opt_state.nu)]
+        tables = {sd: [tuple(_cols(x) for x in _side(p[k])) for p in packs]
+                  for k, sd in enumerate(("u", "i"))}
+        dense = [p[2] for p in packs]
+        count, lr = opt_state.count, self.cfg.lr
+        steps = tensors["w"].shape[0]
+        losses = torch.zeros(steps, dtype=torch.float32, device=self.device)
+        for s in range(steps):
+            ids = [tensors[n][s].long() for n in names]
+            rows = [torch.cat([x[i] for x in tables[sd][0]], dim=1)
+                    for i, sd in zip(ids, sides)]
+            leaves = [r.requires_grad_() for r in rows] + [
+                x.detach().requires_grad_() for x in dense[0]]
+            loss = spec["row_loss"](
+                tuple(leaves[:len(rows)]),
+                tuple(tensors[n][s].to(torch.float32)[:, None]
+                      for n in spec["floats"]),
+                tuple(leaves[len(rows):]),
+                tensors["w"][s].to(torch.float32)[:, None])
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            for sd in ("u", "i"):
+                on = [k for k, side in enumerate(sides) if side == sd]
+                side_ids = torch.cat([ids[k] for k in on])
+                side_g = torch.cat([grads[k] for k in on])
+                off = 0
+                for x, m, v in zip(*tables[sd]):
+                    width = x.shape[1]
+                    sparse_rows_adam(x, m, v, side_ids,
+                                     side_g[:, off:off + width], count, lr)
+                    off += width
+            for x, m, v, g in zip(*dense, grads[len(rows):]):
+                dense_adam_leaf(x, m, v, torch.zeros_like(x) if g is None
+                                else g, count, lr)
+            count += 1
+            losses[s] = loss.detach()
+        opt_state.count = count
         return params, opt_state, losses.mean()
 
     def _fused_epoch(self, params, opt_state, tensors):
@@ -361,17 +595,56 @@ class Trainer:
         return raw
 
     # -- public API -----------------------------------------------------
-    def init_state(self, seed: int | None = None):
+    def init_state(self, seed: int | None = None, warm_start: bool = True):
         """(params, opt_state) of a fresh run: the model's parameters drawn
-        from a generator seeded with ``seed`` (default ``cfg.seed``), and
-        the sampler's device generator seeded from the same stream."""
+        from a generator seeded with ``seed`` (default ``cfg.seed``), then
+        the config's warm start (the model's ``warm_start``), and the
+        sampler's device generator seeded from the same stream."""
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
         self.model.init(gen)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=gen)))
         params = dict(self.model.named_parameters())
+        if warm_start and self._warm:
+            own = {k: p.detach() for k, p in params.items()}
+            checkpoint.copy_into(own, self.model.warm_start(own, self.cfg),
+                                 "warm start")
+            if self.logger:
+                self.logger.info("warm start: %s from %s", self.model.name,
+                                 ", ".join(self.cfg.str(k)
+                                           for k in self._warm))
         return params, self.optimizer.init(params)
+
+    def rng_state(self) -> dict[str, torch.Tensor]:
+        """The generators a run draws from: the sampler's and torch's
+        CPU generator (and the card's, on a card)."""
+        state = {"sampler": self._gen.get_state(),
+                 "cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            state["cuda"] = torch.cuda.get_rng_state(self.device)
+        return state
+
+    def save(self, path: str, params, opt_state, epoch: int) -> str:
+        """A train-state checkpoint of this run after ``epoch`` epochs."""
+        return checkpoint.save_checkpoint(path, params, opt_state, epoch,
+                                          self.rng_state())
+
+    def resume(self, path: str):
+        """(params, opt_state, epoch) of the run that ``save`` wrote to
+        ``path``, the model's parameters and the generators set to it."""
+        params, opt_state = self.init_state(warm_start=False)
+        state = checkpoint.load_checkpoint(path)
+        checkpoint.copy_into({k: p.detach() for k, p in params.items()},
+                              state["params"], "parameter")
+        opt_state = checkpoint.load_optimizer_state(state["opt_state"],
+                                                    opt_state)
+        rng = state["rng"]
+        self._gen.set_state(rng["sampler"])
+        torch.set_rng_state(rng["cpu"])
+        if "cuda" in rng and self.device.type == "cuda":
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        return params, opt_state, int(state["epoch"])
 
     def train_epoch(self, params, opt_state):
         params, opt_state, loss = self._run_epoch(params, opt_state,
@@ -394,20 +667,29 @@ class Trainer:
         """Full train/eval loop with best-NDCG@topk[0] tracking
         (RankingRecommender.py:400-440).  Each epoch line carries its
         numbers as the log record's ``train`` attribute, each eval's as
-        ``eval``, and the summary's as ``best``."""
-        if resume_from:
-            raise NotImplementedError(
-                "resuming is not ported yet (ROADMAP.md queue 1, item 15)")
+        ``eval``, and the summary's as ``best``.  ``resume_from``, a
+        checkpoint directory, restarts at its epoch + 1; with
+        ``save.best=True`` each new best epoch's train state is saved to
+        ``saved_dir/<model>`` (the reference's disabled save path,
+        RankingRecommender.py:432-433, made to work)."""
 
         def log(msg, *args, **extra):
             if self.logger:
                 self.logger.info(msg, *args, extra=extra)
 
-        params, opt_state = self.init_state(seed)
+        if resume_from:
+            params, opt_state, epoch = self.resume(resume_from)
+            log("resumed from %s at epoch %d", resume_from, epoch)
+        else:
+            params, opt_state = self.init_state(seed)
+            epoch = 0
+        save_dir = None
+        if self.cfg.bool("save.best", False):
+            save_dir = os.path.join(self.cfg.str("saved_dir", "./saved_model"),
+                                    self.model.name)
         topk = self.cfg.topk
         best = {"epoch": 0, "ndcg": 0.0, "metrics": {}}
         interval = self.cfg.test_interval
-        epoch = 0
         while epoch < self.cfg.epoches:
             next_eval = min(((epoch // interval) + 1) * interval,
                             self.cfg.epoches)
@@ -433,9 +715,13 @@ class Trainer:
             if results[topk[0]][2] > best["ndcg"]:
                 best = {"epoch": epoch, "ndcg": results[topk[0]][2],
                         "metrics": results}
+                if save_dir:
+                    self.save(save_dir, params, opt_state, epoch)
+                    log("  saved to %s", save_dir)
         log("best_epoch: %d", best["epoch"], best=best)
         for k in topk:
             if k in best["metrics"]:
                 hr, mrr, ndcg = best["metrics"][k]
                 log("  (k=%d) HR=%.4f, MRR=%.4f, NDCG=%.4f", k, hr, mrr, ndcg)
+        self.params, self.opt_state = params, opt_state
         return best

@@ -1,12 +1,14 @@
-"""Parameters and Adam state carried across from the JAX package.
+"""Parameters and optimizer state carried across from the JAX package.
 
 The JAX models keep a flat ``{name: array}`` pytree whose names match the
 port's ``nn.Parameter`` names (BPR: ``P``, ``Q``; GMF: ``P``, ``Q``,
 ``h_gmf``; MLP and NeuMF: their tables, ``W_l``, ``b_l`` and ``h_*``;
 SBPR and TBPR: ``P``, ``Q``, ``bias``; CUNE_BPR also its 0-d ``s``;
 CML and TransCF: ``P``, ``Q``; LRML: ``P``, ``Q``, ``K`` [d, mem],
-``M`` [mem, d]), and optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
-names.  Shapes are the JAX shapes too, 0-d ones included, so nothing is
+``M`` [mem, d]; SAMN and SAMN_single: ``P`` [U + 1, d], ``Q``, ``i_b``,
+``Key``, ``Mem``, ``W3``, ``b``, ``h``), optax's Adam keeps
+``opt_state[0]`` = (count, mu, nu) over the same names and optax's
+Adagrad ``opt_state[0].sum_of_squares``.  Shapes are the JAX shapes too, 0-d ones included, so nothing is
 transposed or reshaped.
 Convert the arrays to numpy on the JAX side (``np.asarray``); nothing
 here imports JAX.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cleverrec_tpu_torch.common import AdamState
+from cleverrec_tpu_torch.common import AdagradState, AdamState
 
 
 def params_from_jax(params: dict[str, np.ndarray],
@@ -62,3 +64,16 @@ def adam_state_from_jax(count, mu: dict[str, np.ndarray],
     _check_like(own, nu, "nu")
     return AdamState(int(np.asarray(count)), params_from_jax(mu, device),
                      params_from_jax(nu, device))
+
+
+def adagrad_state_from_jax(sum_of_squares: dict[str, np.ndarray], device,
+                           model: torch.nn.Module | None = None
+                           ) -> AdagradState:
+    """optax's ``ScaleByRssState`` (``opt_state[0].sum_of_squares``, as
+    numpy) -> the port's ``AdagradState`` on ``device``; given ``model``,
+    the accumulators must hold exactly its parameters' names and
+    shapes."""
+    if model is not None:
+        _check_like(dict(model.named_parameters()), sum_of_squares,
+                    "sum_of_squares")
+    return AdagradState(params_from_jax(sum_of_squares, device))

@@ -92,7 +92,7 @@ def test_cli_evaluates_every_interval(toy_argv, records):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2x1"], ["--distributed"], ["--export-serving", "out"],
-    ["--resume", "ckpt"], ["--tune"], ["--set", "model_type=rating"],
+    ["--tune", "--mesh", "2x1"], ["--set", "model_type=rating"],
     ["--set", "nokey"]])
 def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
     assert cli.main(toy_argv + ["--device", "cpu"] + flags) == 2
@@ -100,11 +100,54 @@ def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
     assert "ROADMAP.md" in err or "bad --set" in err
 
 
+def test_cli_resumes(toy_argv, records, tmp_path):
+    """2 epochs with save.best, then --resume to 3: the resumed run starts
+    at the saved epoch + 1."""
+    saved = ["--device", "cpu", "--set", f"saved_dir={tmp_path / 'saved'}"]
+    assert cli.main(toy_argv + saved + ["--set", "epoches=2",
+                                        "--set", "save.best=True"]) == 0
+    ckpt = tmp_path / "saved" / "BPR"
+    assert (ckpt / "state.pt").exists()
+    from cleverrec_tpu_torch.train.checkpoint import load_checkpoint
+    done = load_checkpoint(str(ckpt))["epoch"]
+    got = records()
+    assert cli.main(toy_argv + saved + ["--resume", str(ckpt)]) == 0
+    assert [r.train["epoch"] for r in got if hasattr(r, "train")] == list(
+        range(done + 1, 4))
+    assert any(r.getMessage().startswith("resumed from ") for r in got)
+
+
+def test_cli_tunes(toy_argv, tmp_path, capsys):
+    """--tune runs the grid of the list-valued keys (2 x 1 here) and names
+    the best trial; --resume and --export-serving are ignored with it."""
+    logger = logging.getLogger("cleverrec_tpu_torch.BPR_tune")
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    try:
+        rc = cli.main(toy_argv + ["--device", "cpu", "--tune",
+                                  "--resume", "nowhere",
+                                  "--export-serving", "out",
+                                  "--set", "embed_size=[8,16]",
+                                  "--set", "epoches=1"])
+    finally:
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "ignored with --tune" in out
+    assert "== trial {'embed_size': '8'}" in out
+    assert "== trial {'embed_size': '16'}" in out
+    assert "== best trial: {'embed_size': " in out
+    assert not os.path.exists("out")
+
+
 def test_cli_lists_models(capsys):
     assert cli.main(["--list-models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "BPR", "CML", "CUNE_BPR", "GMF", "LRML", "MLP", "NeuMF", "SBPR", "TBPR",
-        "TransCF"]
+        "BPR", "CML", "CUNE_BPR", "GMF", "LRML", "MLP", "NeuMF", "SAMN",
+        "SAMN_single", "SBPR", "TBPR", "TransCF"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):

@@ -42,7 +42,8 @@ def test_port_never_loads_jax_or_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(report["imported"]) == set(_port_modules())
     for name in ("ops.scores", "ops.train", "models.ncf", "models.social",
-                 "data.social", "models.metric", "models.modules"):
+                 "data.social", "models.metric", "models.modules",
+                 "ops.sparse_adam", "train.checkpoint", "tuning"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]
@@ -72,8 +73,9 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 def test_unported_model_names_its_slice():
     from cleverrec_tpu_torch.models import make_model
-    cfg = Config({"recommender": "SAMN"})
-    with pytest.raises(NotImplementedError, match="social slice"):
+    cfg = Config({"recommender": "NAIS"})
+    with pytest.raises(NotImplementedError,
+                       match="other-ranking-models slice.*item 11"):
         make_model(cfg, DataMeta(4, 40), device="cpu")
 
 

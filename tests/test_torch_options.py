@@ -1,8 +1,9 @@
 """Options and rules of the JAX package that the port does not follow yet
-refuse instead of passing silently, each naming its ROADMAP item; the
-eval options that select streaming select the JAX evaluator's mode; and
-serving's ``auto`` backend picks dense past the measured crossover and
-streams past JAX's threshold."""
+refuse instead of passing silently, each naming its ROADMAP item, and
+the per-step social samplers, once refused, train; the eval options that
+select streaming select the JAX evaluator's mode; and serving's ``auto``
+backend picks dense past the measured crossover and streams past JAX's
+threshold."""
 
 import dataclasses
 
@@ -44,19 +45,30 @@ def test_eval_options_not_ported_raise(toy_dataset, key, value, item):
             make()
 
 
-def test_per_step_social_samplers_not_ported_raise(toy_social_dataset):
-    cfg, data, model = _setup(toy_social_dataset, recommender="SBPR",
-                              social_file="trusts.csv",
-                              **{"train.sbpr_epoch_tensors": "False"})
-    with pytest.raises(NotImplementedError,
-                       match="train.sbpr_epoch_tensors.*item 9"):
-        Trainer(model, data, cfg, device="cpu")
-    # Its default, and the explicit default, train as before.
+def test_per_step_social_samplers_train(toy_social_dataset):
+    """``train.sbpr_epoch_tensors=False`` is ported: SBPR and TBPR train
+    on the per-step samplers (no static epoch layout), on both tiers; its
+    default, and the explicit default, keep the epoch tensors."""
+    for name in ("SBPR", "TBPR"):
+        for fused in ("False", "True"):
+            cfg, data, model = _setup(
+                toy_social_dataset, recommender=name,
+                social_file="trusts.csv", lr="0.05",
+                **{"train.sbpr_epoch_tensors": "False",
+                   "train.fused_kernel": fused})
+            tr = Trainer(model, data, cfg, device="cpu")
+            assert tr._per_step and tr._static == {}
+            assert tr.fused == (fused == "True")
+            params, state = tr.init_state()
+            params, state, losses = tr.train_epochs(params, state, 3)
+            assert losses[-1] < losses[0], (name, fused, losses)
+            assert state.count == 3 * tr.steps_per_epoch
     for value in (None, "True"):
         extra = {} if value is None else {"train.sbpr_epoch_tensors": value}
         cfg, data, model = _setup(toy_social_dataset, recommender="SBPR",
                                   social_file="trusts.csv", **extra)
-        assert Trainer(model, data, cfg, device="cpu").steps_per_epoch > 0
+        tr = Trainer(model, data, cfg, device="cpu")
+        assert not tr._per_step and "ord_spuoff" in tr._static
 
 
 FULL = {"data.split_way": "rs", "test.neg_samples": "0"}

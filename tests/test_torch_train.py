@@ -334,9 +334,7 @@ def test_fused_tier_eligibility(toy_dataset):
     ("train.fused_bf16", "True", "item 17"),
     ("train.fused_groups", "4", "item 17"),
     ("train.fused_grouped", "True", "item 17"),
-    ("train.sparse_rows_force", "True", "item 9"),
-    ("save.best", "True", "item 15"),
-    ("gmf_pretrain", "gmf_ckpt", "item 15"),
+    ("fism_pretrain", "fism_ckpt", "item 11"),
     ("profile.dir", "trace", "item 4"),
     ("neg_sampling", "popularity", "item 7"),
 ])
@@ -346,12 +344,15 @@ def test_unported_options_raise(toy_dataset, key, value, item):
         Trainer(model, data, cfg.with_overrides(**{key: value}), device="cpu")
 
 
-def test_unported_runs_raise(toy_dataset):
+def test_unported_runs_raise(toy_dataset, tmp_path):
+    """A mesh is not ported (item 16); resuming is, and a missing
+    checkpoint raises."""
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
     with pytest.raises(NotImplementedError, match="item 16"):
         Trainer(model, data, cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Trainer(model, data, cfg, device="cpu").run(resume_from="ckpt")
+    with pytest.raises(FileNotFoundError):
+        Trainer(model, data, cfg, device="cpu").run(
+            resume_from=str(tmp_path / "ckpt"))
 
 
 def test_trainer_runs_both_tiers(toy_dataset):
