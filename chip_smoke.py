@@ -47,7 +47,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
   fused tier: each kernel launches once per epoch, the loss falls, and
   the best HR@10 is at least the JAX package's on the same data less
   ``JAX_BAND``.  Then each model 3 epochs through the fused and the scan
-  tier on identical draws, held to each other as phase D holds BPR's.
+  tier on identical draws, held to each other as phase D holds BPR's;
+  ``mlp_epoch`` sums in a fixed order, so MLP's and NeuMF's 3-epoch fused
+  runs repeat their 30-epoch runs' first 3 epoch losses bit for bit.
 - Phase F, the social-triple family (kernel ``rows_epoch``): a trust
   graph over the rebuilt ml-100k's users, generated from a seed
   (``write_trusts``), then the same CLI with ``--model SBPR`` and
@@ -94,6 +96,27 @@ width of ``conf/BPR.properties`` (embed_size 128):
   embed_size, 2 epochs a trial.  The ``phase I`` line gives each run's
   epoch and eval ms beside its reference's, and phase I's seconds; the
   profiles line SAMN's epoch and eval by kernel.
+- Phase J, the item-similarity and graph models (kernel ``dot_scores``
+  through LightGCN's decomposition): on the same files, the same CLI
+  with ``--model FISM`` (embed 128, 50 epochs), ``LightGCN`` and
+  ``NGCF`` (embed 64, 3 layers, 100 epochs), each on its conf through
+  the scan tier: no epoch kernel, the loss falls, and the best HR@10 is
+  at least the JAX package's on the same files less ``JAX_BAND``.  NAIS
+  on its conf (embed 128, atten 32, Adagrad, the bucketed grouped tier)
+  ``NAIS_EPOCHS`` epochs warm-started from the FISM run
+  (``fism_pretrain``) and as many cold, both held to the JAX CLI's runs
+  (warm from its own FISM), the warm first epoch's loss above the cold
+  one's as in the JAX package; NAIS_single 2 epochs, NAIS on the flat
+  tier (``train.bucketed_histories=False``) 2 epochs with the loss
+  falling; LightGCN 5 epochs on its dense adjacency and on its edge list
+  (``graph.dense_budget_mb=0``), within ``TIER_BAND``.  Then the
+  100-epoch LightGCN's parameters on a random split: its ``full_fused``
+  eval (``dot_scores`` on the propagated item rows) equal to ``full``,
+  and 4 x 256 users at k=10 through ``auto``, which must pick ``fused``,
+  held against ``dense``; ``dot_scores`` must launch.  One NAIS epoch is
+  profiled (the device's busy share).  The ``phase J`` line gives each
+  run's epoch and eval ms, first and last loss, best HR@10 beside its
+  reference, the bucket plan, and phase J's seconds.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -102,8 +125,10 @@ width of ``conf/BPR.properties`` (embed_size 128):
   library call's (``library_device_ms``) and the host's time to issue
   one wrapper call (``wrapper_us``, over the calls ``ms`` times);
   ``dot_scores`` is held and timed at A, at phase A's eval batches (E:
-  its 1,024-user ``full_fused`` batches, which take another tile), at B
-  and at N, 1,024 users x 4,096 items (the narrow branch's border),
+  its 1,024-user ``full_fused`` batches, which take another tile), at B,
+  at N, 1,024 users x 4,096 items (the narrow branch's border), and at J
+  (phase J's first serving call: LightGCN's 256 propagated user rows
+  against its 1,682 item rows, d 64),
   ``dot_gmax`` at B and A, each timing naming the tile it took; inputs
   from the script's seeds.  The ``mlp_epoch``, ``rows_epoch`` and
   ``rows_epoch_lrml`` rows give the kernel's own device time of an epoch
@@ -118,8 +143,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
   device kernel; ``device_trace_from``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
-and H, and again before and after each training run (phase I's
-included).  Exits non-zero, with no
+and H, again before and after each training run (phases I's and J's
+included), and before and after phase J's LightGCN eval and serving
+(``dot_scores``' row counts A, B, H and J).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -151,6 +177,9 @@ from cleverrec_tpu_torch.ops.topk import topk
 from cleverrec_tpu_torch.sampling import rows_to_bits
 from cleverrec_tpu_torch.serving import build_retrieval_fn
 from cleverrec_tpu_torch.train import Trainer
+from cleverrec_tpu_torch.train.checkpoint import (copy_into,
+                                                  load_checkpoint,
+                                                  load_params)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "build", "data")
@@ -167,6 +196,9 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "cleverrec_tpu_torch/csrc/cml_epoch.cu", "conf/CML.properties",
           "conf/LRML.properties", "conf/TransCF.properties",
           "conf/SAMN.properties", "conf/SAMN_single.properties",
+          "conf/FISM.properties", "conf/NAIS.properties",
+          "conf/NAIS_single.properties", "conf/LightGCN.properties",
+          "conf/NGCF.properties",
           "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
@@ -239,6 +271,28 @@ SAMN_SINGLE_EPOCHS = 10
 GROUPED_FLAT_EPOCHS = 30
 CKPT_EPOCHS = (2, 4)     # BPR: saved after the first, resumed to the second
 PRETRAIN_EPOCHS = 3      # GMF and MLP before NeuMF's warm start
+# Phase J: the confs' epoch counts (FISM 50, LightGCN and NGCF 100), and
+# NAIS's, warm and cold, cut from the conf's 50 to what phase J's time
+# allows.
+ITEM_GRAPH_EPOCHS = {"FISM": 50, "LightGCN": 100, "NGCF": 100}
+NAIS_EPOCHS = 10
+NAIS_SHORT_EPOCHS = 2   # NAIS_single, and NAIS on the flat tier
+EDGE_EPOCHS = 5         # LightGCN's dense against its edge-list path
+# Phase J: the JAX package's best HR@10 on the same rebuilt ml-100k, each
+# conf's recipe at the epoch counts above, from the JAX CLI on the CPU:
+#   JAX_PLATFORMS=cpu python -m cleverrec_tpu.cli --config
+#     CleverRec.properties --conf-dir conf --set data.root_dir=build/data
+#     --set data.file_name=ratings.csv --set data.sep=, --model M
+# with M FISM (and --set save.best=True --set saved_dir=DIR), LightGCN,
+# NGCF, and NAIS with --set epoches=10 --set test.batch_size=256, cold
+# and warm-started from that FISM (--set fism_pretrain=DIR/FISM).
+JAX_ITEM_GRAPH_HR10 = {"FISM": 0.7922, "LightGCN": 0.7519, "NGCF": 0.8293,
+                       "NAIS_warm": 0.6437, "NAIS_cold": 0.8070}
+# The JAX CLI's first-epoch NAIS loss on the same files, warm-started from
+# its FISM and cold: the warm start raises it.  Phase J holds the port's
+# warm first epoch above WARM_GAP times its cold one.
+JAX_NAIS_FIRST_LOSS = {"warm": 1036.9663, "cold": 382.5351}
+WARM_GAP = 1.1
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -571,25 +625,27 @@ def check_answer(tag, got, want, bits, k, item_nums, offset=None):
 
 
 def breakdown(fn, top: int = 8) -> dict:
-    """Device time of one fn() call by kernel, from torch.profiler: the
-    top kernels, their sum, and the call's wall time."""
+    """Device time of one fn() call by kernel, after one warm-up call:
+    the top kernels, their sum, and the call's wall time.  Summed from
+    torch.profiler's raw device records (kernels, copies), which every
+    profile reads the same way; its per-op event tree, ``key_averages``,
+    took more than a minute to build for one NAIS epoch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = sync_s(fn)
-    # Device-side events only (kernels, copies): a CPU op's row repeats
-    # the time of the kernels it launched.
-    kernels = sorted(((e.key[:70], e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda x: -x[1])
-    busy = sum(ms for _, ms, _ in kernels)
-    return {"wall_ms": wall * 1e3, "device_ms": busy,
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name()[:70], (0.0, 0))
+            by_name[e.name()[:70]] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = sorted(by_name.items(), key=lambda x: -x[1][0])
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(ms for ms, _ in by_name.values()),
             "top": [{"kernel": name, "ms": ms, "count": n}
-                    for name, ms, n in kernels[:top]]}
+                    for name, (ms, n) in kernels[:top]]}
 
 
 def seen_bits(dd, users):
@@ -602,14 +658,15 @@ def seen_bits(dd, users):
 
 
 def serve(tag, model, dd, k, users_per_call, backend, expect, rng,
-          profiles):
+          profiles, aux=None):
     """Serve 4 calls through ``backend``, which must resolve to
     ``expect``, and hold each to dense; time both backends and add a
-    kernel breakdown of one call of each to ``profiles``.  Returns the
-    calls' users, the times and the dense answers."""
-    fast = build_retrieval_fn(model, {}, dd, k=k, backend=backend)
+    kernel breakdown of one call of each to ``profiles``.  ``aux``: the
+    model's (default none).  Returns the calls' users, the times and the
+    dense answers."""
+    fast = build_retrieval_fn(model, aux, dd, k=k, backend=backend)
     check(fast.backend == expect, f"{tag}: {backend} picked {fast.backend}")
-    dense = build_retrieval_fn(model, {}, dd, k=k, backend="dense")
+    dense = build_retrieval_fn(model, aux, dd, k=k, backend="dense")
     calls = [np.sort(rng.choice(dd.user_nums, users_per_call, replace=False))
              for _ in range(4)]
     swaps, fast_s, answers = 0, [], []
@@ -633,10 +690,10 @@ def serve(tag, model, dd, k, users_per_call, backend, expect, rng,
     return calls, times, answers
 
 
-def evaluate(tag, evaluator):
-    evaluator.evaluate()                  # first use loads CUDA modules
-    res, s = sync_s(evaluator.evaluate)
-    host = evaluator.evaluate_host()
+def evaluate(tag, evaluator, aux=None):
+    evaluator.evaluate(aux)               # first use loads CUDA modules
+    res, s = sync_s(lambda: evaluator.evaluate(aux))
+    host = evaluator.evaluate_host(aux)
     for k, vals in res.items():
         check(all(np.isfinite(x) and 0.0 <= x for x in vals),
               f"{tag}: metrics {vals}")
@@ -852,7 +909,7 @@ class Records(logging.Handler):
 
     def __init__(self):
         super().__init__()
-        self.train, self.eval, self.bests = [], [], []
+        self.train, self.eval, self.bests, self.buckets = [], [], [], []
 
     @property
     def best(self):
@@ -865,6 +922,8 @@ class Records(logging.Handler):
             self.eval.append(record.eval)
         if hasattr(record, "best"):
             self.bests.append(record.best)
+        if hasattr(record, "buckets"):
+            self.buckets.append(record.buckets)
 
 
 def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
@@ -928,7 +987,8 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
             "loss_first": losses[0], "loss_last": losses[-1],
             "best_epoch": records.best["epoch"], "best": best,
             "last": last, "bests": [b["ndcg"] for b in records.bests],
-            "epoch_ms": train_ms, "losses": losses}
+            "epoch_ms": train_ms, "losses": losses,
+            "buckets": records.buckets[-1] if records.buckets else None}
 
 
 def phase_c():
@@ -996,6 +1056,11 @@ def phase_e():
         for key, band in TIER_BAND.items():
             a, b = pair["fused"]["best"][key], pair["scan"]["best"][key]
             check(abs(a - b) <= band, f"E {name}: {key} fused {a} vs scan {b}")
+        if kernel == "mlp_epoch":
+            head = res["losses"][:TIER_EPOCHS]
+            check(head == pair["fused"]["losses"],
+                  f"E {name}: the run's first losses {head}, again "
+                  f"{pair['fused']['losses']}")
         tiers[name] = pair
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("gmf_epoch", "mlp_epoch")}
@@ -1476,7 +1541,6 @@ def summary(res, ref=None):
 def param_gap(a: str, b: str):
     """The largest gap between two checkpoints' parameters, or None when
     they hold different epochs."""
-    from cleverrec_tpu_torch.train.checkpoint import load_checkpoint
     ca, cb = load_checkpoint(a), load_checkpoint(b)
     if ca["epoch"] != cb["epoch"]:
         return None
@@ -1557,7 +1621,6 @@ def phase_i(train, profiles):
         shutil.rmtree(d, ignore_errors=True)
     first = drive_cli("I_BPR_first", epochs=CKPT_EPOCHS[0],
                       **{"save.best": "True", "saved_dir": first_dir})
-    from cleverrec_tpu_torch.train.checkpoint import load_checkpoint
     ckpt = os.path.join(first_dir, "BPR")
     done = load_checkpoint(ckpt)["epoch"]
     check(done == first["best_epoch"], f"I: saved epoch {done}, best "
@@ -1616,6 +1679,151 @@ def phase_i(train, profiles):
     profiles["I_SAMN_eval"] = breakdown(trainer.evaluate)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def gate(tag, res, ref):
+    """The run's best HR@10 at least the JAX package's ``ref`` less
+    ``JAX_BAND``."""
+    floor = ref - JAX_BAND
+    check(res["best"]["HR@10"] >= floor,
+          f"{tag}: best HR@10 {res['best']['HR@10']} < {floor}")
+
+
+def lightgcn_ranking(ckpt, rng, gen, profiles):
+    """LightGCN's trained parameters (the checkpoint ``ckpt``) on a random
+    split with the full-catalog eval: ``full_fused`` against ``full``,
+    and 4 x 256 users at k=10 through ``auto`` (which must pick
+    ``fused``) against ``dense``, the counts set to 0 just before.
+    Returns the numbers, with the dot_scores launches, and dot_scores'
+    inputs at the first call's users: the propagated user rows and the
+    item rows, a row slice of the propagated matrix."""
+    cfg = config("ml-100k", recommender="LightGCN",
+                 **{"test.neg_samples": "0", "data.split_way": "rs"})
+    data = load_ranking_data(cfg)
+    dd = build_device_data(data)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    copy_into({k: p.detach() for k, p in model.named_parameters()},
+              load_params(ckpt), "parameter")
+    aux = {k: torch.as_tensor(v, device="cuda")
+           for k, v in model.build_aux(dd, data).items()}
+    scores.reset_launches()
+    fused_ev = Evaluator(model, dd, cfg)
+    full_ev = Evaluator(model, dd, cfg.with_overrides(
+        **{"eval.fused_kernel": "False"}))
+    check((fused_ev.mode, full_ev.mode) == ("full_fused", "full"),
+          f"J eval modes {fused_ev.mode}, {full_ev.mode}")
+    out = {}
+    got, out["eval_full_fused_s"] = evaluate("J full_fused", fused_ev, aux)
+    want, out["eval_full_s"] = evaluate("J full", full_ev, aux)
+    for k in cfg.topk:
+        check(bool(np.allclose(got[k], want[k], atol=METRIC_TOL, rtol=0)),
+              f"J @{k}: full_fused {got[k]} vs full {want[k]}")
+    calls, times, _ = serve("J", model, dd, 10, 256, "auto", "fused", rng,
+                            profiles, aux=aux)
+    out.update(times)
+    out["launches"] = {"dot_scores": scores.launches["dot_scores"]}
+    check(out["launches"]["dot_scores"] > 0,
+          "phase J never launched dot_scores")
+    out["metrics"] = {"full_fused": got, "full": want}
+    with torch.no_grad():
+        uv, table, _ = model.dot_decomposition(
+            torch.as_tensor(calls[0], device="cuda").long(), aux)
+    check(table.storage_offset() == data.user_nums * table.shape[1],
+          "J: the item table is not the propagated matrix's item rows")
+    bits = torch.as_tensor(seen_bits(dd, calls[0]), device="cuda")
+    bias = torch.randn(table.shape[0], generator=gen).cuda()
+    return out, (uv.contiguous(), table, bits, bias)
+
+
+def phase_j(rng, gen, profiles):
+    """FISM, LightGCN and NGCF on their confs (the scan tier, no epoch
+    kernel); NAIS warm-started from the FISM run and cold, NAIS_single,
+    NAIS on the flat tier, one NAIS epoch profiled; LightGCN's dense
+    against its edge-list path; LightGCN's fused eval and serving (kernel
+    ``dot_scores``).  Returns the numbers and dot_scores' inputs at
+    phase J's serving shape."""
+    t0 = time.perf_counter()
+    saved = os.path.join(SAVED, "J")
+    shutil.rmtree(saved, ignore_errors=True)
+    runs = {}
+    for name, epochs in ITEM_GRAPH_EPOCHS.items():
+        res = runs[name] = drive_cli(f"J_{name}", model=name, epochs=epochs,
+                                     **{"save.best": "True",
+                                        "saved_dir": saved})
+        check(res["loss_last"] < res["loss_first"],
+              f"J {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        gate(f"J {name}", res, JAX_ITEM_GRAPH_HR10[name])
+    runs["NAIS_warm"] = drive_cli(
+        "J_NAIS_warm", model="NAIS", epochs=NAIS_EPOCHS,
+        fism_pretrain=os.path.join(saved, "FISM"))
+    runs["NAIS_cold"] = drive_cli("J_NAIS_cold", model="NAIS",
+                                  epochs=NAIS_EPOCHS)
+    warm, cold = runs["NAIS_warm"], runs["NAIS_cold"]
+    check(warm["buckets"] is not None and cold["buckets"] == warm["buckets"],
+          f"J NAIS: bucket plans {warm['buckets']}, {cold['buckets']}")
+    # The warm start takes effect, the way it does in the JAX package:
+    # FISM's tables, trained for its |I_u|^-alpha-scaled mean, put NAIS's
+    # (sum e)^-beta-scaled logits far from 0, so the warm first epoch's
+    # loss is the higher (JAX_NAIS_FIRST_LOSS).
+    check(warm["losses"][0] > WARM_GAP * cold["losses"][0],
+          f"J NAIS warm: first loss {warm['losses'][0]} not above "
+          f"{WARM_GAP} x the cold start's {cold['losses'][0]}")
+    for tag in ("NAIS_warm", "NAIS_cold"):
+        gate(f"J {tag}", runs[tag], JAX_ITEM_GRAPH_HR10[tag])
+    runs["NAIS_single"] = drive_cli("J_NAIS_single", model="NAIS_single",
+                                    epochs=NAIS_SHORT_EPOCHS)
+    runs["NAIS_flat"] = flat = drive_cli(
+        "J_NAIS_flat", model="NAIS", epochs=NAIS_SHORT_EPOCHS,
+        **{"train.bucketed_histories": "False"})
+    check(flat["buckets"] is None and flat["loss_last"] < flat["loss_first"],
+          f"J NAIS flat: buckets {flat['buckets']}, loss "
+          f"{flat['loss_first']} -> {flat['loss_last']}")
+    runs["LightGCN_dense"] = drive_cli("J_LightGCN_dense", model="LightGCN",
+                                       epochs=EDGE_EPOCHS)
+    runs["LightGCN_edge"] = drive_cli(
+        "J_LightGCN_edge", model="LightGCN", epochs=EDGE_EPOCHS,
+        **{"graph.dense_budget_mb": "0"})
+    for key, band in TIER_BAND.items():
+        within("J LightGCN edge vs dense", runs["LightGCN_edge"]["best"],
+               runs["LightGCN_dense"]["best"], band, keys=(key,))
+    for tag, res in runs.items():
+        check(not epoch_kernels(res), f"J {tag}: launches {res['launches']}")
+
+    parts = {"runs": time.perf_counter() - t0}
+    ranked, inputs = lightgcn_ranking(os.path.join(saved, "LightGCN"), rng,
+                                      gen, profiles)
+    parts["ranking"] = time.perf_counter() - t0 - parts["runs"]
+    # The warm start as the CLI's run took it: NAIS's P, Q and bias are
+    # the FISM save's P, Q and b, bit for bit; then that NAIS's epoch is
+    # profiled.
+    fism = os.path.join(saved, "FISM")
+    cfg = config("ml-100k", recommender="NAIS", fism_pretrain=fism)
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    params, state = trainer.init_state()
+    fism_params = load_params(fism)
+    for mine, theirs in (("P", "P"), ("Q", "Q"), ("bias", "b")):
+        check(torch.equal(params[mine].detach().cpu(), fism_params[theirs]),
+              f"J NAIS warm start: {mine} is not FISM's {theirs}")
+    prof = profiles["J_NAIS_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    del trainer, model, params, state
+    parts["profile"] = (time.perf_counter() - t0 - parts["runs"]
+                        - parts["ranking"])
+    out = {tag: {**summary(res), "loss_first": res["losses"][0],
+                 "jax_hr10": JAX_ITEM_GRAPH_HR10.get(tag),
+                 "buckets": res["buckets"]}
+           for tag, res in runs.items()}
+    # The device's share of the profiled epoch, and of the cold run's
+    # median epoch on the host clock (the profiler slows the host).
+    out.update(ranking=ranked, launches=ranked.pop("launches"),
+               nais_epoch_device_busy=prof["device_ms"] / prof["wall_ms"],
+               nais_epoch_device_busy_unprofiled=(
+                   prof["device_ms"] / cold["epoch_ms_median"]),
+               nais_jax_first_loss=JAX_NAIS_FIRST_LOSS,
+               seconds_by_part=parts, seconds=time.perf_counter() - t0)
+    return out, inputs
 
 
 def cml_row(launches, profiles):
@@ -1939,6 +2147,21 @@ def main() -> int:
          for name, run in train["G"]["runs"].items()}), flush=True)
     train["I"] = phase_i(train, profiles)
     print("phase I: " + json.dumps(train["I"]), flush=True)
+    train["J"], j_inputs = phase_j(rng, gen, profiles)
+    print("phase J: " + json.dumps(train["J"]), flush=True)
+    # dot_scores on phase J's serving shape; its launches add phase J's.
+    j_row = kernel_rows("dot_scores", {"J": j_inputs},
+                        train["J"]["launches"]["dot_scores"],
+                        scores.dot_scores_ref, scores.dot_scores,
+                        "cleverrec_tpu/ops/pallas_scores.py:276",
+                        lambda b, i: b * i)
+    del j_inputs
+    rows[0]["launches_by_phase"] = {"A_B_H": rows[0]["launches"],
+                                    "J": j_row["launches"]}
+    rows[0]["launches"] += j_row["launches"]
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                 j_row["max_abs_err"])
+    rows[0]["timings"] += j_row["timings"]
     rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
     rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
                          profiles))

@@ -45,24 +45,30 @@
 //              column sums (dh, db_l) are split over the warps and added
 //              in a fixed order (col_sums).  The block's dW_l, db_l and dh
 //              leave by plain stores into its own slice of part [blocks,
-//              n_dense]: no atomics on the dense params.  Row grads go
-//              into the table scratch by atomicAdd (float4 where vec):
-//              duplicate ids sum.
+//              n_dense], and each row's w-scaled grads by plain stores
+//              into its row of the step's row-gradient buffers rg [B, tw]
+//              (float4 where vec): no atomics anywhere.
 //   mlp_adam   one Adam step over everything: a dense element's gradient
 //              is the sum of the blocks' slices in a fixed order, a table
-//              element's is read from the scratch, which is zeroed.
+//              element's the sum of its id's rows of rg in batch order,
+//              through the wrapper's per-step CSR of the ids (the batch
+//              rows sorted stably by id, and where each id's run starts):
+//              duplicate ids sum.
 //
-// So after one step the dense params are the same from run to run; the
-// tables' row sums come from atomics, whose order varies, and through the
-// next step's products so do the dense params: results match the plain
-// version to a tolerance, not bit for bit.
+// So every sum is in a fixed order and an epoch is the same bit for bit
+// from run to run on one card (the row tile, and with it the order of the
+// dense sums, follows the SM count).  That matters beyond the kernel: the
+// MLP recipe sits on a plateau for its first ten epochs (the JAX package's
+// run too), and when it leaves it hangs on the rounding of every step, so
+// a run-dependent order gave run-dependent models.  Against the plain
+// version it matches to a tolerance, not bit for bit.
 //
 // Where a block's cycles go (tools/mlp_phases.py, built with
 // -DMLP_CLOCKS): over half in the products, which a 4 x 4 tile leaves
 // bound by shared-memory bandwidth (a warp's 16-byte load takes 4
 // wavefronts: 8 loads a thread for 64 FMAs, twice what the SM feeds at
 // the FMA rate); the rest in staging W and the rows from L2, the loss
-// pass, the column sums and the row-grad atomics.  Larger tiles leave
+// pass, the column sums and the row-grad stores.  Larger tiles leave
 // too few threads at 48 rows: 8 x 8 with the depth split over lanes, and
 // 8 x 4 or 4 x 8 on the two largest products, did not run faster.
 
@@ -99,8 +105,14 @@ struct MlpArgs {
   float* p[MLP_MAX_TENSORS];  // PU, QI, W_0..W_{L-1}, b_0..b_{L-1}, h
   float* m[MLP_MAX_TENSORS];  // their Adam moments, same order
   float* v[MLP_MAX_TENSORS];
-  float* g[2];                // gradient scratch of PU and QI
+  float* rg[2];               // [B, tw] w-scaled row grads, user and item
+  // Per step s, the CSR of each side's ids: order[k] + s B the batch rows
+  // sorted stably by id, seg[0] + s (U + 1) (seg[1] + s (I + 1)) where
+  // each id's run of them starts.
+  const int32_t* order[2];
+  const int32_t* seg[2];
   float* part;                // [blocks, off_g[2 L + 1]]
+  float* part_loss;           // [blocks] the blocks' summed losses
 };
 
 #ifdef MLP_CLOCKS
@@ -158,7 +170,7 @@ __device__ __forceinline__ void col_sums(float* sum, int ld, int R, int C,
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
          const int32_t* __restrict__ i_idx, const float* __restrict__ y,
-         const float* __restrict__ w, float* __restrict__ loss) {
+         const float* __restrict__ w) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   __shared__ float partial[WARPS];
@@ -401,19 +413,18 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
     nxt = t;
   }
 
-  // -- row grads to the table scratch, a warp a row ---------------------
-  float* g_pu = a.g[0];
-  float* g_qi = a.g[1];
-  for (int r = warp; r < R; r += WARPS) {
+  // -- row grads into the step's rows of rg, a warp a row; a masked row
+  // (w = 0) stores zeros, so its id's sum is unchanged ------------------
+  for (int r = warp; r < nrow; r += WARPS) {
     const float wr = row_w[r];
-    if (wr == 0.f) continue;
     const float dl = row_dl[r];
-    const int u = row_u[r], i = row_i[r];
-    const bool uok = (unsigned)u < (unsigned)a.U;
-    const bool iok = (unsigned)i < (unsigned)a.I;
+    float* rg_u = a.rg[0] + (size_t)(r0 + r) * tw;
+    float* rg_i = a.rg[1] + (size_t)(r0 + r) * tw;
     // w times the gradient of column c of the user and the item row.
     auto grads = [&](int c, float& dp, float& dq) {
-      if (c < dg) {
+      if (wr == 0.f) {
+        dp = dq = 0.f;
+      } else if (c < dg) {
         const float dz = dl * h_s[c];
         const float gu = ug[r * dg + c], gi = ig[r * dg + c];
         dp = wr * (dz * gi + a.reg_g * gu);
@@ -424,32 +435,23 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
         dq = wr * (cur[r * ldd + hm + cm] + a.reg_m * x0[r * ld0 + hm + cm]);
       }
     };
-    if (a.vec) {   // one float4 atomic a lane and row side
+    if (a.vec) {   // one float4 a lane and row side
       for (int c = 4 * lane; c < tw; c += 128) {
         float dp[4], dq[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) grads(c + e, dp[e], dq[e]);
-        if (uok)
-          atomicAdd(reinterpret_cast<float4*>(g_pu + (size_t)u * tw + c),
-                    make_float4(dp[0], dp[1], dp[2], dp[3]));
-        if (iok)
-          atomicAdd(reinterpret_cast<float4*>(g_qi + (size_t)i * tw + c),
-                    make_float4(dq[0], dq[1], dq[2], dq[3]));
+        *reinterpret_cast<float4*>(rg_u + c) = make_float4(dp[0], dp[1], dp[2], dp[3]);
+        *reinterpret_cast<float4*>(rg_i + c) = make_float4(dq[0], dq[1], dq[2], dq[3]);
       }
     } else {
-      for (int c = lane; c < tw; c += 32) {
-        float dp, dq;
-        grads(c, dp, dq);
-        if (uok) atomicAdd(g_pu + (size_t)u * tw + c, dp);
-        if (iok) atomicAdd(g_qi + (size_t)i * tw + c, dq);
-      }
+      for (int c = lane; c < tw; c += 32) grads(c, rg_u[c], rg_i[c]);
     }
   }
   if (threadIdx.x == 0) {
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < WARPS; ++k) s += partial[k];
-    atomicAdd(loss, s);
+    a.part_loss[blockIdx.x] = s;
   }
 #ifdef MLP_CLOCKS
   __syncthreads();
@@ -461,11 +463,19 @@ mlp_rows(const MlpArgs a, const int32_t* __restrict__ u_idx,
 // dense elements each: an element's gradient is the sum of the blocks'
 // slices of part, warp w adding those of blocks [w per, (w + 1) per) in
 // turn and warp 0 the warps' sums in warp order.  The other blocks walk
-// PU and QI with a grid stride; a table element's gradient is read from
-// its scratch, which is zeroed for the next step.
+// PU and QI with a grid stride; a table element's gradient is the sum of
+// its column of the rows of rg that step ``step``'s CSR lists for its id,
+// in batch order (0 for an id not in the step).  Thread 0 also writes the
+// step's loss, the blocks' losses summed in block order.
 __global__ void __launch_bounds__(THREADS)
-mlp_adam(const MlpArgs a, AdamStep s, int dense_blocks) {
+mlp_adam(const MlpArgs a, AdamStep s, int dense_blocks, int step,
+         float* loss) {
   __shared__ float sums[WARPS][32];
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    float t = 0.f;
+    for (int b = 0; b < a.blocks; ++b) t += a.part_loss[b];
+    *loss = t;
+  }
   const int n_dense = a.off_g[2 * a.L + 1];
   if ((int)blockIdx.x < dense_blocks) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -492,21 +502,39 @@ mlp_adam(const MlpArgs a, AdamStep s, int dense_blocks) {
        e < n; e += stride) {
     const int k = e < nu ? 0 : 1;
     const int64_t j = k ? e - nu : e;
-    float* g = a.g[k] + j;
-    adam_elem(a.p[k] + j, a.m[k] + j, a.v[k] + j, *g, s);
-    *g = 0.f;
+    const int id = (int)(j / a.tw), c = (int)(j - (int64_t)id * a.tw);
+    const int32_t* seg = a.seg[k] + (size_t)step * ((k ? a.I : a.U) + 1);
+    const int32_t* order = a.order[k] + (size_t)step * a.B;
+    const float* rg = a.rg[k] + c;
+    // Four rows' loads in flight at a time (a popular id has tens of rows
+    // a step), added one by one in batch order.
+    float g = 0.f;
+    int q = seg[id];
+    const int q_end = seg[id + 1];
+    for (; q + 4 <= q_end; q += 4) {
+      const int32_t o0 = order[q], o1 = order[q + 1], o2 = order[q + 2],
+                    o3 = order[q + 3];
+      const float g0 = rg[(size_t)o0 * a.tw], g1 = rg[(size_t)o1 * a.tw],
+                  g2 = rg[(size_t)o2 * a.tw], g3 = rg[(size_t)o3 * a.tw];
+      g += g0;
+      g += g1;
+      g += g2;
+      g += g3;
+    }
+    for (; q < q_end; ++q) g += rg[(size_t)order[q] * a.tw];
+    adam_elem(a.p[k] + j, a.m[k] + j, a.v[k] + j, g, s);
   }
 }
 
 }  // namespace
 
 // ``args`` is a host pointer to the epoch's MlpArgs.  The tensors of
-// args->p and their moments are updated in place; the table gradient
-// scratch args->g is zero on entry and on return; args->part needs no
-// initial value.  u, i are [steps, B] int32, y and w [steps, B] f32; loss
-// [steps], zero on entry, receives each step's summed loss.  b1 and b2 come
-// as doubles (epoch.cuh).  Returns 0, or the cudaError_t of the first
-// call that failed.
+// args->p and their moments are updated in place; args->rg and args->part
+// need no initial value, nor does args->part_loss; args->order and
+// args->seg hold each step's CSR of u and i.  u, i are [steps, B] int32, y
+// and w [steps, B] f32; loss [steps] receives each step's summed loss.  b1
+// and b2 come as doubles (epoch.cuh).  Returns 0, or the cudaError_t of
+// the first call that failed.
 extern "C" int mlp_epoch(const MlpArgs* args, const int32_t* u_idx,
                          const int32_t* i_idx, const float* y, const float* w,
                          float* loss, int steps, int t0, float lr, double b1,
@@ -526,12 +554,12 @@ extern "C" int mlp_epoch(const MlpArgs* args, const int32_t* u_idx,
     if (a.B > 0) {
       const size_t off = (size_t)s * a.B;
       mlp_rows<<<a.blocks, THREADS, a.smem_bytes, stream>>>(
-          a, u_idx + off, i_idx + off, y + off, w + off, loss + s);
+          a, u_idx + off, i_idx + off, y + off, w + off);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     mlp_adam<<<dense_blocks + tab_blocks, THREADS, 0, stream>>>(
-        a, adam_step(t0 + s + 1, lr, b1, b2, eps), dense_blocks);
+        a, adam_step(t0 + s + 1, lr, b1, b2, eps), dense_blocks, s, loss + s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -51,7 +51,7 @@ from torch import nn
 from cleverrec_tpu_torch.common import (bpr_loss, init_param, l2_loss,
                                         pairwise_loss)
 from cleverrec_tpu_torch.models.base import Aux, RecModel
-from cleverrec_tpu_torch.models.modules import relu_mlp_logits
+from cleverrec_tpu_torch.models.modules import gather_rows, relu_mlp_logits
 from cleverrec_tpu_torch.sampling import build_csr_lists, build_member_table
 
 
@@ -349,25 +349,14 @@ class SAMN(RecModel):
             raise ValueError(f"{self.name} requires social_file")
         return {"friends_padded": dd.friends_padded}
 
-    @staticmethod
-    def _rows(table, ids):
-        """table[ids] for any shape of ids, through ``embedding``: its
-        backward sums each row's gradients in sorted segments, where
-        indexing's sums each row's duplicates one after another (most of
-        a step's device time on a card, with many friends a row)."""
-        if table.dim() == 1:
-            return torch.nn.functional.embedding(ids.long(),
-                                                 table[:, None])[..., 0]
-        return torch.nn.functional.embedding(ids.long(), table)
-
     def _user_vec(self, u, aux: Aux):
         """u_vec = P[u] + the attention-weighted memory friend vectors
         (SAMN.py:56-89); rsqrt(|x|^2 + 1e-12) keeps the masked friend
         slots' zero rows finite through the normalisation."""
         friends = aux["friends_padded"][u].long()          # [B, F]
-        ue = self._rows(self.P, u)                         # [B, d]
+        ue = gather_rows(self.P, u)                        # [B, d]
         exists = (friends != self.meta.user_nums).to(ue.dtype)
-        fe = self._rows(self.P, friends) * exists[:, :, None]  # [B, F, d]
+        fe = gather_rows(self.P, friends) * exists[:, :, None]  # [B,F,d]
         un = ue * torch.rsqrt(torch.sum(ue * ue, dim=1, keepdim=True)
                               + 1e-12)
         fn = fe * torch.rsqrt(torch.sum(fe * fe, dim=2, keepdim=True)
@@ -386,8 +375,8 @@ class SAMN(RecModel):
     def loss(self, batch, aux: Aux):
         w = batch["w"]
         uv = self._user_vec(batch["u"], aux)
-        ie, je = (self._rows(self.Q, batch[k]) for k in ("i", "j"))
-        ib, jb = (self._rows(self.i_b, batch[k]) for k in ("i", "j"))
+        ie, je = (gather_rows(self.Q, batch[k]) for k in ("i", "j"))
+        ib, jb = (gather_rows(self.i_b, batch[k]) for k in ("i", "j"))
         s_i = torch.sum(uv * ie, dim=1) + ib
         s_j = torch.sum(uv * je, dim=1) + jb
         main = pairwise_loss(self.loss_func, s_i - s_j, weight=w)
@@ -409,8 +398,8 @@ class SAMN(RecModel):
         gi = torch.clamp(batch["gi"], max=last)
         gj = torch.clamp(batch["gj"], max=last)
         uv = self._user_vec(batch["gu"], aux)              # [G, d]
-        ie, je = self._rows(self.Q, gi), self._rows(self.Q, gj)  # [G, T, d]
-        ib, jb = self._rows(self.i_b, gi), self._rows(self.i_b, gj)
+        ie, je = gather_rows(self.Q, gi), gather_rows(self.Q, gj)  # [G,T,d]
+        ib, jb = gather_rows(self.i_b, gi), gather_rows(self.i_b, gj)
         s_i = torch.einsum("gd,gtd->gt", uv, ie) + ib
         s_j = torch.einsum("gd,gtd->gt", uv, je) + jb
         main = pairwise_loss(self.loss_func, s_i - s_j, weight=gw)

@@ -512,7 +512,8 @@ class _MlpArgs(ctypes.Structure):
                 + [("off_g", ctypes.c_int * (2 * MLP_MAX_LAYERS + 2)),
                    ("reg_g", ctypes.c_float), ("reg_m", ctypes.c_float)]
                 + [(n, ctypes.c_void_p * _MAX_T) for n in ("p", "m", "v")]
-                + [("g", ctypes.c_void_p * 2), ("part", ctypes.c_void_p)])
+                + [(n, ctypes.c_void_p * 2) for n in ("rg", "order", "seg")]
+                + [("part", ctypes.c_void_p), ("part_loss", ctypes.c_void_p)])
 
 
 def _pad4(n: int) -> int:
@@ -684,6 +685,20 @@ def fused_mlp_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
                        eps=eps)
 
 
+def mlp_id_csr(ids, n: int):
+    """Each step's CSR of ``ids`` [steps, B] int32 over a table of ``n``
+    rows, for the kernel's table gradients: ``order`` [steps, B] int32,
+    the step's batch rows sorted stably by id, and ``seg`` [steps, n + 1]
+    int32, where each id's run of them starts (an id outside [0, n) falls
+    outside every run)."""
+    key, order = torch.sort(ids, dim=1, stable=True)
+    bounds = torch.arange(n + 1, dtype=ids.dtype, device=ids.device)
+    seg = torch.searchsorted(
+        key.contiguous(), bounds.expand(ids.shape[0], n + 1).contiguous(),
+        out_int32=True)
+    return order.to(torch.int32).contiguous(), seg
+
+
 def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
                 i_idx, y, w, t0, *, dg, reg_g, reg_m, lr, b1, b2, eps):
     params = (pu, qi, *dense)
@@ -697,9 +712,14 @@ def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
            lay["blocks"] * lay["off_g"][-1]) >= 2 ** 31:
         raise ValueError("fused_mlp_epoch: a size or step count past the "
                          "kernel's int32 arguments")
-    grads = [torch.zeros_like(pu), torch.zeros_like(qi)]
+    rg = [torch.empty((b, pu.shape[1]), dtype=torch.float32,
+                      device=pu.device) for _ in range(2)]
+    csr = [mlp_id_csr(ids, n) for ids, n in ((u_idx, pu.shape[0]),
+                                             (i_idx, qi.shape[0]))]
     part = torch.empty((lay["blocks"], lay["off_g"][-1]),
                        dtype=torch.float32, device=pu.device)
+    part_loss = torch.empty(lay["blocks"], dtype=torch.float32,
+                            device=pu.device)
     hm = pu.shape[1] - dg
     # 16-byte staging of W_l and the rows: every width a multiple of 4 and
     # the bases 16-byte aligned.
@@ -715,16 +735,19 @@ def _launch_mlp(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, u_idx,
                 "smem_bytes"):
         setattr(a, key, lay[key])
     for key, ts in (("p", params), ("m", (mpu, mqi, *mdense)),
-                    ("v", (vpu, vqi, *vdense)), ("g", grads)):
+                    ("v", (vpu, vqi, *vdense)), ("rg", rg),
+                    ("order", [o for o, _ in csr]),
+                    ("seg", [sg for _, sg in csr])):
         getattr(a, key)[:len(ts)] = [x.data_ptr() for x in ts]
     a.part = part.data_ptr()
+    a.part_loss = part_loss.data_ptr()
     from cleverrec_tpu_torch.ops.build import load
     fn = load("mlp_epoch").mlp_epoch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_float] + [ctypes.c_double] * 2
                    + [ctypes.c_float, ctypes.c_void_p])
-    loss = torch.zeros(steps, dtype=torch.float32, device=pu.device)
+    loss = torch.empty(steps, dtype=torch.float32, device=pu.device)
     with torch.cuda.device(pu.device):
         err = fn(ctypes.addressof(a), u_idx.data_ptr(), i_idx.data_ptr(),
                  y.data_ptr(), w.data_ptr(), loss.data_ptr(), steps, t0, lr,

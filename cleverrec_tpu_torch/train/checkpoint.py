@@ -5,15 +5,15 @@
 - A train-state checkpoint is a directory holding ``state.pt``: the
   parameters, the optimizer's state (Adam's count and moments,
   Adagrad's accumulators), the epoch, and the generators' states (the
-  trainer's sampler generator, torch's CPU generator and, on a card,
-  its CUDA generator).  Every tensor is saved on the CPU; a load puts
-  nothing on a device.
+  trainer's sampler and dropout generators, torch's CPU generator and,
+  on a card, its CUDA generator).  Every tensor is saved on the CPU; a
+  load puts nothing on a device.
 - Grafts map a pretrained model's parameters into a target's, with the
   reference's names: NeuMF from GMF and MLP, with h_neumf =
   0.5 * concat(h_gmf, h_mlp) (NeuMF.py:53-56, :127-139), and NAIS from
   FISM (P, Q, bias; NAIS_single.py:35-38).  A model that takes a warm
   start names its keys (``pretrain_keys``) and grafts itself
-  (``warm_start``); NeuMF does, NAIS comes with item 11.
+  (``warm_start``): NeuMF, NAIS and NAIS_single.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ import torch
 from cleverrec_tpu_torch.common import AdagradState, AdamState
 
 STATE_FILE = "state.pt"
-# The warm-start keys the port reads; ``fism_pretrain`` waits for NAIS.
-PRETRAIN_KEYS = ("gmf_pretrain", "mlp_pretrain")
+# The warm-start keys the port reads.
+PRETRAIN_KEYS = ("gmf_pretrain", "mlp_pretrain", "fism_pretrain")
 
 
 def _cpu(tensors: dict) -> dict:

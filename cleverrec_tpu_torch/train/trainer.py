@@ -50,15 +50,31 @@ trained through one of two tiers:
   fresh negative a valid cell and a permutation of groups each epoch,
   ``batch_size // TARGET_CHUNK`` groups a step through
   ``model.loss_grouped_pairwise`` and the optimizer;
+- the bucketed-history tier (a pointwise ``history_bucketing`` model,
+  NAIS, unless ``train.bucketed_histories=False``): users fall into
+  power-of-two history-width buckets (``_build_buckets``), each with its
+  seen table cut to its width and its own grid, built once a run: a
+  model with ``loss_grouped`` takes each user's seen items and
+  ``neg_ratio`` times as many negative cells in groups of
+  ``TARGET_CHUNK`` (``_grouped_bucket``), any other the pointwise layout
+  of the bucket's pairs at a batch fitted to it.  Each epoch trains the
+  buckets in width order, each on fresh negatives and its own
+  permutation, and reports the step-weighted mean of their losses;
 - the scan tier: per step, autograd of ``model.loss``, the optax-semantics
   update of ``common.make_optimizer``, then ``model.postprocess``.
+
+Each step of the autograd tiers (scan, grouped, bucketed) hands the
+loss ``dropout_gen``, a generator on the device that the trainer owns
+and checkpoints beside the sampler's (NGCF's message dropout draws from
+it; the JAX trainer's ``dropout_key``).
 
 ``run(resume_from=...)`` restarts from a ``train/checkpoint.py``
 checkpoint at its epoch + 1, and ``save.best=True`` checkpoints the best
 epoch under ``saved_dir/<model>``; ``init_state`` applies the config's
 warm start through the model's ``warm_start`` (NeuMF from
-``gmf_pretrain`` and ``mlp_pretrain``).  A warm-start key that the model
-does not read, or one of its keys without the others, raises.
+``gmf_pretrain`` and ``mlp_pretrain``, NAIS and NAIS_single from
+``fism_pretrain``).  A warm-start key that the model does not read, or
+one of its keys without the others, raises.
 
 Parameters live in the model (``params`` is ``dict(model.named_parameters())``)
 and are updated in place, so the evaluator always scores the current
@@ -92,6 +108,9 @@ from cleverrec_tpu_torch.ops.train import (LOG2, _cols, _side,
                                            rows_epoch_plan, sentinel_dims)
 from cleverrec_tpu_torch.train import checkpoint
 
+# History widths of the bucketed tier's buckets below h_max
+# (cleverrec_tpu/train/trainer.py:1702-1704); h_max is the last.
+HISTORY_WIDTHS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 # Options of the JAX trainer that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
 # raises rather than be ignored.
@@ -100,8 +119,6 @@ _UNPORTED = (
     ("train.fused_bf16", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_grouped", lambda c, k: c.bool(k), _TIERS),
     ("train.fused_groups", lambda c, k: c.int(k, 0) > 1, _TIERS),
-    ("fism_pretrain", lambda c, k: k in c,
-     "queue 1, item 11 (NAIS's warm start from FISM comes with them)"),
     ("profile.dir", lambda c, k: bool(c.get(k)),
      "queue 1, item 4 (the port's benchmark and traces)"),
 )
@@ -177,16 +194,21 @@ class Trainer:
         if (getattr(model, "pairwise_grouped", False)
                 and cfg.bool("train.grouped_pairs", True)):
             self._build_grouped(pos_u, pos_i)
-        self._build_layout(pos_u, pos_i, padded)
+        bucketed = (getattr(model, "history_bucketing", False)
+                    and model.sampler == "pointwise"
+                    and cfg.bool("train.bucketed_histories", True))
+        self._build_layout(pos_u, pos_i, padded, layout=not bucketed)
         self.aux: dict[str, torch.Tensor] = {
             name: torch.as_tensor(a, device=self.device)
             for name, a in (("pos_u", pos_u), ("pos_i", pos_i),
                             *self.model_aux.items())
             if isinstance(a, np.ndarray)}
+        self._buckets = self._build_buckets(pos_u, pos_i) if bucketed else None
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr)
         self.sparse_rows = self._sparse_rows_eligible()
         self.fused = not self.sparse_rows and self._fused_epoch_eligible()
         self._gen: torch.Generator | None = None
+        self._dropout_gen: torch.Generator | None = None
         self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
 
     def _rows_per_epoch(self) -> int:
@@ -240,9 +262,108 @@ class Trainer:
                 "grouped pairwise epoch: %d groups x %d cells, %d steps",
                 g_total, tc, steps)
 
-    def _build_layout(self, pos_u, pos_i, padded: int) -> None:
+    def _build_buckets(self, pos_u, pos_i) -> list[dict]:
+        """The bucketed tier's plan (cleverrec_tpu/train/trainer.py:1686-1745):
+        each pair goes to the first width of ``HISTORY_WIDTHS`` below h_max,
+        then h_max, that holds its user's seen count; a bucket reads the
+        seen rows cut to its width.  A model with ``loss_grouped`` gets
+        the grouped grid of the bucket's users (``_grouped_bucket``), any
+        other the pointwise layout of the bucket's pairs at a batch of
+        min(batch_size, the bucket's rows rounded up to 256, at least
+        256).  A bucket holds its ``width``, ``pairs``, ``steps``, ``aux``
+        and ``grid`` (numpy, ``g_user`` [G_pad], ``g_pos``, ``g_y``,
+        ``g_w`` [G_pad, T], ``g_nun`` [G_pad]; None for the row layout)
+        with its tensors in ``dev`` (all but ``g_nun``: the draw counts
+        the unseen items from the sampler's table)."""
+        seen = self.dd.seen
+        lens = np.asarray(seen.lens)
+        h_max = seen.rows.shape[1]
+        widths = [w for w in HISTORY_WIDTHS if w < h_max] + [h_max]
+        bidx = np.searchsorted(np.asarray(widths), lens[pos_u], side="left")
+        grouped = hasattr(self.model, "loss_grouped")
+        grp = 1 + self.neg_ratio
+        plan = []
+        for k, width in enumerate(widths):
+            sel = bidx == k
+            n_sel = int(sel.sum())
+            if n_sel == 0:
+                continue
+            aux = dict(self.aux)
+            aux["seen_rows"] = self.aux["seen_rows"][:, :width].contiguous()
+            bucket = {"width": width, "pairs": n_sel, "aux": aux}
+            if grouped:
+                grid, bucket["steps"], bucket["per_step"] = (
+                    self._grouped_bucket(np.unique(pos_u[sel])))
+                arrays = grid
+            else:
+                rows = n_sel * grp
+                b = min(self.batch_size, max(256, cdiv(rows, 256) * 256))
+                bucket.update(rows=rows, batch=b, steps=cdiv(rows, b))
+                grid = None
+                arrays = sampling.pointwise_epoch_static(
+                    pos_u[sel], pos_i[sel], lens, self.dd.item_nums,
+                    bucket["steps"] * b, self.neg_ratio)
+            bucket["grid"] = grid
+            bucket["dev"] = {name: torch.as_tensor(a, device=self.device)
+                             for name, a in arrays.items()
+                             if name != "g_nun"}
+            plan.append(bucket)
+        self.steps_per_epoch = sum(b["steps"] for b in plan)
+        if self.logger:
+            self.logger.info(
+                "history buckets (%s): %s", "grouped" if grouped else "row",
+                ", ".join(f"w={b['width']}:{b['pairs']}p/{b['steps']}s"
+                          for b in plan),
+                extra={"buckets": [{k: b[k] for k in ("width", "pairs",
+                                                       "steps")}
+                                   for b in plan]})
+        return plan
+
+    def _grouped_bucket(self, users):
+        """One bucket's grouped grid (cleverrec_tpu/train/trainer.py:
+        1747-1796) over its sorted ``users``: user u's first lens[u] cells
+        hold its seen items (y = 1), the next neg_ratio * lens[u] cells
+        are negatives (item_nums until drawn), the rest of its
+        ceil((1 + neg_ratio) lens[u] / TARGET_CHUNK) groups pad (weight
+        0); the grid is padded with user-0 groups to whole steps of
+        ``batch_size // TARGET_CHUNK`` groups.  ``g_nun``: each group's
+        unseen count, as in JAX's grid (the draw does not read it).
+        Returns (grid, steps, groups a step)."""
+        tc, grp = self.model.TARGET_CHUNK, 1 + self.neg_ratio
+        item_nums = self.dd.item_nums
+        lens = np.asarray(self.dd.seen.lens)
+        deg = lens[users].astype(np.int64)
+        n_groups = -(-(grp * deg) // tc)
+        g_total = int(n_groups.sum())
+        per_step = max(self.batch_size // tc, 1)
+        steps = cdiv(g_total, per_step)
+        g_pad = steps * per_step
+        slot_off = np.concatenate([[0], np.cumsum(n_groups * tc)[:-1]])
+        flat_pos = np.full(g_pad * tc, item_nums, np.int32)
+        flat_y = np.zeros(g_pad * tc, np.float32)
+        flat_w = np.zeros(g_pad * tc, np.float32)
+        hist = self.dd.seen.rows[users]
+        k, j = np.nonzero(np.arange(hist.shape[1])[None, :] < deg[:, None])
+        flat_pos[slot_off[k] + j] = hist[k, j]
+        flat_y[slot_off[k] + j] = 1.0
+        cells = grp * deg
+        k = np.repeat(np.arange(len(users)), cells)
+        c_off = np.concatenate([[0], np.cumsum(cells)[:-1]])
+        flat_w[slot_off[k] + np.arange(int(cells.sum())) - c_off[k]] = 1.0
+        g_user = np.zeros(g_pad, np.int32)
+        g_user[:g_total] = np.repeat(users, n_groups)
+        grid = {"g_user": g_user, "g_pos": flat_pos.reshape(g_pad, tc),
+                "g_y": flat_y.reshape(g_pad, tc),
+                "g_w": flat_w.reshape(g_pad, tc),
+                "g_nun": np.maximum(item_nums - lens[g_user], 1).astype(
+                    np.int32)}
+        return grid, steps, per_step
+
+    def _build_layout(self, pos_u, pos_i, padded: int,
+                      layout: bool = True) -> None:
         """The sampler's per-run constants on the device: the static epoch
-        layout (none for the per-step samplers and the grouped epoch),
+        layout (none for the per-step samplers, the grouped epoch and,
+        ``layout`` False, the bucketed tier, whose buckets hold their own),
         the membership table its negatives avoid (the seen items, or the
         social models' seen-union-social table), the social models' CSR
         lists and, for the per-step samplers, each list's lengths and the
@@ -252,7 +373,7 @@ class Trainer:
         neg = aux.get("social_neg", dd.seen)
         head = (pos_u, pos_i, neg.lens)
         tail = (dd.item_nums, padded, self.neg_ratio)
-        if self._per_step or self._grid is not None:
+        if self._per_step or self._grid is not None or not layout:
             static = {}
         elif sampler == "sbpr":
             spu = aux["spu_csr"]
@@ -363,15 +484,19 @@ class Trainer:
         return True
 
     # -- one epoch ------------------------------------------------------
-    def sample_epoch(self) -> dict[str, torch.Tensor]:
+    def sample_epoch(self) -> dict:
         """The next epoch's draw of the model's sampler, each column
         [steps, B] on the device; for the grouped epoch, ``j`` [G_pad, T]
         (a negative a cell, ``item_nums`` on pad cells) and ``perm``
-        [steps, G/step] (the groups of each step)."""
+        [steps, G/step] (the groups of each step); for the bucketed tier,
+        ``buckets``, each bucket's draw in plan order."""
         if self._gen is None:
             raise RuntimeError("call init_state first")
         if self._grid is not None:
             return self._sample_grouped()
+        if self._buckets is not None:
+            return {"buckets": [self._sample_bucket(b)
+                                for b in self._buckets]}
         if self._per_step:
             steps, b = self.steps_per_epoch, self.batch_size
             perm, valid = sampling.epoch_permutation(
@@ -421,28 +546,54 @@ class Trainer:
         return {"j": j, "perm": perm.reshape(self._grid_steps,
                                              self._grid_per_step)}
 
+    def _sample_bucket(self, bucket) -> dict[str, torch.Tensor]:
+        """One bucket's draw: for the grouped grid, ``gt`` [G_pad, T] (the
+        positives, a fresh unseen negative on each negative cell, and
+        ``item_nums`` on pad cells) and ``perm`` [steps, G/step]; for
+        the row layout, the pointwise epoch's [steps, b] columns."""
+        dev = bucket["dev"]
+        if bucket["grid"] is None:
+            return sampling.pointwise_epoch_tensors(
+                self._gen, dev, self._neg_rows, self._neg_lens,
+                bucket["rows"], bucket["steps"], bucket["batch"])
+        j = sampling.sample_not_in(
+            self._gen, sampling.MemberTable(self._neg_rows, self._neg_lens,
+                                            None),
+            dev["g_user"], self.dd.item_nums, dev["g_pos"].shape)
+        gt = torch.where(dev["g_y"] > 0, dev["g_pos"], j)
+        gt = torch.where(dev["g_w"] > 0, gt, self.dd.item_nums)
+        perm = torch.randperm(dev["g_user"].shape[0], generator=self._gen,
+                              device=self.device)
+        return {"gt": gt, "perm": perm.reshape(bucket["steps"],
+                                               bucket["per_step"])}
+
     def _run_epoch(self, params, opt_state, tensors):
-        """Train one epoch on given sampled tensors ([steps, B] each, or
-        the grouped epoch's ``j`` and ``perm``); returns (params,
-        opt_state, mean per-step loss as a 0-dim tensor).  ``params``
-        must be the model's own parameters."""
+        """Train one epoch on given sampled tensors ([steps, B] each, the
+        grouped epoch's ``j`` and ``perm``, or the bucketed tier's
+        ``buckets``); returns (params, opt_state, mean per-step loss as a
+        0-dim tensor).  ``params`` must be the model's own parameters."""
         if self._grid is not None:
             return self._grouped_epoch(params, opt_state, tensors)
+        if self._buckets is not None:
+            return self._bucketed_epoch(params, opt_state,
+                                        tensors["buckets"])
         if self.sparse_rows:
             return self._sparse_rows_epoch(params, opt_state, tensors)
         if self.fused:
             return self._fused_epoch(params, opt_state, tensors)
         return self._scan_epoch(params, opt_state, tensors)
 
-    def _steps(self, params, opt_state, batches, loss_fn):
-        """One optimizer step a batch on ``loss_fn(batch, aux)``; returns
-        (params, opt_state, mean loss)."""
+    def _steps(self, params, opt_state, batches, loss_fn, aux=None):
+        """One optimizer step a batch on ``loss_fn(batch, aux)`` (default
+        aux: ``self.aux``), each batch with the trainer's
+        ``dropout_gen``; returns (params, opt_state, mean loss)."""
         names = list(params)
         leaves = [params[k] for k in names]
+        aux = self.aux if aux is None else aux
         losses = torch.zeros(len(batches), dtype=torch.float32,
                              device=self.device)
         for s, batch in enumerate(batches):
-            loss = loss_fn(batch, self.aux)
+            loss = loss_fn({**batch, "dropout_gen": self._dropout_gen}, aux)
             # A parameter outside the loss (NeuMF's h_gmf and h_mlp, kept
             # for the warm start) gets a zero gradient, as under JAX:
             # Adam then leaves it and its moments as they were.
@@ -467,6 +618,28 @@ class Trainer:
                    for sel in tensors["perm"]]
         return self._steps(params, opt_state, batches,
                            self.model.loss_grouped_pairwise)
+
+    def _bucketed_epoch(self, params, opt_state, draws):
+        """Each bucket's steps on its draw, in plan order, over its own
+        aux; the loss is the bucket losses' mean weighted by their steps
+        (cleverrec_tpu/train/trainer.py:1949-1958)."""
+        total, steps = 0.0, 0
+        for bucket, draw in zip(self._buckets, draws):
+            if bucket["grid"] is None:
+                batches = [{k: v[s] for k, v in draw.items()}
+                           for s in range(bucket["steps"])]
+                loss_fn = self.model.loss
+            else:
+                dev = bucket["dev"]
+                batches = [{"gu": dev["g_user"][sel], "gt": draw["gt"][sel],
+                            "gy": dev["g_y"][sel], "gw": dev["g_w"][sel]}
+                           for sel in draw["perm"]]
+                loss_fn = self.model.loss_grouped
+            params, opt_state, loss = self._steps(
+                params, opt_state, batches, loss_fn, bucket["aux"])
+            total = total + loss * bucket["steps"]
+            steps += bucket["steps"]
+        return params, opt_state, total / steps
 
     def _sparse_rows_epoch(self, params, opt_state, tensors):
         """Per step: the model's rows loss over each plane's gathered rows
@@ -599,12 +772,15 @@ class Trainer:
         """(params, opt_state) of a fresh run: the model's parameters drawn
         from a generator seeded with ``seed`` (default ``cfg.seed``), then
         the config's warm start (the model's ``warm_start``), and the
-        sampler's device generator seeded from the same stream."""
+        sampler's and the dropout's device generators seeded from the
+        same stream."""
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
         self.model.init(gen)
-        self._gen = torch.Generator(device=self.device).manual_seed(
-            int(torch.randint(2 ** 62, (1,), generator=gen)))
+        self._gen, self._dropout_gen = (
+            torch.Generator(device=self.device).manual_seed(
+                int(torch.randint(2 ** 62, (1,), generator=gen)))
+            for _ in range(2))
         params = dict(self.model.named_parameters())
         if warm_start and self._warm:
             own = {k: p.detach() for k, p in params.items()}
@@ -617,9 +793,10 @@ class Trainer:
         return params, self.optimizer.init(params)
 
     def rng_state(self) -> dict[str, torch.Tensor]:
-        """The generators a run draws from: the sampler's and torch's
-        CPU generator (and the card's, on a card)."""
+        """The generators a run draws from: the sampler's, the dropout's
+        and torch's CPU generator (and the card's, on a card)."""
         state = {"sampler": self._gen.get_state(),
+                 "dropout": self._dropout_gen.get_state(),
                  "cpu": torch.get_rng_state()}
         if self.device.type == "cuda":
             state["cuda"] = torch.cuda.get_rng_state(self.device)
@@ -641,6 +818,8 @@ class Trainer:
                                                     opt_state)
         rng = state["rng"]
         self._gen.set_state(rng["sampler"])
+        if "dropout" in rng:
+            self._dropout_gen.set_state(rng["dropout"])
         torch.set_rng_state(rng["cpu"])
         if "cuda" in rng and self.device.type == "cuda":
             torch.cuda.set_rng_state(rng["cuda"], self.device)

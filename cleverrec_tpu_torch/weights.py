@@ -6,10 +6,14 @@ port's ``nn.Parameter`` names (BPR: ``P``, ``Q``; GMF: ``P``, ``Q``,
 SBPR and TBPR: ``P``, ``Q``, ``bias``; CUNE_BPR also its 0-d ``s``;
 CML and TransCF: ``P``, ``Q``; LRML: ``P``, ``Q``, ``K`` [d, mem],
 ``M`` [mem, d]; SAMN and SAMN_single: ``P`` [U + 1, d], ``Q``, ``i_b``,
-``Key``, ``Mem``, ``W3``, ``b``, ``h``), optax's Adam keeps
-``opt_state[0]`` = (count, mu, nu) over the same names and optax's
-Adagrad ``opt_state[0].sum_of_squares``.  Shapes are the JAX shapes too, 0-d ones included, so nothing is
-transposed or reshaped.
+``Key``, ``Mem``, ``W3``, ``b``, ``h``; FISM: ``P``, ``Q`` [I + 1, d],
+``b`` [I + 1]; NAIS and NAIS_single: ``P``, ``Q`` [I + 1, d], ``bias``
+[I + 1], ``W`` [d or 2d, atten], ``b``, ``h``; LightGCN: ``P``, ``Q``;
+NGCF: ``P``, ``Q``, ``W1_l``, ``b1_l``, ``W2_l``, ``b2_l`` a layer),
+optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
+names and optax's Adagrad ``opt_state[0].sum_of_squares``.  Shapes are
+the JAX shapes too, 0-d ones included, so nothing is transposed or
+reshaped.
 Convert the arrays to numpy on the JAX side (``np.asarray``); nothing
 here imports JAX.
 """

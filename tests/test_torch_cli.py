@@ -146,11 +146,50 @@ def test_cli_tunes(toy_argv, tmp_path, capsys):
 def test_cli_lists_models(capsys):
     assert cli.main(["--list-models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "BPR", "CML", "CUNE_BPR", "GMF", "LRML", "MLP", "NeuMF", "SAMN",
-        "SAMN_single", "SBPR", "TBPR", "TransCF"]
+        "BPR", "CML", "CUNE_BPR", "FISM", "GMF", "LRML", "LightGCN", "MLP",
+        "NAIS", "NAIS_single", "NGCF", "NeuMF", "SAMN", "SAMN_single", "SBPR",
+        "TBPR", "TransCF"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(toy_argv)
+
+
+@pytest.mark.parametrize("name,flags", [
+    ("FISM", []), ("NAIS", ["--set", "atten_size=8"]),
+    ("NAIS_single", ["--set", "atten_size=8"]),
+    ("NAIS", ["--set", "atten_size=8",
+              "--set", "train.bucketed_histories=False"]),
+    ("LightGCN", ["--set", "n_layers=2"]), ("NGCF", ["--set", "n_layers=2"]),
+    ("LightGCN", ["--set", "n_layers=2", "--set", "graph.dense_budget_mb=0"]),
+])
+def test_cli_trains_item_and_graph_models(toy_argv, tmp_path, name, flags):
+    """FISM, NAIS, NAIS_single, LightGCN and NGCF on their confs, cut to
+    the toy, through the CLI on the CPU: each epoch trains and evaluates,
+    and the loss falls."""
+    logger = logging.getLogger(f"cleverrec_tpu_torch.{name}")
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    get_logger(str(tmp_path / "logs"), name)
+    handler = Records()
+    logger.addHandler(handler)
+    try:
+        rc = cli.main(toy_argv + ["--device", "cpu", "--model", name,
+                                  "--set", "batch_size=128", *flags])
+    finally:
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
+    assert rc == 0
+    epochs = [r.train for r in handler.records if hasattr(r, "train")]
+    assert [e["epoch"] for e in epochs] == [1, 2, 3]
+    assert epochs[-1]["losses"][-1] < epochs[0]["losses"][0]
+    best = [r.best for r in handler.records if hasattr(r, "best")]
+    assert len(best) == 1 and sorted(best[0]["metrics"]) == [5, 10]
+    buckets = [r.buckets for r in handler.records if hasattr(r, "buckets")]
+    bucketed = name.startswith("NAIS") and "train.bucketed_histories=False" \
+        not in flags
+    assert len(buckets) == bucketed

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card:
 dot_scores, dot_gmax and dot_topk_scores, and the epoch kernels
 bpr_epoch, gmf_epoch, mlp_epoch, rows_epoch (the social chain and LRML's
-form) and cml_epoch.
+form) and cml_epoch; LightGCN's fused serving and eval against dense, and
+FISM's segment sums (f32 atomics) on the card against the CPU.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -357,12 +358,14 @@ def test_bpr_epoch_rejects_bad_input(cuda):
         T.fused_bpr_epoch(*state, ids[0].cpu(), *ids[1:], 0, lr=0.1, reg=0)
 
 
-# gmf_epoch and mlp_epoch: as bpr_epoch, f32 atomics sum duplicate ids in
-# a run-dependent order.  mlp_epoch's dense params (the W_l, b_l and h)
-# also sum every row of a step (6144 on the main path) in the kernel's
-# order, against cuBLAS's products in the plain version, and each step's
-# Adam normalises that rounding into the next: their elements, and the
-# loss, which depends on them, are held looser.
+# gmf_epoch: as bpr_epoch, f32 atomics sum duplicate ids in a
+# run-dependent order.  mlp_epoch sums every gradient in a fixed order (a
+# table row's in batch order, through a CSR of the step's ids), which is
+# not the plain version's: its dense params (the W_l, b_l and h) sum every
+# row of a step (6144 on the main path) in the kernel's order, against
+# cuBLAS's products in the plain version, and each step's Adam normalises
+# that rounding into the next: their elements, and the loss, which depends
+# on them, are held looser.
 DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 
 
@@ -565,7 +568,7 @@ def test_mlp_epoch_matches_plain(cuda, name, u_n, i_n, embed, layers, steps,
 def test_mlp_epoch_dense_step_is_deterministic(cuda, name):
     """The blocks' dense gradients are summed in a fixed order, with no
     atomics: one step from one state gives bit-identical W_l, b_l, h and
-    their moments in two launches (the tables' row sums use atomics)."""
+    their moments in two launches."""
     spec, groups, cols = _mlp_inputs(name, 943, 1682, 64, [128, 64, 32], 1,
                                      6144, 81)
     cols = [torch.as_tensor(x).to(cuda) for x in cols]
@@ -576,6 +579,31 @@ def test_mlp_epoch_dense_step_is_deterministic(cuda, name):
         runs.append(state)
     torch.cuda.synchronize()
     for k in range(3):
+        for n, a, b in zip(spec["dense"], runs[0][3 * k + 2],
+                           runs[1][3 * k + 2]):
+            assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("name", ["MLP", "NeuMF"])
+def test_mlp_epoch_is_deterministic(cuda, name):
+    """No sum depends on the order in which the card runs the blocks: a
+    4-step epoch from one state gives bit-identical tables, dense params,
+    moments and loss in two launches (each step's row grads feed the next
+    step's products, so one step would not show it)."""
+    spec, groups, cols = _mlp_inputs(name, 943, 1682, 64, [128, 64, 32], 4,
+                                     6144, 81)
+    cols = [torch.as_tensor(x).to(cuda) for x in cols]
+    runs, losses = [], []
+    for _ in range(2):
+        state = _to(groups, cuda)
+        losses.append(T.fused_mlp_epoch(*state, *cols, 81, spec=spec,
+                                        lr=0.01))
+        runs.append(state)
+    torch.cuda.synchronize()
+    assert torch.equal(losses[0], losses[1])
+    for k in range(3):
+        for a, b in zip(runs[0][3 * k:3 * k + 2], runs[1][3 * k:3 * k + 2]):
+            assert torch.equal(a, b)
         for n, a, b in zip(spec["dense"], runs[0][3 * k + 2],
                            runs[1][3 * k + 2]):
             assert torch.equal(a, b), n
@@ -1054,3 +1082,106 @@ def test_rows_epoch_lrml_raises_on_bad_input(cuda):
         T.fused_rows_epoch(*packed, [planes[0].cpu()] + planes[1:], [], 0,
                            sides=sides, spec=spec, lr=0.1)
     assert T.launches["rows_epoch_lrml"] == before
+
+
+def _ratings(path, n_users, n_items, n_rows, seed=3):
+    """A random ratings file (UIRT with a header) in ``path/toy``; returns
+    the config keys that load it."""
+    rng = np.random.default_rng(seed)
+    (path / "toy").mkdir()
+    pairs = set(zip(rng.integers(0, n_users, n_rows).tolist(),
+                    rng.integers(0, n_items, n_rows).tolist()))
+    lines = ["u_id,i_id,rating,time"] + [f"{u},{i},5,{t}" for t, (u, i)
+                                         in enumerate(sorted(pairs))]
+    (path / "toy" / "ratings.csv").write_text("\n".join(lines) + "\n")
+    return {"data.root_dir": str(path), "data.dataset": "toy",
+            "data.file_name": "ratings.csv", "data.sep": ","}
+
+
+def test_lightgcn_fused_serving_equals_dense(cuda, tmp_path):
+    """LightGCN at d = 64 on a 1,500-item random split: ``auto`` serving
+    picks ``fused`` and launches ``dot_scores`` on the propagated item
+    rows (a row slice of the [U + I, d] matrix), and its answers equal
+    ``dense``'s up to near-tied scores; the ``full_fused`` eval equals
+    ``full``."""
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import build_device_data, load_ranking_data
+    from cleverrec_tpu_torch.evalx import Evaluator
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.serving import build_retrieval_fn
+    cfg = Config({"recommender": "LightGCN", "data.split_way": "rs",
+                  "test.neg_samples": "0", "topk": "[10]",
+                  "embed_size": "64", "n_layers": "3", "reg": "0.0001",
+                  "init_method": "normal", "stddev": "0.1", "seed": "5",
+                  **_ratings(tmp_path, 400, 1500, 30000)})
+    data = load_ranking_data(cfg)
+    dd = build_device_data(data)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                       device=cuda)
+    aux = {k: torch.as_tensor(v, device=cuda)
+           for k, v in model.build_aux(dd, data).items()}
+    u = torch.arange(256, device=cuda)
+    _, table, _ = model.dot_decomposition(u, aux)
+    assert table.storage_offset() == data.user_nums * 64
+    fused = build_retrieval_fn(model, aux, dd, k=10, backend="auto",
+                               device=cuda)
+    dense = build_retrieval_fn(model, aux, dd, k=10, backend="dense",
+                               device=cuda)
+    assert fused.backend == "fused"
+    before = S.launches["dot_scores"]
+    got, want = fused(u), dense(u)
+    torch.cuda.synchronize()
+    assert S.launches["dot_scores"] == before + 1
+    (gi, gv), (wi, wv) = [(i.cpu().numpy(), v.cpu().numpy())
+                          for i, v in (got, want)]
+    np.testing.assert_allclose(gv, wv, rtol=1e-4, atol=1e-5)
+    tol = 1e-4 * np.abs(wv).max()
+    for r, j in zip(*np.nonzero(gi != wi)):
+        assert (np.abs(np.delete(gv[r], j) - gv[r, j]) <= tol).any()
+    ev_fused = Evaluator(model, dd, cfg, device=cuda)
+    ev_full = Evaluator(model, dd, cfg.with_overrides(
+        **{"eval.fused_kernel": "False"}), device=cuda)
+    assert (ev_fused.mode, ev_full.mode) == ("full_fused", "full")
+    a, b = ev_fused.evaluate(aux), ev_full.evaluate(aux)
+    np.testing.assert_allclose(a[10], b[10], rtol=0, atol=1e-6)
+
+
+def test_fism_segment_sums_on_the_card_match_the_cpu(cuda, tmp_path):
+    """FISM's user vectors (a segment sum over all pairs, ``index_add``
+    with f32 atomics on the card) and one step's loss and gradients (the
+    sum's backward, ``embedding``'s), from one state and one batch at
+    the conf's widths, on the card and on the CPU: within
+    1e-5 + 1e-3 |x|, the loss within 1e-5."""
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import load_ranking_data
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.train import Trainer
+    cfg = Config({"recommender": "FISM", "embed_size": "128",
+                  "alpha": "0.4", "reg": "0.001", "reg_bias": "0.001",
+                  "lr": "0.001", "neg_ratio": "4", "batch_size": "6144",
+                  "optimizer": "Adam", "is_pairwise": "True",
+                  "loss_func": "bpr", "init_method": "xavier", "seed": "2",
+                  **_ratings(tmp_path, 900, 1600, 60000)})
+    data = load_ranking_data(cfg)
+    runs, batch = [], None
+    for device in ("cpu", cuda):
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                           device=device)
+        tr = Trainer(model, data, cfg, device=device)
+        tr.init_state()
+        if batch is None:
+            batch = {k: v[0] for k, v in tr.sample_epoch().items()}
+        with torch.no_grad():
+            users = model._user_repr(tr.aux, torch.arange(
+                data.user_nums, device=device))
+        loss = model.loss({k: v.to(device) for k, v in batch.items()},
+                          tr.aux)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        runs.append((users, loss.detach(), grads))
+    (u_cpu, l_cpu, g_cpu), (u_gpu, l_gpu, g_gpu) = runs
+    assert float(l_gpu) == pytest.approx(float(l_cpu), rel=1e-5)
+    for a, b in zip((u_gpu, *g_gpu), (u_cpu, *g_cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-5)

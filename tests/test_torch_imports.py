@@ -43,7 +43,8 @@ def test_port_never_loads_jax_or_the_jax_package():
     assert set(report["imported"]) == set(_port_modules())
     for name in ("ops.scores", "ops.train", "models.ncf", "models.social",
                  "data.social", "models.metric", "models.modules",
-                 "ops.sparse_adam", "train.checkpoint", "tuning"):
+                 "ops.sparse_adam", "train.checkpoint", "tuning",
+                 "models.itemsim", "models.gcn"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]
@@ -73,7 +74,7 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 def test_unported_model_names_its_slice():
     from cleverrec_tpu_torch.models import make_model
-    cfg = Config({"recommender": "NAIS"})
+    cfg = Config({"recommender": "DiffNet"})
     with pytest.raises(NotImplementedError,
                        match="other-ranking-models slice.*item 11"):
         make_model(cfg, DataMeta(4, 40), device="cpu")

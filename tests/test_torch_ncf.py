@@ -441,6 +441,24 @@ def test_mlp_epoch_plan_fills_one_wave(dg, b, sms, rows, blocks):
     assert lay["off_g"] == list(np.cumsum([0] + sizes))
 
 
+# The tower kernel's table gradients: each step's batch rows sorted
+# stably by id, and where each id's run starts; ids outside the table
+# (the kernel reads them as zero rows) fall outside every run.
+@pytest.mark.parametrize("steps,b,n", [(3, 64, 7), (2, 6144, 1682),
+                                       (2, 0, 5), (0, 16, 5)])
+def test_mlp_id_csr_lists_each_ids_rows_in_batch_order(steps, b, n):
+    rng = np.random.default_rng(steps + b + n)
+    ids = torch.as_tensor(rng.integers(-2, n + 2, (steps, b)).astype(np.int32))
+    order, seg = T.mlp_id_csr(ids, n)
+    assert order.dtype == seg.dtype == torch.int32
+    assert tuple(order.shape) == (steps, b)
+    assert tuple(seg.shape) == (steps, n + 1)
+    for s in range(steps):
+        for i in range(n):
+            rows = order[s, seg[s, i]:seg[s, i + 1]].tolist()
+            assert rows == np.flatnonzero(ids[s].numpy() == i).tolist()
+
+
 # -- the trainer ----------------------------------------------------------
 
 def _close_epoch(trainer_out, jax_out, names):

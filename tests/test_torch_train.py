@@ -334,7 +334,6 @@ def test_fused_tier_eligibility(toy_dataset):
     ("train.fused_bf16", "True", "item 17"),
     ("train.fused_groups", "4", "item 17"),
     ("train.fused_grouped", "True", "item 17"),
-    ("fism_pretrain", "fism_ckpt", "item 11"),
     ("profile.dir", "trace", "item 4"),
     ("neg_sampling", "popularity", "item 7"),
 ])
