@@ -117,6 +117,24 @@ width of ``conf/BPR.properties`` (embed_size 128):
   profiled (the device's busy share).  The ``phase J`` line gives each
   run's epoch and eval ms, first and last loss, best HR@10 beside its
   reference, the bucket plan, and phase J's seconds.
+- Phase K, the social-diffusion family and WMF, DMF, SML and EATNN
+  (kernel ``dot_scores``, through LR_GCCF's and SML's decompositions):
+  on phase F's files, the same CLI with ``--model DiffNet``,
+  ``DiffNetPlusPlus`` and ``EATNN`` (embed 64, the trust graph),
+  ``LR_GCCF`` (embed 64, 3 layers), ``WMF``, ``DMF`` (towers [64, 32])
+  and ``SML`` (embed 64, learned margins), each on its conf through the
+  scan tier for ``K_EPOCHS`` epochs (LR_GCCF's and WMF's the confs'
+  100, the others cut): no epoch kernel, the loss falls, and the best
+  HR@10 is at least the JAX package's on the same files less
+  ``JAX_BAND``.  ``auto`` serving must pick ``fused`` for the four
+  decomposable models and ``dense`` for DiffNet, DiffNet++ and DMF.
+  Then LR_GCCF's and SML's
+  best parameters on a random split: ``full_fused`` eval equal to
+  ``full``, and 4 x 256 users at k=10 through ``auto`` (``fused``) held
+  against ``dense`` (SML's scores up to each user's |u|^2);
+  ``dot_scores`` must launch.  The ``phase K`` line gives each run's
+  epochs, epoch and eval ms, first and last loss, best HR@10 beside its
+  reference, the backends, and phase K's seconds.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -128,7 +146,8 @@ width of ``conf/BPR.properties`` (embed_size 128):
   its 1,024-user ``full_fused`` batches, which take another tile), at B,
   at N, 1,024 users x 4,096 items (the narrow branch's border), and at J
   (phase J's first serving call: LightGCN's 256 propagated user rows
-  against its 1,682 item rows, d 64),
+  against its 1,682 item rows, d 64) and at K (phase K's first LR_GCCF
+  serving call: 256 x 1,682, d 256, the four layers concatenated),
   ``dot_gmax`` at B and A, each timing naming the tile it took; inputs
   from the script's seeds.  The ``mlp_epoch``, ``rows_epoch`` and
   ``rows_epoch_lrml`` rows give the kernel's own device time of an epoch
@@ -144,8 +163,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H, again before and after each training run (phases I's and J's
-included), and before and after phase J's LightGCN eval and serving
-(``dot_scores``' row counts A, B, H and J).  Exits non-zero, with no
+included), and before and after phase J's LightGCN and phase K's
+LR_GCCF and SML eval and serving (``dot_scores``' row counts A, B, H,
+J and K).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -198,7 +218,10 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "conf/SAMN.properties", "conf/SAMN_single.properties",
           "conf/FISM.properties", "conf/NAIS.properties",
           "conf/NAIS_single.properties", "conf/LightGCN.properties",
-          "conf/NGCF.properties",
+          "conf/NGCF.properties", "conf/DiffNet.properties",
+          "conf/DiffNetPlusPlus.properties", "conf/LR_GCCF.properties",
+          "conf/WMF.properties", "conf/DMF.properties", "conf/SML.properties",
+          "conf/EATNN.properties",
           "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
@@ -293,6 +316,25 @@ JAX_ITEM_GRAPH_HR10 = {"FISM": 0.7922, "LightGCN": 0.7519, "NGCF": 0.8293,
 # warm first epoch above WARM_GAP times its cold one.
 JAX_NAIS_FIRST_LOSS = {"warm": 1036.9663, "cold": 382.5351}
 WARM_GAP = 1.1
+# Phase K: the confs' 100 epochs for LR_GCCF and WMF, the two fastest an
+# epoch; the five slowest cut to 50 (DMF to 30, the JAX CLI's best epoch
+# on these files being 22), to keep phase K near 150 s.
+K_EPOCHS = {"DiffNet": 50, "DiffNetPlusPlus": 50, "LR_GCCF": 100,
+            "WMF": 100, "DMF": 30, "SML": 50, "EATNN": 50}
+# Phase K: the JAX package's best HR@10 on the same files (the rebuilt
+# ml-100k and, for DiffNet, DiffNet++ and EATNN, the trust graph of
+# write_trusts(TRUST_SEED)), each conf's recipe at the epoch counts
+# above, from the JAX CLI on the CPU: phase J's command with --model M
+# and --set epoches=N (and --set social_file=trusts.csv for the three).
+JAX_K_HR10 = {"DiffNet": 0.7699, "DiffNetPlusPlus": 0.8388,
+              "LR_GCCF": 0.8218, "WMF": 0.8197, "DMF": 0.7773,
+              "SML": 0.7709, "EATNN": 0.8303}
+# The models whose decomposition phase K ranks with dot_scores, and what
+# ``auto`` serving picks for each of the seven on ml-100k.
+K_RANKED = ("LR_GCCF", "SML")
+K_BACKEND = {"DiffNet": "dense", "DiffNetPlusPlus": "dense",
+             "LR_GCCF": "fused", "WMF": "fused", "DMF": "dense",
+             "SML": "fused", "EATNN": "fused"}
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -658,12 +700,13 @@ def seen_bits(dd, users):
 
 
 def serve(tag, model, dd, k, users_per_call, backend, expect, rng,
-          profiles, aux=None):
+          profiles, aux=None, offset=None):
     """Serve 4 calls through ``backend``, which must resolve to
     ``expect``, and hold each to dense; time both backends and add a
     kernel breakdown of one call of each to ``profiles``.  ``aux``: the
-    model's (default none).  Returns the calls' users, the times and the
-    dense answers."""
+    model's (default none); ``offset``: a distance model's |u|^2 of every
+    user, which its fused scores leave out.  Returns the calls' users,
+    the times and the dense answers."""
     fast = build_retrieval_fn(model, aux, dd, k=k, backend=backend)
     check(fast.backend == expect, f"{tag}: {backend} picked {fast.backend}")
     dense = build_retrieval_fn(model, aux, dd, k=k, backend="dense")
@@ -675,7 +718,8 @@ def serve(tag, model, dd, k, users_per_call, backend, expect, rng,
         fast_s.append(s)
         answers.append(dense(u))
         swaps += check_answer(tag, got, answers[-1], seen_bits(dd, u), k,
-                              dd.item_nums)
+                              dd.item_nums,
+                              offset=None if offset is None else offset[u])
     u = calls[0]
 
     def per_call_ms(fn):
@@ -1689,15 +1733,15 @@ def gate(tag, res, ref):
           f"{tag}: best HR@10 {res['best']['HR@10']} < {floor}")
 
 
-def lightgcn_ranking(ckpt, rng, gen, profiles):
-    """LightGCN's trained parameters (the checkpoint ``ckpt``) on a random
+def split_ranking(tag, name, ckpt, rng, gen, profiles):
+    """``name``'s trained parameters (the checkpoint ``ckpt``) on a random
     split with the full-catalog eval: ``full_fused`` against ``full``,
     and 4 x 256 users at k=10 through ``auto`` (which must pick
-    ``fused``) against ``dense``, the counts set to 0 just before.
-    Returns the numbers, with the dot_scores launches, and dot_scores'
-    inputs at the first call's users: the propagated user rows and the
-    item rows, a row slice of the propagated matrix."""
-    cfg = config("ml-100k", recommender="LightGCN",
+    ``fused``) against ``dense``.  Returns the numbers and dot_scores'
+    inputs at the first call's users: the decomposition's user rows and
+    item table (for the graph models a row slice of the propagated
+    matrix) and the seen bitmaps."""
+    cfg = config("ml-100k", recommender=name,
                  **{"test.neg_samples": "0", "data.split_way": "rs"})
     data = load_ranking_data(cfg)
     dd = build_device_data(data)
@@ -1706,30 +1750,33 @@ def lightgcn_ranking(ckpt, rng, gen, profiles):
               load_params(ckpt), "parameter")
     aux = {k: torch.as_tensor(v, device="cuda")
            for k, v in model.build_aux(dd, data).items()}
-    scores.reset_launches()
     fused_ev = Evaluator(model, dd, cfg)
     full_ev = Evaluator(model, dd, cfg.with_overrides(
         **{"eval.fused_kernel": "False"}))
     check((fused_ev.mode, full_ev.mode) == ("full_fused", "full"),
-          f"J eval modes {fused_ev.mode}, {full_ev.mode}")
+          f"{tag} eval modes {fused_ev.mode}, {full_ev.mode}")
     out = {}
-    got, out["eval_full_fused_s"] = evaluate("J full_fused", fused_ev, aux)
-    want, out["eval_full_s"] = evaluate("J full", full_ev, aux)
+    got, out["eval_full_fused_s"] = evaluate(f"{tag} full_fused", fused_ev,
+                                             aux)
+    want, out["eval_full_s"] = evaluate(f"{tag} full", full_ev, aux)
     for k in cfg.topk:
         check(bool(np.allclose(got[k], want[k], atol=METRIC_TOL, rtol=0)),
-              f"J @{k}: full_fused {got[k]} vs full {want[k]}")
-    calls, times, _ = serve("J", model, dd, 10, 256, "auto", "fused", rng,
-                            profiles, aux=aux)
+              f"{tag} @{k}: full_fused {got[k]} vs full {want[k]}")
+    offset = None
+    if model.cml_like:
+        with torch.no_grad():
+            offset = (model.P ** 2).sum(dim=1).cpu().numpy()
+    calls, times, _ = serve(tag, model, dd, 10, 256, "auto", "fused", rng,
+                            profiles, aux=aux, offset=offset)
     out.update(times)
-    out["launches"] = {"dot_scores": scores.launches["dot_scores"]}
-    check(out["launches"]["dot_scores"] > 0,
-          "phase J never launched dot_scores")
     out["metrics"] = {"full_fused": got, "full": want}
     with torch.no_grad():
         uv, table, _ = model.dot_decomposition(
             torch.as_tensor(calls[0], device="cuda").long(), aux)
-    check(table.storage_offset() == data.user_nums * table.shape[1],
-          "J: the item table is not the propagated matrix's item rows")
+    if hasattr(model, "_propagate"):
+        check(table.storage_offset() == data.user_nums * table.shape[1],
+              f"{tag}: the item table is not the propagated matrix's item "
+              "rows")
     bits = torch.as_tensor(seen_bits(dd, calls[0]), device="cuda")
     bias = torch.randn(table.shape[0], generator=gen).cuda()
     return out, (uv.contiguous(), table, bits, bias)
@@ -1790,8 +1837,13 @@ def phase_j(rng, gen, profiles):
         check(not epoch_kernels(res), f"J {tag}: launches {res['launches']}")
 
     parts = {"runs": time.perf_counter() - t0}
-    ranked, inputs = lightgcn_ranking(os.path.join(saved, "LightGCN"), rng,
-                                      gen, profiles)
+    scores.reset_launches()
+    ranked, inputs = split_ranking("J", "LightGCN",
+                                   os.path.join(saved, "LightGCN"), rng,
+                                   gen, profiles)
+    ranked["launches"] = {"dot_scores": scores.launches["dot_scores"]}
+    check(ranked["launches"]["dot_scores"] > 0,
+          "phase J never launched dot_scores")
     parts["ranking"] = time.perf_counter() - t0 - parts["runs"]
     # The warm start as the CLI's run took it: NAIS's P, Q and bias are
     # the FISM save's P, Q and b, bit for bit; then that NAIS's epoch is
@@ -1822,6 +1874,56 @@ def phase_j(rng, gen, profiles):
                nais_epoch_device_busy_unprofiled=(
                    prof["device_ms"] / cold["epoch_ms_median"]),
                nais_jax_first_loss=JAX_NAIS_FIRST_LOSS,
+               seconds_by_part=parts, seconds=time.perf_counter() - t0)
+    return out, inputs
+
+
+def phase_k(rng, gen, profiles):
+    """DiffNet, DiffNet++, LR_GCCF, WMF, DMF, SML and EATNN on their confs
+    (the scan tier, no epoch kernel), each held to the JAX CLI; what
+    ``auto`` serving picks for each; LR_GCCF's and SML's fused eval and
+    serving (kernel ``dot_scores``).  Returns the numbers and dot_scores'
+    inputs at LR_GCCF's first serving call (d 256)."""
+    t0 = time.perf_counter()
+    saved = os.path.join(SAVED, "K")
+    shutil.rmtree(saved, ignore_errors=True)
+    runs = {}
+    for name, epochs in K_EPOCHS.items():
+        res = runs[name] = drive_cli(f"K_{name}", model=name, epochs=epochs,
+                                     **{"save.best": "True",
+                                        "saved_dir": saved})
+        check(res["loss_last"] < res["loss_first"],
+              f"K {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        check(not epoch_kernels(res), f"K {name}: launches {res['launches']}")
+        gate(f"K {name}", res, JAX_K_HR10[name])
+    parts = {"runs": time.perf_counter() - t0}
+    backends = {}
+    for name, expect in K_BACKEND.items():
+        cfg = config("ml-100k", recommender=name)
+        data = load_ranking_data(cfg)
+        dd = build_device_data(data)
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+        aux = {k: torch.as_tensor(v, device="cuda")
+               for k, v in model.build_aux(dd, data).items()}
+        fn = build_retrieval_fn(model, aux, dd, k=10, backend="auto")
+        backends[name] = fn.backend
+        check(fn.backend == expect, f"K {name}: auto picked {fn.backend}")
+    scores.reset_launches()
+    ranked, inputs = {}, None
+    for name in K_RANKED:
+        ranked[name], got = split_ranking(f"K_{name}", name,
+                                          os.path.join(saved, name), rng,
+                                          gen, profiles)
+        inputs = inputs or got
+    launches = {"dot_scores": scores.launches["dot_scores"]}
+    check(launches["dot_scores"] > 0, "phase K never launched dot_scores")
+    check(inputs[0].shape[1] == 4 * 64,
+          f"K: LR_GCCF's decomposition width {inputs[0].shape[1]}")
+    parts["ranking"] = time.perf_counter() - t0 - parts["runs"]
+    out = {tag: {**summary(res), "epochs": K_EPOCHS[tag],
+                 "jax_hr10": JAX_K_HR10[tag]}
+           for tag, res in runs.items()}
+    out.update(backends=backends, ranking=ranked, launches=launches,
                seconds_by_part=parts, seconds=time.perf_counter() - t0)
     return out, inputs
 
@@ -2156,12 +2258,24 @@ def main() -> int:
                         "cleverrec_tpu/ops/pallas_scores.py:276",
                         lambda b, i: b * i)
     del j_inputs
+    train["K"], k_inputs = phase_k(rng, gen, profiles)
+    print("phase K: " + json.dumps(train["K"]), flush=True)
+    # ... and on phase K's: LR_GCCF's 256 users against its 1,682
+    # concatenated item rows, d 256.
+    k_row = kernel_rows("dot_scores", {"K": k_inputs},
+                        train["K"]["launches"]["dot_scores"],
+                        scores.dot_scores_ref, scores.dot_scores,
+                        "cleverrec_tpu/ops/pallas_scores.py:276",
+                        lambda b, i: b * i)
+    del k_inputs
     rows[0]["launches_by_phase"] = {"A_B_H": rows[0]["launches"],
-                                    "J": j_row["launches"]}
-    rows[0]["launches"] += j_row["launches"]
-    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
-                                 j_row["max_abs_err"])
-    rows[0]["timings"] += j_row["timings"]
+                                    "J": j_row["launches"],
+                                    "K": k_row["launches"]}
+    for extra in (j_row, k_row):
+        rows[0]["launches"] += extra["launches"]
+        rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
+                                     extra["max_abs_err"])
+        rows[0]["timings"] += extra["timings"]
     rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
     rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
                          profiles))

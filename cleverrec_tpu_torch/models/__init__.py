@@ -1,7 +1,9 @@
 """Model registry: BPR, the NCF family (GMF, MLP, NeuMF), the social
 family (SBPR, TBPR, CUNE_BPR, SAMN, SAMN_single), the metric-learning
 family (CML, LRML, TransCF), the item-similarity family (FISM, NAIS,
-NAIS_single) and the graph models (LightGCN, NGCF)."""
+NAIS_single), the graph models (LightGCN, NGCF), the social-diffusion
+family (DiffNet, DiffNetPlusPlus, LR_GCCF) and WMF, DMF, SML and
+EATNN."""
 
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ from cleverrec_tpu_torch.common import resolve_device
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.models.base import DataMeta, RecModel
 from cleverrec_tpu_torch.models.bpr import BPR
+from cleverrec_tpu_torch.models.diffnet import (LR_GCCF, DiffNet,
+                                                DiffNetPlusPlus)
+from cleverrec_tpu_torch.models.extra import DMF, EATNN, SML, WMF
 from cleverrec_tpu_torch.models.gcn import NGCF, LightGCN
 from cleverrec_tpu_torch.models.itemsim import FISM, NAIS, NAISSingle
 from cleverrec_tpu_torch.models.metric import CML, LRML, TransCF
@@ -20,7 +25,8 @@ from cleverrec_tpu_torch.models.social import (CUNE_BPR, SAMN, SBPR, TBPR,
 
 _REGISTRY: dict[str, type] = {m.name: m for m in (
     BPR, GMF, MLP, NeuMF, SBPR, TBPR, CUNE_BPR, SAMN, SAMNSingle, CML, LRML,
-    TransCF, FISM, NAIS, NAISSingle, LightGCN, NGCF)}
+    TransCF, FISM, NAIS, NAISSingle, LightGCN, NGCF, DiffNet,
+    DiffNetPlusPlus, LR_GCCF, WMF, DMF, SML, EATNN)}
 
 
 def available_models() -> list[str]:
@@ -35,8 +41,9 @@ def make_model(cfg: Config, meta: DataMeta, device="cuda",
     name = cfg.recommender
     if name not in _REGISTRY:
         raise NotImplementedError(
-            f"model {name!r} is not ported yet: it comes with the port's "
-            "other-ranking-models slice (ROADMAP.md queue 1, item 11); "
+            f"model {name!r} is not ported yet: RML_DGATs and SoHRML come "
+            "with the port's dual-sampler slice (ROADMAP.md queue 1, item "
+            "11); "
             f"ported: {available_models()}")
     model = _REGISTRY[name](cfg, meta)
     if generator is None:

@@ -29,7 +29,7 @@ from torch import nn
 
 from cleverrec_tpu_torch.common import bpr_loss, init_param, l2_loss
 from cleverrec_tpu_torch.models.base import Aux, RecModel
-from cleverrec_tpu_torch.models.modules import gather_rows
+from cleverrec_tpu_torch.models.modules import edge_sum, gather_rows
 
 DENSE_ADJ_BUDGET_MB = 512
 
@@ -68,8 +68,8 @@ def _adj_apply(aux: Aux, ego: torch.Tensor) -> torch.Tensor:
     gather summed into its rows."""
     if "g_dense" in aux:
         return aux["g_dense"] @ ego
-    msg = aux["g_w"][:, None] * gather_rows(ego, aux["g_col"])
-    return torch.zeros_like(ego).index_add(0, aux["g_row"].long(), msg)
+    return edge_sum(ego, aux["g_row"], aux["g_col"], aux["g_w"],
+                    ego.shape[0])
 
 
 class _GraphModel(RecModel):

@@ -44,11 +44,8 @@ from torch import nn
 from cleverrec_tpu_torch.common import (clip_rows_by_norm, init_param,
                                         l2_loss, pairwise_loss)
 from cleverrec_tpu_torch.models.base import Aux, RecModel
-from cleverrec_tpu_torch.models.modules import segment_mean_embeddings
-
-
-def _sq_dist(a, b):
-    return torch.sum(torch.square(a - b), dim=-1)
+from cleverrec_tpu_torch.models.modules import (segment_mean_embeddings,
+                                                sq_dist)
 
 
 class _MetricBase(RecModel):
@@ -86,8 +83,8 @@ class CML(_MetricBase):
         ue = self.P[batch["u"]]
         ie = self.Q[batch["i"]]
         ne = self.Q[batch["negs"]]                          # [B, K, d]
-        d_ui = _sq_dist(ue, ie)
-        d_un = _sq_dist(ue[:, None, :], ne)                 # [B, K]
+        d_ui = sq_dist(ue, ie)
+        d_un = sq_dist(ue[:, None, :], ne)                 # [B, K]
         # amin spreads the gradient over exact ties, as jnp.min does.
         per_pair = torch.clamp(d_ui + self.margin - d_un.amin(dim=1), min=0.0)
         imposters = (d_ui[:, None] + self.margin - d_un) > 0
@@ -102,7 +99,7 @@ class CML(_MetricBase):
         return per_pair.sum() + cov_loss
 
     def score_pairs(self, u, i, aux: Aux):
-        return _sq_dist(self.P[u], self.Q[i])
+        return sq_dist(self.P[u], self.Q[i])
 
     def score_all(self, u, aux: Aux):
         # Row-clipped user embeddings against the raw item table

@@ -1,6 +1,8 @@
 """Shared model building blocks (as ``cleverrec_tpu/models/modules.py``).
 
-The neighbourhood mean of TransCF and FISM, the NAIS smoothed softmax
+The squared distance of the distance models, the edge-list sum of the
+graph models, the neighbourhood mean of TransCF and FISM, the NAIS
+smoothed softmax
 over a padded history and the one-hidden-layer attention scorer of SAMN
 and NAIS.  Gathers of table rows go through ``embedding``
 (``gather_rows``): its backward sums each row's gradients in sorted
@@ -26,6 +28,20 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.embedding(ids.long(),
                                              table[:, None])[..., 0]
     return torch.nn.functional.embedding(ids.long(), table)
+
+
+def sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b|^2 over the last axis: the distance models' score."""
+    return torch.sum(torch.square(a - b), dim=-1)
+
+
+def edge_sum(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+             w: torch.Tensor, n: int) -> torch.Tensor:
+    """out[r] = sum over the edges (r, c) of w * x[c], for ``n`` rows r:
+    a sparse product in edge-list form (the graph models' propagation),
+    ``index_add`` out of place, so the gradient flows into ``x``."""
+    msg = w[:, None] * gather_rows(x, cols)
+    return x.new_zeros((n, x.shape[1])).index_add(0, rows.long(), msg)
 
 
 def segment_mean_embeddings(ids_seg: torch.Tensor, ids_val: torch.Tensor,

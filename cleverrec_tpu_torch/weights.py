@@ -8,8 +8,14 @@ CML and TransCF: ``P``, ``Q``; LRML: ``P``, ``Q``, ``K`` [d, mem],
 ``M`` [mem, d]; SAMN and SAMN_single: ``P`` [U + 1, d], ``Q``, ``i_b``,
 ``Key``, ``Mem``, ``W3``, ``b``, ``h``; FISM: ``P``, ``Q`` [I + 1, d],
 ``b`` [I + 1]; NAIS and NAIS_single: ``P``, ``Q`` [I + 1, d], ``bias``
-[I + 1], ``W`` [d or 2d, atten], ``b``, ``h``; LightGCN: ``P``, ``Q``;
-NGCF: ``P``, ``Q``, ``W1_l``, ``b1_l``, ``W2_l``, ``b2_l`` a layer),
+[I + 1], ``W`` [d or 2d, atten], ``b``, ``h``; LightGCN and LR_GCCF:
+``P``, ``Q``; NGCF: ``P``, ``Q``, ``W1_l``, ``b1_l``, ``W2_l``, ``b2_l``
+a layer; DiffNet: ``P``, ``Q``, ``W_l`` [2d, d], ``b_l`` [d] a layer;
+DiffNetPlusPlus: DiffNet's and ``gate_l`` [2] a layer; WMF: ``P``,
+``Q``; DMF: ``P``, ``Q`` [., layers[0]], ``Wu_l``, ``bu_l``, ``Wi_l``,
+``bi_l`` for l >= 1; SML: ``P``, ``Q``, ``m_u`` [U], ``m_i`` [I];
+EATNN: ``P_shared``, ``P_item``, ``P_social`` [U, d], ``Q``, ``att_w``
+[d, d], ``att_h`` [d]),
 optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
 names and optax's Adagrad ``opt_state[0].sum_of_squares``.  Shapes are
 the JAX shapes too, 0-d ones included, so nothing is transposed or

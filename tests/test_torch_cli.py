@@ -146,9 +146,10 @@ def test_cli_tunes(toy_argv, tmp_path, capsys):
 def test_cli_lists_models(capsys):
     assert cli.main(["--list-models"]) == 0
     assert capsys.readouterr().out.split() == [
-        "BPR", "CML", "CUNE_BPR", "FISM", "GMF", "LRML", "LightGCN", "MLP",
-        "NAIS", "NAIS_single", "NGCF", "NeuMF", "SAMN", "SAMN_single", "SBPR",
-        "TBPR", "TransCF"]
+        "BPR", "CML", "CUNE_BPR", "DMF", "DiffNet", "DiffNetPlusPlus", "EATNN",
+        "FISM", "GMF", "LRML", "LR_GCCF", "LightGCN", "MLP", "NAIS",
+        "NAIS_single", "NGCF", "NeuMF", "SAMN", "SAMN_single", "SBPR", "SML",
+        "TBPR", "TransCF", "WMF"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card:
 dot_scores, dot_gmax and dot_topk_scores, and the epoch kernels
 bpr_epoch, gmf_epoch, mlp_epoch, rows_epoch (the social chain and LRML's
-form) and cml_epoch; LightGCN's fused serving and eval against dense, and
-FISM's segment sums (f32 atomics) on the card against the CPU.
+form) and cml_epoch; LightGCN's fused serving and eval against dense,
+FISM's segment sums (f32 atomics) on the card against the CPU, and one
+scan step of each of DiffNet, DiffNet++, LR_GCCF, WMF, DMF, SML and
+EATNN on the card against the CPU.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -1185,3 +1187,82 @@ def test_fism_segment_sums_on_the_card_match_the_cpu(cuda, tmp_path):
     for a, b in zip((u_gpu, *g_gpu), (u_cpu, *g_cpu)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_dot_scores_at_lr_gccf_width(cuda, with_bias):
+    """dot_scores at LR_GCCF's serving shape: 256 users against 1,682
+    items at d 256 (four layers of 64 concatenated)."""
+    u, q, bits, bias = (None if x is None else torch.as_tensor(x).to(cuda)
+                        for x in _inputs(256, 1682, 256, with_bias))
+    before = S.launches["dot_scores"]
+    _close(S.dot_scores(u, q, bits, bias), S.dot_scores_ref(u, q, bits, bias))
+    torch.cuda.synchronize()
+    assert S.launches["dot_scores"] == before + 1
+
+
+SOCIAL_MODELS = ("DiffNet", "DiffNetPlusPlus", "EATNN")
+
+
+def _trusts(path, n_users, per_user, seed=4):
+    """A random trust file beside ``_ratings``' ratings: ``per_user``
+    friends a user on average, no self loops."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, n_users * per_user)
+    v = rng.integers(0, n_users, n_users * per_user)
+    lines = ["u_id,v_id"] + [f"{a},{b}" for a, b in zip(u, v) if a != b]
+    (path / "toy" / "trusts.csv").write_text("\n".join(lines) + "\n")
+
+
+@pytest.mark.parametrize("name", ["DiffNet", "DiffNetPlusPlus", "LR_GCCF",
+                                  "WMF", "DMF", "SML", "EATNN"])
+def test_slice9_scan_step_on_the_card_matches_the_cpu(cuda, tmp_path, name):
+    """One scan step of each model of conf/<name>.properties (its widths,
+    its optimizer) from one state on one batch, on the card and on the
+    CPU: the loss within 1e-5, every gradient and every parameter after
+    the step within 1e-5 + 1e-3 |x|.  The card's segment sums and
+    ``embedding`` backward add in another order.  Elements whose CPU
+    gradient is nonzero but below 1e-6 of the largest are left out of the
+    parameter check: Adam's first step moves each element by
+    lr * sign(g), and such a gradient's sign is the rounding's.  EATNN's social term takes
+    the keyless hash (no generator) on both."""
+    import os
+
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import load_ranking_data
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.train import Trainer
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    values = {"recommender": name, **_ratings(tmp_path, 900, 1600, 60000)}
+    if name in SOCIAL_MODELS:
+        _trusts(tmp_path, 900, 8)
+    cfg = Config.from_properties(os.path.join(repo, "CleverRec.properties"),
+                                 os.path.join(repo, "conf"), values)
+    data = load_ranking_data(cfg)
+    runs, batch = [], None
+    for device in ("cpu", cuda):
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                           device=device)
+        tr = Trainer(model, data, cfg, device=device)
+        params, state = tr.init_state()
+        if batch is None:
+            batch = {k: v[0] for k, v in tr.sample_epoch().items()}
+        step = {k: v.to(device) for k, v in batch.items()}
+        loss = model.loss(step, tr.aux)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), torch.autograd.grad(
+                     loss, list(params.values()), allow_unused=True))]
+        tr._dropout_gen = None
+        params, state, _ = tr._steps(params, state, [step], model.loss)
+        runs.append((loss.detach().cpu(), [g.cpu() for g in grads],
+                     [p.detach().cpu() for p in params.values()]))
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = runs
+    assert float(l_gpu) == pytest.approx(float(l_cpu), rel=1e-5)
+    for a, b in zip(g_gpu, g_cpu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    for a, b, g in zip(p_gpu, p_cpu, g_cpu):
+        decided = (g == 0) | (g.abs() >= 1e-6 * g.abs().max())
+        np.testing.assert_allclose(a[decided].numpy(), b[decided].numpy(),
+                                   rtol=1e-3, atol=1e-5)

@@ -44,7 +44,8 @@ def test_port_never_loads_jax_or_the_jax_package():
     for name in ("ops.scores", "ops.train", "models.ncf", "models.social",
                  "data.social", "models.metric", "models.modules",
                  "ops.sparse_adam", "train.checkpoint", "tuning",
-                 "models.itemsim", "models.gcn"):
+                 "models.itemsim", "models.gcn", "models.diffnet",
+                 "models.extra"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]
@@ -74,10 +75,11 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 def test_unported_model_names_its_slice():
     from cleverrec_tpu_torch.models import make_model
-    cfg = Config({"recommender": "DiffNet"})
-    with pytest.raises(NotImplementedError,
-                       match="other-ranking-models slice.*item 11"):
-        make_model(cfg, DataMeta(4, 40), device="cpu")
+    for name in ("RML_DGATs", "SoHRML"):
+        cfg = Config({"recommender": name})
+        with pytest.raises(NotImplementedError,
+                           match="dual-sampler slice.*item 11"):
+            make_model(cfg, DataMeta(4, 40), device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_path():
