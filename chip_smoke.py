@@ -135,6 +135,23 @@ width of ``conf/BPR.properties`` (embed_size 128):
   ``dot_scores`` must launch.  The ``phase K`` line gives each run's
   epochs, epoch and eval ms, first and last loss, best HR@10 beside its
   reference, the backends, and phase K's seconds.
+- Phase L, the dual-domain models and popularity negatives (kernel
+  ``bpr_epoch``): on phase F's files, the same CLI with ``--model
+  RML_DGATs`` (embed 64, atten 32, att_type 2, 30-wide neighbour
+  tables) and ``SoHRML`` (embed 128, 2 GAT layers, dropout 0.3, every
+  neighbour, its edge attention refreshed before each epoch), 100
+  ``train_batches`` an epoch each, for ``L_EPOCHS`` epochs (cut from the
+  confs' 200) through the dual protocol on the scan tier: no epoch
+  kernel, the loss falls, the best HR@10 at least the JAX package's on
+  the same files less ``JAX_BAND``, ``auto`` serving picks ``dense``,
+  one epoch of each profiled (the device's busy share).  Then BPR's conf
+  with ``neg_sampling=popularity``, 30 epochs through the fused tier
+  (``bpr_epoch`` once an epoch) and through the scan tier, each held to
+  the JAX CLI's run with popularity negatives less ``JAX_BAND`` and to
+  each other within ``TIER_BAND``; ``bpr_epoch`` held to its plain
+  version on a popularity draw.  The ``phase L`` line gives each run's
+  epochs, epoch and eval ms, first and last loss, best HR@10 beside its
+  reference, and phase L's seconds.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -165,7 +182,7 @@ Launch counts are set to 0 before phase A and read after phases A, B
 and H, again before and after each training run (phases I's and J's
 included), and before and after phase J's LightGCN and phase K's
 LR_GCCF and SML eval and serving (``dot_scores``' row counts A, B, H,
-J and K).  Exits non-zero, with no
+J and K; ``bpr_epoch``'s C and L).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -221,7 +238,8 @@ NEEDED = ("cleverrec_tpu_torch/csrc/dot_scores.cu",
           "conf/NGCF.properties", "conf/DiffNet.properties",
           "conf/DiffNetPlusPlus.properties", "conf/LR_GCCF.properties",
           "conf/WMF.properties", "conf/DMF.properties", "conf/SML.properties",
-          "conf/EATNN.properties",
+          "conf/EATNN.properties", "conf/RML_DGATs.properties",
+          "conf/SoHRML.properties",
           "benchmarks/UIRT/ml100k.train.libfm",
           "benchmarks/UIRT/ml100k.test.libfm", "benchmarks/PARITY_BPR.json")
 
@@ -335,6 +353,20 @@ K_RANKED = ("LR_GCCF", "SML")
 K_BACKEND = {"DiffNet": "dense", "DiffNetPlusPlus": "dense",
              "LR_GCCF": "fused", "WMF": "fused", "DMF": "dense",
              "SML": "fused", "EATNN": "fused"}
+# Phase L: the dual-domain models on phase F's files, each conf at its full
+# width, its 200 epochs cut to what keeps phase L near 150 s (RML_DGATs,
+# ~1.5 s an epoch on an H100, to 25: the JAX CLI's best epoch on these
+# files is 15 and stays so to 40; SoHRML, ~0.8 s, to 40); BPR's conf
+# with popularity negatives at its 30 epochs, on the fused and the scan
+# tier.
+L_EPOCHS = {"RML_DGATs": 25, "SoHRML": 40}
+POP = {"neg_sampling": "popularity"}
+# Phase L: the JAX package's best HR@10 on the same files at the epochs
+# above, from the JAX CLI on the CPU: phase J's command with --model M and
+# --set epoches=N (both confs read trusts.csv), and with --model BPR --set
+# neg_sampling=popularity (30 epochs, the conf's); the first N epochs of a
+# longer run are the same run.
+JAX_L_HR10 = {"RML_DGATs": 0.8261, "SoHRML": 0.8261, "BPR_pop": 0.7423}
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -1172,10 +1204,11 @@ def phase_f():
             "launches": {"rows_epoch": launches}}
 
 
-def one_epoch_in(name):
-    """The main path's trainer for ``name`` on ml-100k, its state after
-    one trained epoch, and the next epoch's draw."""
-    cfg = config("ml-100k", recommender=name)
+def one_epoch_in(name, **overrides):
+    """The main path's trainer for ``name`` on ml-100k (its conf with
+    ``overrides``), its state after one trained epoch, and the next
+    epoch's draw."""
+    cfg = config("ml-100k", recommender=name, **overrides)
     data = load_ranking_data(cfg)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
     trainer = Trainer(model, data, cfg)
@@ -1928,6 +1961,74 @@ def phase_k(rng, gen, profiles):
     return out, inputs
 
 
+def phase_l(profiles):
+    """RML_DGATs and SoHRML on their confs (the dual protocol on the scan
+    tier, SoHRML's attention refreshed before each epoch; no epoch
+    kernel), each held to the JAX CLI, ``auto`` serving picking ``dense``
+    for both, one epoch of each profiled; BPR's conf with popularity
+    negatives through the fused tier (kernel ``bpr_epoch``) and the scan
+    tier, each held to the JAX CLI and to each other, and ``bpr_epoch``
+    held to its plain version on a popularity draw."""
+    t0 = time.perf_counter()
+    runs = {}
+    for name, epochs in L_EPOCHS.items():
+        res = runs[name] = drive_cli(f"L_{name}", model=name, epochs=epochs)
+        check(res["loss_last"] < res["loss_first"],
+              f"L {name}: loss {res['loss_first']} -> {res['loss_last']}")
+        check(not epoch_kernels(res), f"L {name}: launches {res['launches']}")
+        gate(f"L {name}", res, JAX_L_HR10[name])
+    fused = runs["BPR_pop_fused"] = drive_cli("L_BPR_pop_fused", **POP)
+    scan = runs["BPR_pop_scan"] = drive_cli(
+        "L_BPR_pop_scan", **POP, **{"train.fused_kernel": "False"})
+    check(epoch_kernels(fused) == {"bpr_epoch": EPOCHS},
+          f"L BPR popularity fused: launches {fused['launches']}")
+    check(not epoch_kernels(scan),
+          f"L BPR popularity scan: launches {scan['launches']}")
+    for tag, res in (("fused", fused), ("scan", scan)):
+        check(res["loss_last"] < res["loss_first"],
+              f"L BPR popularity {tag}: loss {res['loss_first']} -> "
+              f"{res['loss_last']}")
+        gate(f"L BPR popularity {tag}", res, JAX_L_HR10["BPR_pop"])
+    for key, band in TIER_BAND.items():
+        within("L BPR popularity fused vs scan", fused["best"], scan["best"],
+               band, keys=(key,))
+    parts = {"runs": time.perf_counter() - t0}
+    _, _, _, errors, loss_rel = bpr_hold(
+        "L bpr_epoch popularity", one_epoch_in("BPR", **POP))
+    backends, busy = {}, {}
+    for name in L_EPOCHS:
+        cfg = config("ml-100k", recommender=name)
+        data = load_ranking_data(cfg)
+        dd = build_device_data(data)
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+        trainer = Trainer(model, data, cfg)
+        fn = build_retrieval_fn(model, trainer.aux, dd, k=10, backend="auto")
+        backends[name] = fn.backend
+        check(fn.backend == "dense", f"L {name}: auto picked {fn.backend}")
+        params, state = trainer.init_state()
+        prof = profiles[f"L_{name}_epoch"] = breakdown(
+            lambda: trainer.train_epoch(params, state))
+        # The device's share of the profiled epoch, and of the run's
+        # median epoch on the host clock (the profiler slows the host).
+        busy[name] = {"profiled": prof["device_ms"] / prof["wall_ms"],
+                      "unprofiled": (prof["device_ms"]
+                                     / runs[name]["epoch_ms_median"])}
+        del trainer, model, params, state
+    parts["checks"] = time.perf_counter() - t0 - parts["runs"]
+    refs = {**JAX_L_HR10, "BPR_pop_fused": JAX_L_HR10["BPR_pop"],
+            "BPR_pop_scan": JAX_L_HR10["BPR_pop"]}
+    out = {tag: {**summary(res), "epochs": len(res["losses"]),
+                 "epoch_first_ms": res["epoch_first_ms"],
+                 "jax_hr10": refs[tag]}
+           for tag, res in runs.items()}
+    out.update(backends=backends, device_busy=busy,
+               launches={"bpr_epoch": fused["launches"]["bpr_epoch"]},
+               bpr_epoch_popularity_hold={"errors": errors,
+                                          "loss_rel_err": loss_rel},
+               seconds_by_part=parts, seconds=time.perf_counter() - t0)
+    return out
+
+
 def cml_row(launches, profiles):
     """cml_epoch against its plain version at CML's main shape (ml-100k,
     embed 128, K 20, B 6144) on the state one epoch in and the next draw:
@@ -2071,12 +2172,12 @@ def lrml_row(launches, profiles):
     return row
 
 
-def epoch_row(launches, profiles):
-    """bpr_epoch against its plain version on one state and one sampled
-    epoch at the main shape (ml-100k, embed 128, B 6144): the state after
-    one trained epoch, the next epoch's draw.  Times both and the card's
-    least time for the same work."""
-    cfg, data, model, trainer, params, state, tensors = one_epoch_in("BPR")
+def bpr_hold(tag, run):
+    """bpr_epoch against its plain version on ``one_epoch_in``'s state and
+    draw (``run``): every table and moment after the epoch, and its loss.
+    Returns the ids, the state, the options, the errors and the loss's
+    relative error."""
+    cfg, data, model, _, params, state, tensors = run
     ids = sentinel_ids(data, tensors, ("u", "i", "j"))
     names = ("P", "Q", "mP", "vP", "mQ", "vQ")
     base = (params["P"].detach(), params["Q"].detach(), state.mu["P"],
@@ -2086,9 +2187,20 @@ def epoch_row(launches, profiles):
     loss = train_ops.fused_bpr_epoch(*got, *ids, state.count, **opts)
     ref = train_ops.fused_bpr_epoch_ref(*want, *ids, state.count, **opts)
     torch.cuda.synchronize()
-    errors = hold("bpr_epoch", zip(names, got, want), EPOCH_ATOL, EPOCH_RTOL)
+    errors = hold(tag, zip(names, got, want), EPOCH_ATOL, EPOCH_RTOL)
     loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
-    check(loss_rel <= EPOCH_LOSS_RTOL, f"bpr_epoch loss: rel error {loss_rel}")
+    check(loss_rel <= EPOCH_LOSS_RTOL, f"{tag} loss: rel error {loss_rel}")
+    return ids, base, opts, errors, loss_rel
+
+
+def epoch_row(launches, profiles):
+    """bpr_epoch against its plain version on one state and one sampled
+    epoch at the main shape (ml-100k, embed 128, B 6144): the state after
+    one trained epoch, the next epoch's draw.  Times both and the card's
+    least time for the same work."""
+    run = one_epoch_in("BPR")
+    cfg, data, model, trainer, params, state, tensors = run
+    ids, base, opts, errors, loss_rel = bpr_hold("bpr_epoch", run)
 
     k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
     steps, b = ids[0].shape
@@ -2268,6 +2380,16 @@ def main() -> int:
                         "cleverrec_tpu/ops/pallas_scores.py:276",
                         lambda b, i: b * i)
     del k_inputs
+    train["L"] = phase_l(profiles)
+    print("phase L: " + json.dumps(train["L"]), flush=True)
+    # bpr_epoch's launches: phase C's and phase L's popularity run's.
+    bpr = next(row for row in rows if row["name"] == "bpr_epoch")
+    bpr["launches_by_phase"] = {"C": bpr["launches"],
+                                "L": train["L"]["launches"]["bpr_epoch"]}
+    bpr["launches"] += train["L"]["launches"]["bpr_epoch"]
+    bpr["max_abs_err"] = max(
+        bpr["max_abs_err"],
+        *train["L"]["bpr_epoch_popularity_hold"]["errors"].values())
     rows[0]["launches_by_phase"] = {"A_B_H": rows[0]["launches"],
                                     "J": j_row["launches"],
                                     "K": k_row["launches"]}

@@ -2,8 +2,9 @@
 family (SBPR, TBPR, CUNE_BPR, SAMN, SAMN_single), the metric-learning
 family (CML, LRML, TransCF), the item-similarity family (FISM, NAIS,
 NAIS_single), the graph models (LightGCN, NGCF), the social-diffusion
-family (DiffNet, DiffNetPlusPlus, LR_GCCF) and WMF, DMF, SML and
-EATNN."""
+family (DiffNet, DiffNetPlusPlus, LR_GCCF), WMF, DMF, SML and EATNN,
+and the dual-domain graph-attention models (RML_DGATs, SoHRML): all 26
+ranking models of the JAX package."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from cleverrec_tpu_torch.models.diffnet import (LR_GCCF, DiffNet,
                                                 DiffNetPlusPlus)
 from cleverrec_tpu_torch.models.extra import DMF, EATNN, SML, WMF
 from cleverrec_tpu_torch.models.gcn import NGCF, LightGCN
+from cleverrec_tpu_torch.models.graph import RML_DGATs, SoHRML
 from cleverrec_tpu_torch.models.itemsim import FISM, NAIS, NAISSingle
 from cleverrec_tpu_torch.models.metric import CML, LRML, TransCF
 from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
@@ -26,7 +28,7 @@ from cleverrec_tpu_torch.models.social import (CUNE_BPR, SAMN, SBPR, TBPR,
 _REGISTRY: dict[str, type] = {m.name: m for m in (
     BPR, GMF, MLP, NeuMF, SBPR, TBPR, CUNE_BPR, SAMN, SAMNSingle, CML, LRML,
     TransCF, FISM, NAIS, NAISSingle, LightGCN, NGCF, DiffNet,
-    DiffNetPlusPlus, LR_GCCF, WMF, DMF, SML, EATNN)}
+    DiffNetPlusPlus, LR_GCCF, WMF, DMF, SML, EATNN, RML_DGATs, SoHRML)}
 
 
 def available_models() -> list[str]:
@@ -40,11 +42,8 @@ def make_model(cfg: Config, meta: DataMeta, device="cuda",
     dev = resolve_device(device)
     name = cfg.recommender
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet: RML_DGATs and SoHRML come "
-            "with the port's dual-sampler slice (ROADMAP.md queue 1, item "
-            "11); "
-            f"ported: {available_models()}")
+        raise KeyError(f"unknown model {name!r}; available: "
+                       f"{available_models()}")
     model = _REGISTRY[name](cfg, meta)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)

@@ -36,6 +36,13 @@ membership through the bitmap, else the sorted rows;
 ``sample_not_in`` draws exactly by rank from the sorted rows, and
 ``_reject`` draws uniforms and redraws those in a set, the fallback
 where a table has no rows or a draw must avoid several sets.
+
+Popularity negatives (``neg_sampling=popularity``): where a sampler is
+given ``pop_cdf``, the item cumulative popularity [I], its negatives are
+``sample_not_in_popular``'s, candidates drawn by inverting the CDF and
+rejected against the seen set, in place of the exact uniform rank draw
+(the JAX sampler's ``_draw_negatives`` and ``_epoch_negatives``).
+``social_pairwise_batch`` draws the dual-domain models' social rows.
 """
 
 from __future__ import annotations
@@ -152,7 +159,9 @@ def member(table: MemberTable, e: torch.Tensor,
     flat = x.reshape(x.shape[0], -1).long()               # [B, M]
     e = e.long()
     if table.bits is not None:
-        word = torch.gather(table.bits[e], 1, flat >> 5).long()
+        n_words = table.bits.shape[1]
+        word = table.bits.reshape(-1)[e[:, None] * n_words
+                                      + (flat >> 5)].long()
         return ((word >> (flat & 31)) & 1).bool().reshape(x.shape)
     rows = table.rows[e]                                  # [B, L]
     idx = torch.searchsorted(rows, flat.to(rows.dtype))
@@ -165,24 +174,66 @@ def _randint(gen: torch.Generator, high: int, shape) -> torch.Tensor:
                          device=gen.device, dtype=torch.int64)
 
 
-def _reject(gen: torch.Generator, n_range: int, shape, is_bad,
-            extra_rounds: int = EXTRA_ROUNDS,
-            tries: int = TRIES) -> torch.Tensor:
-    """Uniform draws from [0, n_range) avoiding ``is_bad``: one round of
-    ``tries`` candidates a slot (the first good one wins), then up to
-    ``extra_rounds`` redraws of the slots still bad, each taken only
-    where it is good.  A slot stays bad with probability
-    density^(tries + extra_rounds).  ``is_bad`` maps [*shape, T] ids to
-    [*shape, T] bools."""
-    draws = _randint(gen, n_range, tuple(shape) + (tries,))
+def _first_good(draw, shape, is_bad, extra_rounds: int = EXTRA_ROUNDS,
+                tries: int = TRIES) -> torch.Tensor:
+    """Draws of ``draw(shape)`` avoiding ``is_bad``: one round of ``tries``
+    candidates a slot (the first good one wins; a slot with none keeps
+    its first), then ``extra_rounds`` redraws, each taken only where it
+    is good and the slot's current draw is not.  ``is_bad`` maps
+    [*shape, T] ids to [*shape, T] bools.  int32 ids of ``shape``."""
+    draws = draw(tuple(shape) + (tries,))
     bad = is_bad(draws)
     first = torch.argmax((~bad).to(torch.int8), dim=-1)
     j = torch.gather(draws, -1, first[..., None])[..., 0]
     for _ in range(extra_rounds):
-        new = _randint(gen, n_range, j.shape)
+        new = draw(j.shape)
         bad2 = is_bad(torch.stack([j, new], dim=-1))
         j = torch.where(bad2[..., 0] & ~bad2[..., 1], new, j)
     return j.to(torch.int32)
+
+
+def _reject(gen: torch.Generator, n_range: int, shape, is_bad,
+            extra_rounds: int = EXTRA_ROUNDS,
+            tries: int = TRIES) -> torch.Tensor:
+    """Uniform draws from [0, n_range) avoiding ``is_bad``
+    (``_first_good``).  A slot stays bad with probability
+    density^(tries + extra_rounds)."""
+    return _first_good(lambda shp: _randint(gen, n_range, shp), shape,
+                       is_bad, extra_rounds, tries)
+
+
+def _pop_draw(gen: torch.Generator, pop_cdf: torch.Tensor,
+              shape) -> torch.Tensor:
+    """Ids of ``shape`` drawn in proportion to popularity: uniforms in
+    [0, 1) inverted through ``pop_cdf`` (the left search, as
+    ``jnp.searchsorted``'s), clipped to [0, I - 1]."""
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device)
+    cand = torch.searchsorted(pop_cdf, u.reshape(-1)).reshape(u.shape)
+    return torch.clamp(cand, max=pop_cdf.shape[0] - 1)
+
+
+def sample_not_in_popular(gen: torch.Generator, table: MemberTable,
+                          e: torch.Tensor, pop_cdf: torch.Tensor,
+                          shape) -> torch.Tensor:
+    """Popularity-proportional negatives outside entity e's set, [B] or
+    [B, K] int32 (cleverrec_tpu/sampling.py:323-358): ``TRIES``
+    candidates a slot by CDF inversion, the first unseen one kept, then
+    ``EXTRA_ROUNDS`` corrective redraws; a slot whose candidates were
+    all seen keeps the first.  A draw collides with the user's seen
+    popularity mass, not its seen density, so a heavy user's slot can
+    stay seen with a probability of a percent or so, as under JAX."""
+    return _first_good(lambda shp: _pop_draw(gen, pop_cdf, shp), shape,
+                       lambda q: member(table, e, q))
+
+
+def draw_negatives(gen: torch.Generator, table: MemberTable,
+                   e: torch.Tensor, item_nums: int, shape,
+                   pop_cdf: torch.Tensor | None = None) -> torch.Tensor:
+    """Uniform unseen negatives (``sample_not_in``), or popularity ones
+    where ``pop_cdf`` is given."""
+    if pop_cdf is not None:
+        return sample_not_in_popular(gen, table, e, pop_cdf, shape)
+    return sample_not_in(gen, table, e, item_nums, shape)
 
 
 def sample_not_in(gen: torch.Generator, table: MemberTable, e: torch.Tensor,
@@ -250,13 +301,29 @@ def pointwise_epoch_static(pos_u: np.ndarray, pos_i: np.ndarray,
     return {"ord_u": u, "ord_i": i, "ord_y": y, "ord_nun": n_un}
 
 
+# Rows of a whole-epoch popularity draw a chunk: TRIES candidates a row
+# are drawn and tested at once.
+POP_CHUNK = 1 << 16
+
+
 def epoch_negatives(gen: torch.Generator, static: dict, rows: torch.Tensor,
-                    lens: torch.Tensor, k: int | None = None) -> torch.Tensor:
-    """One uniform negative per row of the static layout, or ``k`` of
-    them ([rows, k]; the CML protocol): a rank drawn uniformly below the
-    row's unseen count, resolved by ``unseen_by_rank`` (the exact branch
-    of the JAX sampler's ``_epoch_negatives``)."""
+                    lens: torch.Tensor, k: int | None = None,
+                    pop_cdf: torch.Tensor | None = None,
+                    bits: torch.Tensor | None = None) -> torch.Tensor:
+    """One negative per row of the static layout, or ``k`` of them
+    ([rows, k]; the CML protocol).  Uniform: a rank drawn uniformly below
+    the row's unseen count, resolved by ``unseen_by_rank`` (the exact
+    branch of the JAX sampler's ``_epoch_negatives``).  With ``pop_cdf``:
+    ``sample_not_in_popular`` against the table of ``rows``, ``lens``
+    and ``bits`` (the bitmap, if any, tests membership), in chunks of
+    ``POP_CHUNK`` rows."""
     u = static["ord_u"]
+    if pop_cdf is not None:
+        table = MemberTable(rows, lens, bits)
+        return torch.cat([
+            sample_not_in_popular(gen, table, uc, pop_cdf,
+                                  uc.shape if k is None else (len(uc), k))
+            for uc in u.split(POP_CHUNK)])
     nun = static["ord_nun"]
     shape = u.shape if k is None else (u.shape[0], k)
     r = torch.randint(0, 2 ** 31 - 1, shape, generator=gen,
@@ -267,14 +334,17 @@ def epoch_negatives(gen: torch.Generator, static: dict, rows: torch.Tensor,
 
 def pairwise_epoch_tensors(gen: torch.Generator, static: dict,
                            rows: torch.Tensor, lens: torch.Tensor,
-                           rows_total: int, steps: int,
-                           b: int) -> dict[str, torch.Tensor]:
+                           rows_total: int, steps: int, b: int,
+                           pop_cdf: torch.Tensor | None = None,
+                           bits: torch.Tensor | None = None
+                           ) -> dict[str, torch.Tensor]:
     """The whole epoch's (u, i, j, w) as [steps, b] tensors: one negative
     draw over the pair-order layout of ``rows_total`` real rows, then one
     shuffle of the columns together.  ``static`` holds
     ``pairwise_epoch_static``'s arrays as tensors on the generator's
-    device; u, i, j are int32, w is 1 on real rows and 0 on padding."""
-    j = epoch_negatives(gen, static, rows, lens)
+    device; u, i, j are int32, w is 1 on real rows and 0 on padding.
+    ``pop_cdf`` and ``bits``: popularity negatives (``epoch_negatives``)."""
+    j = epoch_negatives(gen, static, rows, lens, pop_cdf=pop_cdf, bits=bits)
     perm, w = epoch_permutation(gen, rows_total, steps * b)
     return {"u": static["ord_u"][perm].reshape(steps, b),
             "i": static["ord_i"][perm].reshape(steps, b),
@@ -284,14 +354,18 @@ def pairwise_epoch_tensors(gen: torch.Generator, static: dict,
 
 def cml_epoch_tensors(gen: torch.Generator, static: dict,
                       rows: torch.Tensor, lens: torch.Tensor,
-                      rows_total: int, steps: int, b: int, *,
+                      rows_total: int, steps: int, b: int,
+                      pop_cdf: torch.Tensor | None = None,
+                      bits: torch.Tensor | None = None, *,
                       neg_ratio: int) -> dict[str, torch.Tensor]:
     """The whole epoch's (u, i, w) as [steps, b] and negs as
     [steps, b, neg_ratio]: one row per train pair (the static layout is
     ``pairwise_epoch_static(..., neg_ratio=1)``), ``neg_ratio``
     independent uniform unseen negatives each (duplicates possible), one
-    shuffle of the rows (utils/sampler.py:77-99)."""
-    negs = epoch_negatives(gen, static, rows, lens, k=neg_ratio)
+    shuffle of the rows (utils/sampler.py:77-99); popularity negatives
+    with ``pop_cdf``."""
+    negs = epoch_negatives(gen, static, rows, lens, k=neg_ratio,
+                           pop_cdf=pop_cdf, bits=bits)
     perm, w = epoch_permutation(gen, rows_total, steps * b)
     return {"u": static["ord_u"][perm].reshape(steps, b),
             "i": static["ord_i"][perm].reshape(steps, b),
@@ -301,14 +375,16 @@ def cml_epoch_tensors(gen: torch.Generator, static: dict,
 
 def pointwise_epoch_tensors(gen: torch.Generator, static: dict,
                             rows: torch.Tensor, lens: torch.Tensor,
-                            rows_total: int, steps: int,
-                            b: int) -> dict[str, torch.Tensor]:
+                            rows_total: int, steps: int, b: int,
+                            pop_cdf: torch.Tensor | None = None,
+                            bits: torch.Tensor | None = None
+                            ) -> dict[str, torch.Tensor]:
     """The whole epoch's (u, i, y, w) as [steps, b] tensors: one negative
     draw over ``pointwise_epoch_static``'s group-order layout (positive
     slots keep their item), then one shuffle of the columns together.
     u, i are int32; y is 1 on positive slots; w is 1 on real rows and 0
-    on padding."""
-    j = epoch_negatives(gen, static, rows, lens)
+    on padding; popularity negatives with ``pop_cdf``."""
+    j = epoch_negatives(gen, static, rows, lens, pop_cdf=pop_cdf, bits=bits)
     i = torch.where(static["ord_y"] > 0, static["ord_i"], j)
     perm, w = epoch_permutation(gen, rows_total, steps * b)
     return {"u": static["ord_u"][perm].reshape(steps, b),
@@ -443,32 +519,34 @@ def _pair_rows(rows, pos_u, pos_i, group: int):
 
 
 def pairwise_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable,
-                   item_nums, neg_ratio):
+                   item_nums, neg_ratio, pop_cdf=None):
     """(u, i, j, w) rows: pair p repeated neg_ratio times
-    (utils/sampler.py:46-74)."""
+    (utils/sampler.py:46-74); popularity negatives with ``pop_cdf``."""
     u, i = _pair_rows(rows, pos_u, pos_i, neg_ratio)
-    j = sample_not_in(gen, seen, u, item_nums, u.shape)
+    j = draw_negatives(gen, seen, u, item_nums, u.shape, pop_cdf)
     return {"u": u, "i": i, "j": j, "w": valid}
 
 
 def pointwise_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable,
-                    item_nums, neg_ratio):
+                    item_nums, neg_ratio, pop_cdf=None):
     """(u, i, y, w) rows: a positive and neg_ratio negatives a pair
-    (utils/sampler.py:10-43)."""
+    (utils/sampler.py:10-43); popularity negatives with ``pop_cdf``."""
     n, grp = pos_u.shape[0], 1 + neg_ratio
     r = rows.long() % (n * grp)
     u, i_pos = pos_u[r // grp], pos_i[r // grp]
     is_pos = (r % grp) == 0
-    j = sample_not_in(gen, seen, u, item_nums, u.shape)
+    j = draw_negatives(gen, seen, u, item_nums, u.shape, pop_cdf)
     return {"u": u, "i": torch.where(is_pos, i_pos, j),
             "y": is_pos.to(torch.float32), "w": valid}
 
 
 def cml_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
-              neg_ratio):
-    """(u, i, negs [B, K], w) rows: one a pair (utils/sampler.py:77-99)."""
+              neg_ratio, pop_cdf=None):
+    """(u, i, negs [B, K], w) rows: one a pair (utils/sampler.py:77-99);
+    popularity negatives with ``pop_cdf``."""
     u, i = _pair_rows(rows, pos_u, pos_i, 1)
-    negs = sample_not_in(gen, seen, u, item_nums, (u.shape[0], neg_ratio))
+    negs = draw_negatives(gen, seen, u, item_nums, (u.shape[0], neg_ratio),
+                          pop_cdf)
     return {"u": u, "i": i, "negs": negs, "w": valid}
 
 
@@ -531,3 +609,14 @@ def samn_batch(gen, rows, valid, pos_u, pos_i, seen: MemberTable, item_nums,
                        neg_ratio)
     b["friends"] = friends_padded[b["u"].long()]
     return b
+
+
+def social_pairwise_batch(gen, rows, valid, sf_u, sf_v, friends: MemberTable,
+                          user_nums, neg_ratio):
+    """Social-domain (u_s, v, w_neg, w_s) rows of the dual-domain models
+    (cleverrec_tpu/sampling.py:809-819): friend pair p repeated
+    neg_ratio times, its negative user drawn outside u's friends
+    (``friends``, a table over ``user_nums`` ids), the row weight w_s."""
+    u, v = _pair_rows(rows, sf_u, sf_v, neg_ratio)
+    w = sample_not_in(gen, friends, u, user_nums, u.shape)
+    return {"u_s": u, "v": v, "w_neg": w, "w_s": valid}

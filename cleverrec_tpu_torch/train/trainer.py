@@ -10,7 +10,17 @@ w) for the pointwise one (GMF, MLP, NeuMF), (u, i, w) and negs
 With ``train.sbpr_epoch_tensors=False`` SBPR, TBPR and CUNE_BPR draw
 the same columns step by step instead (``sampling.sbpr_batch``,
 ``tbpr_batch`` over one ``epoch_permutation``; ``_build_batch``), and
-either tier takes them.  The model's ``build_aux`` runs first (the social
+either tier takes them.  The ``dual`` protocol (RML_DGATs, SoHRML)
+splits two domains into the model's ``train_batches`` steps: the item
+rows (u, i, j, w), every train pair ``neg_ratio`` times, and the social
+rows (u_s, v, w_neg, w_s), every friend pair ``neg_ratio`` times with a
+negative user outside u_s's friends, each domain on its own permutation
+with weight-0 padding (``_sample_dual``).  With
+``neg_sampling=popularity`` every item negative of the pairwise,
+pointwise, CML and dual protocols, on every tier, is drawn in
+proportion to the items' train popularity (``pop_cdf``; the sbpr and
+tbpr protocols refuse it, as in the JAX trainer).  The model's
+``build_aux`` runs first (the social
 models' SPu lists and exclusion tables, SAMN's friend lists, TransCF's
 inverse degrees) and its ``epoch_pairs`` give the pairs the epoch
 covers.  ``Trainer.aux``, which the loss and
@@ -66,7 +76,11 @@ trained through one of two tiers:
 Each step of the autograd tiers (scan, grouped, bucketed) hands the
 loss ``dropout_gen``, a generator on the device that the trainer owns
 and checkpoints beside the sampler's (NGCF's message dropout draws from
-it; the JAX trainer's ``dropout_key``).
+it; the JAX trainer's ``dropout_key``).  A model with ``pre_epoch``
+(SoHRML's edge attention) has it called under ``no_grad`` before each
+epoch, on the parameters that enter it, and its arrays replace those of
+``aux``; they are not checkpointed, since the first epoch after a resume
+computes them again from the loaded parameters.
 
 ``run(resume_from=...)`` restarts from a ``train/checkpoint.py``
 checkpoint at its epoch + 1, and ``save.best=True`` checkpoints the best
@@ -129,10 +143,28 @@ def _refuse_unported(cfg: Config) -> None:
         if is_set(cfg, key):
             raise NotImplementedError(
                 f"{key} is not ported yet (ROADMAP.md {where})")
-    if cfg.str("neg_sampling", "uniform") != "uniform":
-        raise NotImplementedError(
-            "only uniform negatives are ported; neg_sampling="
-            f"{cfg.str('neg_sampling')} waits (ROADMAP.md queue 1, item 7)")
+
+
+def popularity_cdf(dd: DeviceData, cfg: Config, sampler: str):
+    """The items' cumulative train popularity [I] (float32, numpy) under
+    ``neg_sampling=popularity``, else None: float64 degrees over every
+    train pair, their cumsum over the total, then float32, as in the JAX
+    trainer (cleverrec_tpu/train/trainer.py:128-139).  The sbpr, tbpr and
+    samn protocols raise, as there: their negatives avoid the social
+    items too."""
+    mode = cfg.str("neg_sampling", "uniform")
+    if mode not in ("uniform", "popularity"):
+        raise ValueError(f"neg_sampling={mode}: want uniform or popularity")
+    if mode == "uniform":
+        return None
+    if sampler in ("sbpr", "tbpr", "samn"):
+        raise ValueError(
+            "neg_sampling=popularity is not supported for the "
+            f"{sampler!r} protocol (its negatives have social-exclusion "
+            "semantics); use uniform")
+    deg = np.zeros(dd.item_nums, np.float64)
+    np.add.at(deg, dd.pos_i, 1.0)
+    return (np.cumsum(deg) / max(deg.sum(), 1.0)).astype(np.float32)
 
 
 def _joined(tensors, names):
@@ -164,18 +196,15 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
         _refuse_unported(cfg)
-        if model.sampler not in ("pairwise", "pointwise", "cml", "sbpr",
-                                 "tbpr"):
-            raise NotImplementedError(
-                f"sampler {model.sampler!r} is not ported yet: the port "
-                "trains the pairwise, pointwise, cml, sbpr and tbpr "
-                "protocols (ROADMAP.md queue 1, item 11)")
+        self.dd: DeviceData = build_device_data(data)
+        pop_cdf = popularity_cdf(self.dd, cfg, model.sampler)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.logger = logger
         self._warm = self._warm_start_keys()
-        self.dd: DeviceData = build_device_data(data)
+        self._pop_cdf = (None if pop_cdf is None
+                         else torch.as_tensor(pop_cdf, device=self.device))
         # build_aux may restrict the epoch's pairs (the social family), so
         # it runs before epoch_pairs.
         self.model_aux = model.build_aux(self.dd, data)
@@ -184,7 +213,9 @@ class Trainer:
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
         self._epoch_rows = self._rows_per_epoch()
-        self.steps_per_epoch = cdiv(self._epoch_rows, self.batch_size)
+        self.steps_per_epoch = (
+            model.train_batches if model.sampler == "dual"
+            else cdiv(self._epoch_rows, self.batch_size))
         padded = self.steps_per_epoch * self.batch_size
         self._n_sent = padded - self._epoch_rows
         # The per-step social samplers (utils/sampler.py's batch layout).
@@ -216,7 +247,7 @@ class Trainer:
         pointwise pair one positive and neg_ratio negatives, a CML pair
         one row that carries its neg_ratio negatives."""
         s = self.model.sampler
-        if s in ("pairwise", "sbpr", "tbpr"):
+        if s in ("pairwise", "sbpr", "tbpr", "dual"):
             return self.n_pairs * self.neg_ratio
         if s == "pointwise":
             return self.n_pairs * (1 + self.neg_ratio)
@@ -373,7 +404,8 @@ class Trainer:
         neg = aux.get("social_neg", dd.seen)
         head = (pos_u, pos_i, neg.lens)
         tail = (dd.item_nums, padded, self.neg_ratio)
-        if self._per_step or self._grid is not None or not layout:
+        if (self._per_step or self._grid is not None or not layout
+                or sampler == "dual"):
             static = {}
         elif sampler == "sbpr":
             spu = aux["spu_csr"]
@@ -398,6 +430,14 @@ class Trainer:
 
         self._static = {k: put(v) for k, v in static.items()}
         self._neg_rows, self._neg_lens = put(neg.rows), put(neg.lens)
+        # The bitmap tests the popularity draws' candidates.
+        self._neg_bits = (put(neg.bits) if self._pop_cdf is not None
+                          and neg.bits is not None else None)
+        if sampler == "dual":
+            if not len(aux["sf_u"]):
+                raise ValueError(f"{self.model.name}: no friend pairs")
+            self._friends = sampling.table_to(aux["friends_tbl"],
+                                              self.device)
         self._csr = {name: {k: put(c[k]) for k in ("flat", "off", "suk")}
                      for name, c in aux.items() if name.endswith("_csr")}
         if self._grid is not None:
@@ -486,12 +526,16 @@ class Trainer:
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict:
         """The next epoch's draw of the model's sampler, each column
-        [steps, B] on the device; for the grouped epoch, ``j`` [G_pad, T]
-        (a negative a cell, ``item_nums`` on pad cells) and ``perm``
-        [steps, G/step] (the groups of each step); for the bucketed tier,
-        ``buckets``, each bucket's draw in plan order."""
+        [steps, B] on the device (the dual protocol's item columns
+        [steps, B_i] and social columns [steps, B_s]); for the grouped
+        epoch, ``j`` [G_pad, T] (a negative a cell, ``item_nums`` on pad
+        cells) and ``perm`` [steps, G/step] (the groups of each step); for
+        the bucketed tier, ``buckets``, each bucket's draw in plan
+        order."""
         if self._gen is None:
             raise RuntimeError("call init_state first")
+        if self.model.sampler == "dual":
+            return self._sample_dual()
         if self._grid is not None:
             return self._sample_grouped()
         if self._buckets is not None:
@@ -515,9 +559,38 @@ class Trainer:
                       "cml": functools.partial(sampling.cml_epoch_tensors,
                                                neg_ratio=self.neg_ratio)}[
                           self.model.sampler]
+        pop = ({"pop_cdf": self._pop_cdf, "bits": self._neg_bits}
+               if self._pop_cdf is not None else {})
         return tensors_fn(*head, *(self._csr[n] for n in lists),
                           self._epoch_rows, self.steps_per_epoch,
-                          self.batch_size)
+                          self.batch_size, **pop)
+
+    def _seen_table(self) -> sampling.MemberTable:
+        """The table the item negatives avoid, as tensors."""
+        return sampling.MemberTable(self._neg_rows, self._neg_lens,
+                                    self._neg_bits)
+
+    def _sample_dual(self) -> dict[str, torch.Tensor]:
+        """The dual protocol's epoch (cleverrec_tpu/train/trainer.py:
+        1960-2005): m_i = n_pairs * neg_ratio item rows and m_s =
+        max(friend pairs * neg_ratio, 1) social rows, each domain padded
+        to ``steps`` batches of cdiv(m, steps) rows on its own
+        permutation, drawn by ``pairwise_batch`` and
+        ``social_pairwise_batch``."""
+        steps, nr = self.steps_per_epoch, self.neg_ratio
+        m_i = self._epoch_rows
+        m_s = max(len(self.aux["sf_u"]) * nr, 1)
+        perm_i, valid_i = sampling.epoch_permutation(
+            self._gen, m_i, steps * cdiv(m_i, steps))
+        perm_s, valid_s = sampling.epoch_permutation(
+            self._gen, m_s, steps * cdiv(m_s, steps))
+        batch = {**sampling.pairwise_batch(
+            self._gen, perm_i, valid_i, self.aux["pos_u"], self.aux["pos_i"],
+            self._seen_table(), self.dd.item_nums, nr, self._pop_cdf),
+            **sampling.social_pairwise_batch(
+                self._gen, perm_s, valid_s, self.aux["sf_u"],
+                self.aux["sf_v"], self._friends, self.dd.user_nums, nr)}
+        return {k: v.reshape(steps, -1) for k, v in batch.items()}
 
     def _build_batch(self, rows, valid) -> dict[str, torch.Tensor]:
         """One step's rows of the per-step social sampler, from that
@@ -537,10 +610,9 @@ class Trainer:
         """A fresh unseen negative for every cell of the grid (weight-0
         cells get ``item_nums``) and a permutation of the groups."""
         pg, g_pad = self._pg, self._grid["pg_user"].shape[0]
-        j = sampling.sample_not_in(
-            self._gen, sampling.MemberTable(self._neg_rows, self._neg_lens,
-                                            None),
-            pg["pg_user"], self.dd.item_nums, pg["pg_pos"].shape)
+        j = sampling.draw_negatives(
+            self._gen, self._seen_table(), pg["pg_user"], self.dd.item_nums,
+            pg["pg_pos"].shape, self._pop_cdf)
         j = torch.where(pg["pg_w"] > 0, j, self.dd.item_nums)
         perm = torch.randperm(g_pad, generator=self._gen, device=self.device)
         return {"j": j, "perm": perm.reshape(self._grid_steps,
@@ -555,11 +627,11 @@ class Trainer:
         if bucket["grid"] is None:
             return sampling.pointwise_epoch_tensors(
                 self._gen, dev, self._neg_rows, self._neg_lens,
-                bucket["rows"], bucket["steps"], bucket["batch"])
-        j = sampling.sample_not_in(
-            self._gen, sampling.MemberTable(self._neg_rows, self._neg_lens,
-                                            None),
-            dev["g_user"], self.dd.item_nums, dev["g_pos"].shape)
+                bucket["rows"], bucket["steps"], bucket["batch"],
+                pop_cdf=self._pop_cdf, bits=self._neg_bits)
+        j = sampling.draw_negatives(
+            self._gen, self._seen_table(), dev["g_user"], self.dd.item_nums,
+            dev["g_pos"].shape, self._pop_cdf)
         gt = torch.where(dev["g_y"] > 0, dev["g_pos"], j)
         gt = torch.where(dev["g_w"] > 0, gt, self.dd.item_nums)
         perm = torch.randperm(dev["g_user"].shape[0], generator=self._gen,
@@ -826,6 +898,11 @@ class Trainer:
         return params, opt_state, int(state["epoch"])
 
     def train_epoch(self, params, opt_state):
+        if hasattr(self.model, "pre_epoch"):
+            # The epoch's constants from the parameters that enter it
+            # (SoHRML's edge attention), which evaluate then reads too.
+            with torch.no_grad():
+                self.aux.update(self.model.pre_epoch(self.aux))
         params, opt_state, loss = self._run_epoch(params, opt_state,
                                                   self.sample_epoch())
         return params, opt_state, float(loss)

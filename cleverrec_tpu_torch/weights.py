@@ -15,7 +15,11 @@ DiffNetPlusPlus: DiffNet's and ``gate_l`` [2] a layer; WMF: ``P``,
 ``Q``; DMF: ``P``, ``Q`` [., layers[0]], ``Wu_l``, ``bu_l``, ``Wi_l``,
 ``bi_l`` for l >= 1; SML: ``P``, ``Q``, ``m_u`` [U], ``m_i`` [I];
 EATNN: ``P_shared``, ``P_item``, ``P_social`` [U, d], ``Q``, ``att_w``
-[d, d], ``att_h`` [d]),
+[d, d], ``att_h`` [d]; RML_DGATs: ``P`` [U + 1, d], ``Q`` [I + 1, d],
+``W`` [2d, atten], ``h``, ``b`` [atten], ``W_gat`` [d, d] and, for
+``mlp_type`` m >= 1, ``W_mlp_l``, ``b_mlp_l`` a layer; SoHRML: ``P``
+[U, d], ``Q`` [I, d], ``W``, ``h``, ``b``, ``W_gat_l`` [d, d] and
+``b_gat_l`` [d] a GAT layer, and RML_DGATs' ``W_mlp_l``, ``b_mlp_l``),
 optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
 names and optax's Adagrad ``opt_state[0].sum_of_squares``.  Shapes are
 the JAX shapes too, 0-d ones included, so nothing is transposed or

@@ -148,8 +148,8 @@ def test_cli_lists_models(capsys):
     assert capsys.readouterr().out.split() == [
         "BPR", "CML", "CUNE_BPR", "DMF", "DiffNet", "DiffNetPlusPlus", "EATNN",
         "FISM", "GMF", "LRML", "LR_GCCF", "LightGCN", "MLP", "NAIS",
-        "NAIS_single", "NGCF", "NeuMF", "SAMN", "SAMN_single", "SBPR", "SML",
-        "TBPR", "TransCF", "WMF"]
+        "NAIS_single", "NGCF", "NeuMF", "RML_DGATs", "SAMN", "SAMN_single",
+        "SBPR", "SML", "SoHRML", "TBPR", "TransCF", "WMF"]
 
 
 def test_cli_default_device_needs_a_card(toy_argv, monkeypatch):

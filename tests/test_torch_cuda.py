@@ -4,7 +4,8 @@ bpr_epoch, gmf_epoch, mlp_epoch, rows_epoch (the social chain and LRML's
 form) and cml_epoch; LightGCN's fused serving and eval against dense,
 FISM's segment sums (f32 atomics) on the card against the CPU, and one
 scan step of each of DiffNet, DiffNet++, LR_GCCF, WMF, DMF, SML and
-EATNN on the card against the CPU.
+EATNN, and one dual step of RML_DGATs and SoHRML, on the card against the
+CPU; the popularity negatives' draw on the card.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -1266,3 +1267,90 @@ def test_slice9_scan_step_on_the_card_matches_the_cpu(cuda, tmp_path, name):
         decided = (g == 0) | (g.abs() >= 1e-6 * g.abs().max())
         np.testing.assert_allclose(a[decided].numpy(), b[decided].numpy(),
                                    rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["RML_DGATs", "SoHRML"])
+def test_dual_step_on_the_card_matches_the_cpu(cuda, tmp_path, name):
+    """One dual step of conf/<name>.properties (its widths; dropout off,
+    the generator being None) from one state on one batch, on the card
+    and on the CPU, SoHRML's attention refreshed first on each: the
+    attention within 1e-5 + 1e-4 |x|, then the loss, gradients and
+    parameters as in the slice-9 test above (the card's segment sums,
+    segment maxima and ``embedding`` backward add in another order)."""
+    import os
+
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import load_ranking_data
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.train import Trainer
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    values = {"recommender": name, **_ratings(tmp_path, 900, 1600, 60000),
+              "train_batches": "20"}
+    _trusts(tmp_path, 900, 8)
+    cfg = Config.from_properties(os.path.join(repo, "CleverRec.properties"),
+                                 os.path.join(repo, "conf"), values)
+    data = load_ranking_data(cfg)
+    runs, batch = [], None
+    for device in ("cpu", cuda):
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                           device=device)
+        tr = Trainer(model, data, cfg, device=device)
+        params, state = tr.init_state()
+        att = None
+        if name == "SoHRML":
+            with torch.no_grad():
+                tr.aux.update(model.pre_epoch(tr.aux))
+            att = [tr.aux[k].cpu() for k in ("att_i", "att_s")]
+        if batch is None:
+            batch = {k: v[0] for k, v in tr.sample_epoch().items()}
+        step = {k: v.to(device) for k, v in batch.items()}
+        loss = model.loss(step, tr.aux)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params.values(), torch.autograd.grad(
+                     loss, list(params.values()), allow_unused=True))]
+        tr._dropout_gen = None
+        params, state, _ = tr._steps(params, state, [step], model.loss)
+        runs.append((att, loss.detach().cpu(), [g.cpu() for g in grads],
+                     [p.detach().cpu() for p in params.values()]))
+    (a_cpu, l_cpu, g_cpu, p_cpu), (a_gpu, l_gpu, g_gpu, p_gpu) = runs
+    for a, b in zip(a_gpu or [], a_cpu or []):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    assert float(l_gpu) == pytest.approx(float(l_cpu), rel=1e-5)
+    for a, b in zip(g_gpu, g_cpu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=1e-5)
+    for a, b, g in zip(p_gpu, p_cpu, g_cpu):
+        decided = (g == 0) | (g.abs() >= 1e-6 * g.abs().max())
+        np.testing.assert_allclose(a[decided].numpy(), b[decided].numpy(),
+                                   rtol=1e-3, atol=1e-5)
+
+
+def test_popularity_draw_on_the_card(cuda):
+    """sample_not_in_popular on the card (a CUDA generator, the tables on
+    the card): no seen item, and the unseen items' counts against the
+    popularity mass renormalised over them, chi-square at p 1e-3, as the
+    CPU test (tests/test_torch_popularity.py)."""
+    from scipy import stats
+
+    from cleverrec_tpu_torch import sampling
+    n_items, n = 60, 200_000
+    deg = np.floor(400.0 / np.arange(1, n_items + 1) ** 0.8) + 1
+    deg = np.random.default_rng(0).permutation(deg)
+    cdf = torch.as_tensor((np.cumsum(deg) / deg.sum()).astype(np.float32),
+                          device=cuda)
+    seen = sorted(np.argsort(-deg)[:6].tolist()
+                  + np.argsort(-deg)[20:26].tolist())
+    unseen = np.setdiff1d(np.arange(n_items), seen)
+    table = sampling.table_to(
+        sampling.build_member_table({0: seen}, 1, n_items), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    got = sampling.sample_not_in_popular(
+        gen, table, torch.zeros(n, dtype=torch.int64, device=cuda), cdf,
+        (n,))
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    counts = np.bincount(got.cpu().numpy(), minlength=n_items)
+    assert counts[seen].sum() == 0
+    expect = deg[unseen] / deg[unseen].sum() * n
+    assert stats.chisquare(counts[unseen], expect).pvalue > 1e-3

@@ -74,12 +74,25 @@ def test_default_device_raises_without_a_card(monkeypatch):
 
 
 def test_unported_model_names_its_slice():
-    from cleverrec_tpu_torch.models import make_model
+    """No ranking model is left unported: the registry is the JAX
+    package's (26 models, RML_DGATs and SoHRML the last), each builds,
+    and a name outside it raises KeyError listing them, as under JAX."""
+    from cleverrec_tpu.models import available_models as j_available_models
+    from cleverrec_tpu_torch.models import available_models, make_model
+    assert available_models() == j_available_models()
+    assert len(available_models()) == 26
     for name in ("RML_DGATs", "SoHRML"):
-        cfg = Config({"recommender": name})
-        with pytest.raises(NotImplementedError,
-                           match="dual-sampler slice.*item 11"):
-            make_model(cfg, DataMeta(4, 40), device="cpu")
+        cfg = Config({"recommender": name, "embed_size": "8",
+                      "atten_size": "4", "gamma": "0.1", "reg1": "0.1",
+                      "reg2": "0.01", "margin": "0.5", "att_type": "2",
+                      "mlp_type": "1", "train_batches": "2", "max_i": "0",
+                      "max_s": "0", "gat_layer_nums": "2",
+                      "node_dropout": "0.1", "message_dropout": "0.1"})
+        model = make_model(cfg, DataMeta(4, 40), device="cpu")
+        assert model.name == name and model.sampler == "dual"
+    with pytest.raises(KeyError, match="unknown model 'FM'.*SoHRML"):
+        make_model(Config({"recommender": "FM"}), DataMeta(4, 40),
+                   device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_path():

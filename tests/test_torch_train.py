@@ -335,12 +335,32 @@ def test_fused_tier_eligibility(toy_dataset):
     ("train.fused_groups", "4", "item 17"),
     ("train.fused_grouped", "True", "item 17"),
     ("profile.dir", "trace", "item 4"),
-    ("neg_sampling", "popularity", "item 7"),
 ])
 def test_unported_options_raise(toy_dataset, key, value, item):
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(model, data, cfg.with_overrides(**{key: value}), device="cpu")
+
+
+def test_popularity_negatives_are_ported(toy_dataset):
+    """``neg_sampling=popularity``, once refused, is ported: the trainer
+    holds the popularity CDF and trains BPR on both tiers (the fused one
+    through the epoch kernel's plain version here); uniform, the default,
+    holds none; another value raises."""
+    (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
+    pop = cfg.with_overrides(neg_sampling="popularity")
+    for fused in ("False", "True"):
+        tr = Trainer(model, data, pop.with_overrides(
+            **{"train.fused_kernel": fused}), device="cpu")
+        assert tr.fused == (fused == "True") and tr._pop_cdf is not None
+        assert float(tr._pop_cdf[-1]) == pytest.approx(1.0)
+        params, state = tr.init_state()
+        _, _, losses = tr.train_epochs(params, state, 2)
+        assert np.all(np.isfinite(losses))
+    assert Trainer(model, data, cfg, device="cpu")._pop_cdf is None
+    with pytest.raises(ValueError, match="neg_sampling=hard"):
+        Trainer(model, data, cfg.with_overrides(neg_sampling="hard"),
+                device="cpu")
 
 
 def test_unported_runs_raise(toy_dataset, tmp_path):
