@@ -12,13 +12,18 @@ width of ``conf/BPR.properties`` (embed_size 128):
   4 x 256 users at k=10 through ``build_retrieval_fn(backend="auto")``
   (which must pick ``fused``) and holds every answer against the
   ``dense`` backend; runs the Evaluator in ``full_fused`` and ``full``
-  mode on a random split (full-catalog eval) and in ``candidate`` mode
-  on the default leave-one-out, 99-negative protocol.  Random weights
-  from the config's seed.
+  mode on a random split (full-catalog eval), in ``full_fused`` mode
+  past the global bitmap budget (a member table built with budget 0:
+  the test users' bitmaps built once from their rows, the metrics equal
+  ``full``'s) and in ``candidate`` mode on the default leave-one-out,
+  99-negative protocol.  Random weights from the config's seed.
 - Phase B, a 131072-id synthetic catalog (wide catalog, kernel
   ``dot_gmax``): the generator of ``benchmarks/catalog_scale.py``
   (49,152 users x 40 rows), 4 x 1024 users at k=20 through
-  ``backend="fused"``, held against ``dense``.
+  ``backend="fused"``, held against ``dense``; then the same calls with
+  ``approx=True`` (the rescue from a bf16 copy of the table), held to
+  the same path with ``dot_gmax``'s plain version on the card, with
+  their top-20 id agreement with the exact answers and both times.
 - Phase H, catalog-scale ranking (kernel ``dot_topk_scores``): the same
   generator over 4,194,304 ids, 593,231 distinct items, past both the
   evaluator's streaming threshold and the 1 GiB global bitmap budget
@@ -152,6 +157,15 @@ width of ``conf/BPR.properties`` (embed_size 128):
   version on a popularity draw.  The ``phase L`` line gives each run's
   epochs, epoch and eval ms, first and last loss, best HR@10 beside its
   reference, and phase L's seconds.
+- Phase M, rating (no kernel): the repo's ml-100k libFM files in
+  ``build/data/ml100k/``, then the same CLI with ``--model FM`` (embed
+  16) and ``FFM`` (embed 8) on their confs, 30 epochs each (batch 4096,
+  Adam at 1e-3): the training RMSE falls, the best test RMSE is at most
+  the JAX package's on the same files plus ``M_BAND``, and no kernel
+  launches; ``--tune`` over embed_size [8, 16], 2 epochs a trial, names
+  the trial of the lowest RMSE; one FM epoch profiled.  The ``phase M``
+  line gives each run's epoch and eval ms, best RMSE and MAE beside the
+  JAX package's, the busy share, and phase M's seconds.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -179,8 +193,8 @@ width of ``conf/BPR.properties`` (embed_size 128):
   device kernel; ``device_trace_from``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
-and H, again before and after each training run (phases I's and J's
-included), and before and after phase J's LightGCN and phase K's
+and H, again before and after each training run (phases I's, J's and
+M's included; M's must read 0), and before and after phase J's LightGCN and phase K's
 LR_GCCF and SML eval and serving (``dot_scores``' row counts A, B, H,
 J and K; ``bpr_epoch``'s C and L).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
@@ -190,6 +204,8 @@ the kernels.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -211,7 +227,7 @@ from cleverrec_tpu_torch.models.base import DataMeta
 from cleverrec_tpu_torch.ops import build, scores
 from cleverrec_tpu_torch.ops import train as train_ops
 from cleverrec_tpu_torch.ops.topk import topk
-from cleverrec_tpu_torch.sampling import rows_to_bits
+from cleverrec_tpu_torch.sampling import build_member_table, rows_to_bits
 from cleverrec_tpu_torch.serving import build_retrieval_fn
 from cleverrec_tpu_torch.train import Trainer
 from cleverrec_tpu_torch.train.checkpoint import (copy_into,
@@ -367,6 +383,18 @@ POP = {"neg_sampling": "popularity"}
 # neg_sampling=popularity (30 epochs, the conf's); the first N epochs of a
 # longer run are the same run.
 JAX_L_HR10 = {"RML_DGATs": 0.8261, "SoHRML": 0.8261, "BPR_pop": 0.7423}
+# Phase M: the rating confs' 30 epochs, and the JAX package's best test
+# RMSE (and MAE) on the repo's ml-100k libFM files, each conf's recipe at
+# seed 2026 (the JAX CLI on the CPU: JAX_PLATFORMS=cpu python -m
+# cleverrec_tpu.cli --config CleverRec.properties --conf-dir conf --model M
+# --set data.root_dir=ROOT --set data.dataset=ml100k, the files copied to
+# ROOT/ml100k/); its seeds 1 and 7 gave FM 0.9613, 0.9615 and FFM 1.0004,
+# 1.0004.  The card's run may land at most M_BAND above it.
+M_EPOCHS = 30
+JAX_M_RMSE = {"FM": 0.9611, "FFM": 1.0063}
+JAX_M_MAE = {"FM": 0.7571, "FFM": 0.8095}
+M_BAND = 0.02
+M_TUNE_EPOCHS = 2
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -803,13 +831,32 @@ def phase_a(rng, profiles):
     for k in cfg.topk:
         check(bool(np.allclose(got[k], want[k], atol=METRIC_TOL, rtol=0)),
               f"@{k}: full_fused {got[k]} vs full {want[k]}")
+    # Past the global bitmap budget (a member table with budget 0): the
+    # test users' bitmaps are built once from their sorted rows.
+    dd0 = dataclasses.replace(dd, seen=build_member_table(
+        data.ui_train, data.user_nums, data.item_nums, bitmap_budget=0))
+    check(dd0.seen.bits is None, "budget 0: a bitmap table was built")
+    past_ev = Evaluator(model, dd0, cfg)
+    check(past_ev.mode == "full_fused" and "bits" in past_ev._batches,
+          f"past the budget: mode {past_ev.mode}, test bitmaps built once "
+          f"{'bits' in past_ev._batches}")
+    before = scores.launches["dot_scores"]
+    past, times["A_eval_full_fused_past_budget_s"] = evaluate(
+        "full_fused past the budget", past_ev)
+    times["A_past_budget_dot_scores_launches"] = (
+        scores.launches["dot_scores"] - before)
+    for k in cfg.topk:
+        check(bool(np.allclose(past[k], want[k], atol=METRIC_TOL, rtol=0)),
+              f"@{k}: full_fused past the budget {past[k]} vs full "
+              f"{want[k]}")
 
     cand_cfg = config("ml-100k")                  # loo, 99 negatives
     cand_data = load_ranking_data(cand_cfg)
     cand_ev = Evaluator(model, build_device_data(cand_data), cand_cfg)
     check(cand_ev.mode == "candidate", f"eval mode {cand_ev.mode}")
     cand, times["A_eval_candidate_s"] = evaluate("candidate", cand_ev)
-    metrics = {"full_fused": got, "full": want, "candidate": cand}
+    metrics = {"full_fused": got, "full": want, "candidate": cand,
+               "full_fused_past_budget": past}
     # The users of the full_fused eval's first batch: the test users
     # wrapped to a whole batch of test.batch_size, as the Evaluator pads.
     eval_users = dd.test_users[np.arange(cfg.test_batch_size)
@@ -831,7 +878,58 @@ def phase_b(rng, profiles):
                             profiles)
     times["B_data_s"] = load_s
     times["B_items"] = data.item_nums
+    times.update(serve_approx("B", model, dd, 20, calls))
     return model, dd, calls[0], times
+
+
+@contextlib.contextmanager
+def plain_gmax():
+    """``rank_fused`` with ``dot_gmax``'s plain version in place of the
+    kernel: the plain version of the fused path, on the same device."""
+    from cleverrec_tpu_torch import ranking
+    kernel = ranking.dot_gmax
+    ranking.dot_gmax = scores.dot_gmax_ref
+    try:
+        yield
+    finally:
+        ranking.dot_gmax = kernel
+
+
+def serve_approx(tag, model, dd, k, calls):
+    """``approx`` on the ``fused`` backend (the bf16 rescue copy) on the
+    serving calls' users: each answer held to the same path with
+    ``dot_gmax``'s plain version (scores within SERVE_RTOL of each other,
+    ids equal but among near-ties, no seen item), its top-k id agreement
+    with the exact fused answer, and the ms of a call of both."""
+    approx = build_retrieval_fn(model, None, dd, k=k, backend="fused",
+                                approx=True)
+    exact = build_retrieval_fn(model, None, dd, k=k, backend="fused")
+    before = scores.launches["dot_gmax"]
+    swaps, same, err = 0, 0, 0.0
+    for u in calls:
+        got = approx(u)
+        with plain_gmax():
+            want = approx(u)
+        bits = seen_bits(dd, u)
+        swaps += check_answer(f"{tag} approx", got, want, bits, k,
+                              dd.item_nums)
+        err = max(err, float((got[1] - want[1]).abs().max()))
+        gi, ei = got[0].cpu().numpy(), exact(u)[0].cpu().numpy()
+        same += sum(len(np.intersect1d(a, b)) for a, b in zip(gi, ei))
+    u = calls[0]
+
+    def per_call_ms(fn):
+        return sync_s(lambda: [fn(u) for _ in range(10)])[1] * 100
+
+    return {f"{tag}_approx_ms": per_call_ms(approx),
+            f"{tag}_exact_fused_ms": per_call_ms(exact),
+            # approx's calls and the exact calls beside them.
+            f"{tag}_approx_dot_gmax_launches": (scores.launches["dot_gmax"]
+                                                - before),
+            f"{tag}_approx_topk_id_agreement": same / (len(calls)
+                                                       * len(u) * k),
+            f"{tag}_approx_vs_plain_max_abs_err": err,
+            f"{tag}_approx_tied_id_swaps": swaps}
 
 
 def phase_h(rng, profiles):
@@ -1002,18 +1100,11 @@ class Records(logging.Handler):
             self.buckets.append(record.buckets)
 
 
-def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
-              trials=1, **overrides):
+def run_cli(tag, model, flags, values):
     """Run the port's CLI on ``model``'s recipe (CleverRec.properties and
-    its conf), on the rebuilt ml-100k, for ``epochs`` epochs with
-    ``overrides`` and the further ``flags``; its log goes to
-    build/logs/<tag>.log.  ``runs`` is the epochs a run trains (all of
-    them unless it resumes), ``trials`` the runs (``--tune``'s grid).
-    Returns the (last) run's numbers and all the kernel launches (counts
-    set to 0 first)."""
-    values = {"data.root_dir": DATA, "data.file_name": "ratings.csv",
-              "data.sep": ",", "log.dir": LOGS, "epoches": epochs}
-    values.update(overrides)
+    its conf) with the ``values`` set and the further ``flags``; its log
+    goes to build/logs/<tag>.log.  Returns (wall seconds, the log's
+    records, the kernel launches, counts set to 0 first)."""
     argv = ["--config", os.path.join(ROOT, "CleverRec.properties"),
             "--conf-dir", os.path.join(ROOT, "conf"), "--model", model,
             *flags]
@@ -1038,8 +1129,21 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
         for h in (records, log_file):
             logger.removeHandler(h)
         log_file.close()
-    launches = {**scores.launches, **train_ops.launches}
     check(rc == 0, f"{tag}: cli exit code {rc}")
+    return wall, records, {**scores.launches, **train_ops.launches}
+
+
+def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
+              trials=1, **overrides):
+    """Run the port's CLI (``run_cli``) on ``model``'s recipe, on the
+    rebuilt ml-100k, for ``epochs`` epochs with ``overrides`` and the
+    further ``flags``.  ``runs`` is the epochs a run trains (all of them
+    unless it resumes), ``trials`` the runs (``--tune``'s grid).  Returns
+    the (last) run's numbers and all the kernel launches."""
+    values = {"data.root_dir": DATA, "data.file_name": "ratings.csv",
+              "data.sep": ",", "log.dir": LOGS, "epoches": epochs}
+    values.update(overrides)
+    wall, records, launches = run_cli(tag, model, flags, values)
     runs = (epochs if runs is None else runs) * trials
     check(len(records.train) == runs == len(records.eval)
           and len(records.bests) == trials,
@@ -2029,6 +2133,103 @@ def phase_l(profiles):
     return out
 
 
+def write_ml100k_libfm() -> str:
+    """The repo's ml-100k libFM files in build/data/ml100k/, the layout
+    ``<root>/<dataset>/<dataset>.{train,test}.libfm`` the rating loader
+    reads; returns the dataset's name."""
+    path = os.path.join(DATA, "ml100k")
+    os.makedirs(path, exist_ok=True)
+    for part in ("train", "test"):
+        shutil.copy(os.path.join(ROOT, "benchmarks", "UIRT",
+                                 f"ml100k.{part}.libfm"), path)
+    return "ml100k"
+
+
+def drive_rating(tag, model, epochs=M_EPOCHS, flags=(), trials=1,
+                 **overrides):
+    """The port's CLI (``run_cli``) on a rating conf, on the repo's
+    ml-100k libFM files: the epochs' training RMSE and loss, the tests'
+    RMSE and MAE, the times, the best epoch(s) and the launches."""
+    values = {"data.root_dir": DATA, "data.dataset": "ml100k",
+              "log.dir": LOGS, "epoches": epochs}
+    values.update(overrides)
+    wall, records, launches = run_cli(tag, model, flags, values)
+    check(len(records.train) == epochs * trials == len(records.eval)
+          and len(records.bests) == trials,
+          f"{tag}: {len(records.train)} epochs, {len(records.eval)} tests, "
+          f"{len(records.bests)} runs")
+    rmse = [r["rmse"] for r in records.train]
+    test = [r["rmse"] for r in records.eval]
+    check(all(np.isfinite(rmse + test)), f"{tag}: RMSE {rmse} {test}")
+    train_ms = [r["seconds"] * 1e3 for r in records.train]
+    return {"wall_s": wall, "launches": launches,
+            "epoch_first_ms": train_ms[0],
+            "epoch_ms_median": statistics.median(train_ms[1:] or train_ms),
+            "eval_ms_median": statistics.median(
+                [r["seconds"] * 1e3 for r in records.eval]),
+            "train_rmse_first": rmse[0], "train_rmse_last": rmse[-1],
+            "loss_first": records.train[0]["loss"],
+            "loss_last": records.train[-1]["loss"],
+            "best": records.best, "bests": records.bests}
+
+
+def phase_m(profiles):
+    """FM and FFM on their confs (30 epochs, embed 16 and 8, batch 4096) on
+    the repo's ml-100k libFM files through the port's CLI on the card:
+    the training RMSE falls, the best test RMSE is at most the JAX
+    package's plus M_BAND, and no kernel launches (the rating path has
+    none); ``--tune`` over embed_size [8, 16], 2 epochs a trial, names the
+    trial of the lowest RMSE; one FM epoch profiled (the device's busy
+    share)."""
+    from cleverrec_tpu_torch.data.libfm import load_rating_data
+    from cleverrec_tpu_torch.rating import FMTrainer, make_rating_model
+    t0 = time.perf_counter()
+    write_ml100k_libfm()
+    runs = {}
+    for name in JAX_M_RMSE:
+        res = runs[name] = drive_rating(f"M_{name}", name)
+        check(res["train_rmse_last"] < res["train_rmse_first"],
+              f"M {name}: training RMSE {res['train_rmse_first']} -> "
+              f"{res['train_rmse_last']}")
+        check(res["best"]["rmse"] <= JAX_M_RMSE[name] + M_BAND,
+              f"M {name}: best RMSE {res['best']['rmse']} against the JAX "
+              f"package's {JAX_M_RMSE[name]} + {M_BAND}")
+        check(not any(res["launches"].values()),
+              f"M {name}: launches {res['launches']}")
+    tune = drive_rating("M_FM_tune", "FM", epochs=M_TUNE_EPOCHS,
+                        flags=("--tune",), trials=2, embed_size="[8,16]")
+    with open(os.path.join(LOGS, "M_FM_tune.log")) as f:
+        named = [ln for ln in f if "== best trial: " in ln]
+    top = min(range(2), key=lambda t: tune["bests"][t]["rmse"])
+    check(len(named) == 1 and f"'embed_size': {(8, 16)[top]}}}" in named[0],
+          f"M tune: best trial {named}, bests {tune['bests']}")
+    cfg = config("ml100k", recommender="FM")
+    data = load_rating_data(cfg)
+    trainer = FMTrainer(make_rating_model(cfg, data), data, cfg)
+    params, state = trainer.init_state()
+    prof = profiles["M_FM_epoch"] = breakdown(
+        lambda: trainer.train_epoch(params, state))
+    out = {name: {"epoch_ms_median": res["epoch_ms_median"],
+                  "epoch_first_ms": res["epoch_first_ms"],
+                  "eval_ms_median": res["eval_ms_median"],
+                  "best_rmse": res["best"]["rmse"],
+                  "best_mae": res["best"]["mae"],
+                  "best_epoch": res["best"]["epoch"],
+                  "jax_rmse": JAX_M_RMSE[name], "jax_mae": JAX_M_MAE[name],
+                  "train_rmse_first": res["train_rmse_first"],
+                  "train_rmse_last": res["train_rmse_last"],
+                  "wall_s": res["wall_s"]}
+           for name, res in runs.items()}
+    out.update(tune={"bests": tune["bests"], "best_trial": (8, 16)[top],
+                     "wall_s": tune["wall_s"]},
+               device_busy={"FM_profiled": prof["device_ms"]
+                            / prof["wall_ms"],
+                            "FM_unprofiled": prof["device_ms"]
+                            / runs["FM"]["epoch_ms_median"]},
+               seconds=time.perf_counter() - t0)
+    return out
+
+
 def cml_row(launches, profiles):
     """cml_epoch against its plain version at CML's main shape (ml-100k,
     embed 128, K 20, B 6144) on the state one epoch in and the next draw:
@@ -2382,6 +2583,8 @@ def main() -> int:
     del k_inputs
     train["L"] = phase_l(profiles)
     print("phase L: " + json.dumps(train["L"]), flush=True)
+    train["M"] = phase_m(profiles)
+    print("phase M: " + json.dumps(train["M"]), flush=True)
     # bpr_epoch's launches: phase C's and phase L's popularity run's.
     bpr = next(row for row in rows if row["name"] == "bpr_epoch")
     bpr["launches_by_phase"] = {"C": bpr["launches"],

@@ -13,7 +13,11 @@ Usage:
 
 ``--resume`` restarts a run from a checkpoint that ``save.best=True``
 wrote (``saved_dir/<model>``); ``--tune`` grid-searches the list-valued
-embed_size, reg and neg_ratio (``tuning.py``) instead of one run.
+embed_size, reg and neg_ratio (``tuning.py``) instead of one run.  With
+``model_type=rating`` (FM, FFM: ``rating.py``) the run trains on the
+libFM files ``<data.root_dir>/<data.dataset>/<data.dataset><train>`` and
+``...<test>``, and ``--resume`` and ``--export-serving`` are ignored, as
+the JAX CLI ignores them there.
 """
 
 from __future__ import annotations
@@ -68,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run_experiment(cfg: Config, device="cuda", logger=None,
                    resume_from=None):
     """Load data, build the model and trainer, run the full loop (from
-    the checkpoint ``resume_from`` if given); returns the trainer's
-    best-epoch summary."""
+    the checkpoint ``resume_from`` if given; a ``model_type=rating`` run
+    always starts afresh); returns the trainer's best-epoch summary."""
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
@@ -78,6 +82,9 @@ def run_experiment(cfg: Config, device="cuda", logger=None,
     logger = logger or get_logger(cfg.get("log.dir"), cfg.recommender)
     logger.info("=" * 80)
     logger.info("Current model: %s", cfg.recommender)
+    if cfg.model_type == "rating":
+        from cleverrec_tpu_torch.rating import run_rating
+        return run_rating(cfg, logger, device=device)
     data = load_ranking_data(cfg, rng=np.random.default_rng(cfg.seed),
                              logger=logger)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
@@ -92,13 +99,6 @@ def main(argv=None) -> int:
         from cleverrec_tpu_torch.models import available_models
         print("\n".join(available_models()))
         return 0
-    # --tune ignores --export-serving, as the JAX CLI does.
-    for attr, (flag, where) in _UNPORTED_FLAGS.items():
-        if getattr(args, attr) and not (args.tune
-                                        and attr == "export_serving"):
-            print(f"{flag} is not ported yet (ROADMAP.md {where})",
-                  file=sys.stderr)
-            return 2
     overrides = {}
     if args.model:
         overrides["recommender"] = args.model
@@ -109,16 +109,28 @@ def main(argv=None) -> int:
         k, v = kv.split("=", 1)
         overrides[k] = v
     cfg = Config.from_properties(args.config, args.conf_dir, overrides)
-    if cfg.model_type != "ranking":
-        print(f"model_type={cfg.model_type} is not ported yet (ROADMAP.md "
-              "queue 1, item 13: rating)", file=sys.stderr)
-        return 2
+    # --tune and a rating run ignore --export-serving, as the JAX CLI does.
+    rating = cfg.model_type == "rating"
+    for attr, (flag, where) in _UNPORTED_FLAGS.items():
+        if getattr(args, attr) and not ((args.tune or rating)
+                                        and attr == "export_serving"):
+            print(f"{flag} is not ported yet (ROADMAP.md {where})",
+                  file=sys.stderr)
+            return 2
     if args.tune:
         from cleverrec_tpu_torch.tuning import run_grid
         logger = get_logger(cfg.get("log.dir"), cfg.recommender + "_tune")
         if args.resume or args.export_serving:
             logger.info("--resume/--export-serving are ignored with --tune")
         run_grid(cfg, logger=logger, device=args.device)
+        return 0
+    if rating:
+        # The JAX CLI returns from a rating run before it reads these.
+        logger = get_logger(cfg.get("log.dir"), cfg.recommender)
+        if args.resume or args.export_serving:
+            logger.info("--resume/--export-serving are ignored with "
+                        "model_type=rating")
+        run_experiment(cfg, device=args.device, logger=logger)
         return 0
     run_experiment(cfg, device=args.device, resume_from=args.resume)
     return 0

@@ -18,8 +18,14 @@
 The test set is stacked once into padded user batches on the device; a
 Python loop ranks each batch and reduces it to per-K metric sums (the
 reference's HR/MRR/NDCG formulas, utils/metrics.py:9-19), so the host
-receives one [n_K, 3] array per eval.  The sharded mode comes with the
-parallel layer; the options of the JAX evaluator's test bitmaps raise.
+receives one [n_K, 3] array per eval.  Past the global bitmap budget
+(``seen.bits`` None) the bitmap-masking modes build bitmaps from the
+sorted seen rows: ``full_fused`` builds the test users' once per
+Evaluator while they fit ``eval.test_bitmap_budget_mb`` (default 512
+MiB), else each batch's, and ``full_stream`` each batch's;
+``eval.device_bitmaps=false`` turns that off (``full_fused`` then falls
+back to ``full``, the stream masks with the rows), as in the JAX
+evaluator.  The sharded mode comes with the parallel layer.
 """
 
 from __future__ import annotations
@@ -40,14 +46,6 @@ def _pad_masked(v, items):
                                                                  PAD_ITEM))
 
 
-_BITMAPS = "queue 1, item 7 (the evaluator's test bitmaps)"
-# Options of the JAX evaluator that the port does not have yet, each with
-# the test that it is set and where ROADMAP.md queues it.  A set option
-# raises rather than be ignored.
-_UNPORTED = (
-    ("eval.device_bitmaps", lambda c, k: not c.bool(k, True), _BITMAPS),
-    ("eval.test_bitmap_budget_mb", lambda c, k: k in c, _BITMAPS),
-)
 # A full-catalog eval streams past this many items unless
 # eval.fused_kernel is set (cleverrec_tpu/evalx.py:76-79).
 STREAM_THRESHOLD = 500_000
@@ -58,10 +56,6 @@ class Evaluator:
     moved there)."""
 
     def __init__(self, model, device_data: DeviceData, cfg, device="cuda"):
-        for key, is_set, where in _UNPORTED:
-            if is_set(cfg, key):
-                raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP.md {where})")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.dd = device_data
@@ -71,7 +65,11 @@ class Evaluator:
         self.batch_size_t = cfg.test_batch_size
         self.candidate_eval = device_data.cand is not None
         self.standard_mrr = cfg.bool("metrics.standard_mrr", False)
-        fused_ok = (not self.candidate_eval
+        # Bitmap masking: from the global table where it exists, else
+        # built from the sorted rows unless eval.device_bitmaps is off.
+        bitmaps = (device_data.seen.bits is not None
+                   or cfg.bool("eval.device_bitmaps", True))
+        fused_ok = (not self.candidate_eval and bitmaps
                     and hasattr(model, "dot_decomposition"))
         self._use_fused = fused_ok and cfg.bool(
             "eval.fused_kernel", self.device.type == "cuda")
@@ -89,7 +87,7 @@ class Evaluator:
         # Chunk-sliced bitmap masking needs 32 | chunk: from the global
         # bitmaps where they exist, else from each batch's rows
         # (sampling.rows_to_bits); otherwise rank_stream masks with rows.
-        self._stream_bits = self.stream_chunk % 32 == 0
+        self._stream_bits = self.stream_chunk % 32 == 0 and bitmaps
         if self.candidate_eval:
             self.mode = "candidate"
         elif stream:
@@ -170,6 +168,15 @@ class Evaluator:
             out["bits"] = put(dd.seen.bits[users])
         else:
             out["rows"] = put(dd.seen.rows[users].astype(np.int64))
+            words = cdiv(dd.item_nums, 32)
+            budget = self.cfg.int("eval.test_bitmap_budget_mb", 512)
+            if (self.mode == "full_fused"
+                    and padded * words * 4 <= budget * 2 ** 20):
+                # The test users' bitmaps do not change with training:
+                # built once here, a batch at a time, rather than each
+                # batch at every eval.
+                out["bits"] = torch.stack([
+                    rows_to_bits(r, dd.item_nums) for r in out.pop("rows")])
         return out
 
     def _batch(self, idx):

@@ -94,3 +94,11 @@ def ranking_metrics_topks(real: np.ndarray, rec: np.ndarray, topks,
     rank, valid, n_real = _real_ranks(real, rec, kmax)
     return {k: _metrics_at(rank, valid, n_real, k, standard_mrr)
             for k in topks}
+
+
+def rmse_mae(y: np.ndarray, y_pre: np.ndarray):
+    """RMSE / MAE (reference: utils/metrics.py:22-29)."""
+    y = np.asarray(y, dtype=np.float64)
+    y_pre = np.asarray(y_pre, dtype=np.float64)
+    res = y - y_pre
+    return float(np.sqrt(np.mean(res ** 2))), float(np.mean(np.abs(res)))

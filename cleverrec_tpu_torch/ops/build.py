@@ -6,7 +6,9 @@ checkout (a directory ``.gitignore`` lists) on first use, and ``load``
 opens the library with ctypes.  A library older than its source, or than
 a shared header ``csrc/*.cuh``, is rebuilt.  ``build`` starts one
 ``nvcc`` per stale source, all at once, so a script that needs every
-kernel pays for the slowest build only.
+kernel pays for the slowest build only.  A host C++ source
+(``csrc/<name>.cpp``) is built the same way with ``g++`` and opened with
+``load_host``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ SOURCES = ("dot_scores", "bpr_epoch", "gmf_epoch", "mlp_epoch", "rows_epoch",
            "cml_epoch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -96,4 +99,26 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             build([name])
             _libs[name] = ctypes.CDLL(paths(name)[1])
+        return _libs[name]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of host source ``csrc/<name>.cpp``, built with
+    ``g++`` into ``BUILD_DIR`` if missing or older than its source.
+    Raises with the compiler's output if the build fails."""
+    src = os.path.join(CSRC, f"{name}.cpp")
+    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
+    with _lock:
+        if name not in _libs:
+            if (not os.path.exists(lib)
+                    or os.path.getmtime(lib) < os.path.getmtime(src)):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                done = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, src],
+                                      capture_output=True, text=True)
+                if done.returncode:
+                    raise RuntimeError(f"g++ failed for {name}:\n"
+                                       f"{done.stdout}{done.stderr}")
+                os.replace(tmp, lib)   # atomic: no reader sees half a file
+            _libs[name] = ctypes.CDLL(lib)
         return _libs[name]

@@ -144,20 +144,28 @@ def rank_stream(model, aux, u, rows, item_nums: int, k: int,
                           approx=approx, device=u.device)
 
 
-def fused_precompute(model, aux):
-    """Batch-independent half of the fused path: the item table and the
-    item bias (negated for a ``cml_like`` model), contiguous float32.
-    Callers ranking many
+def fused_precompute(model, aux, rescue_bf16: bool = False):
+    """Batch-independent half of the fused path: (the item table, the item
+    bias (negated for a ``cml_like`` model), the rescue's copy of the
+    table), the first two contiguous float32.  Callers ranking many
     batches against one set of parameters compute it once and pass it to
     ``rank_fused`` as ``pre``.  The port scores in original item order, so
-    unlike the JAX package nothing is permuted."""
+    unlike the JAX package nothing is permuted.
+
+    The rescue copy is None (the rescue reads the table) unless
+    ``rescue_bf16``: then it is a bfloat16 copy, and the wide branch's
+    rescue scores bf16-rounded rows against a bf16-rounded user, the
+    products summed in float32 and the bias added in float32.  That is an
+    approximate mode for serving (``approx`` on the ``fused`` backend),
+    never used by evaluation; the narrow branch stays exact."""
     dev = next(model.parameters()).device
     _, table, bias = model.dot_decomposition(
         torch.zeros(1, dtype=torch.long, device=dev), aux)
     if model.cml_like and bias is not None:
         bias = -bias
     table = table.detach().float().contiguous()
-    return table, None if bias is None else bias.detach().float().contiguous()
+    bias = None if bias is None else bias.detach().float().contiguous()
+    return table, bias, table.bfloat16() if rescue_bf16 else None
 
 
 @torch.no_grad()
@@ -181,8 +189,10 @@ def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
         # mask stays the worst score; never negate after masking.
         u_vecs = -u_vecs
         bias = None if bias is None else -bias
+    rescue = None
     if pre is not None:
-        table, bias = pre       # fused_precompute negated its bias already
+        # fused_precompute negated its bias already.
+        table, bias, rescue = pre
     u_vecs = u_vecs.float().contiguous()
     table = table.float().contiguous()
     seen_bits = seen_bits.to(torch.int32).contiguous()
@@ -205,8 +215,12 @@ def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
     # past the catalog are clamped here and masked below.
     ids = gi[:, :, None] * COMB_I + torch.arange(COMB_I, device=gi.device)
     slab_rows = ids.clamp(max=i_real - 1)
-    qc = table[slab_rows]                                    # [B, k, 32, d]
-    cand = torch.einsum("bkcd,bd->bkc", qc, u_vecs)          # [B, k, 32]
+    if rescue is None:
+        qc, u_r = table[slab_rows], u_vecs                   # [B, k, 32, d]
+    else:
+        # bf16 operands, exact f32 products, f32 sums.
+        qc, u_r = rescue[slab_rows].float(), u_vecs.bfloat16().float()
+    cand = torch.einsum("bkcd,bd->bkc", qc, u_r)             # [B, k, 32]
     if bias is not None:
         cand = cand + bias[slab_rows]
     # Group g is bitmap word g: member r is bit r.

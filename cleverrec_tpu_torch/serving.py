@@ -65,10 +65,14 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     ``FUSED_MAX_ITEMS`` items, stream past ``STREAM_THRESHOLD`` items,
     and dense between and on the CPU.  ``retrieve.backend`` names the
     backend in use.  ``stream_chunk``: items per chunk of the stream
-    backend (default 16384 past 262,144 items, else 4096).  ``approx``
-    (stream backend): select each chunk as the JAX package's
+    backend (default 16384 past 262,144 items, else 4096).  ``approx``:
+    on the stream backend, select each chunk as the JAX package's
     ``approx_max_k`` does off the TPU, exactly
-    (``ops/topk.streaming_topk``).  A distance model's fused scores
+    (``ops/topk.streaming_topk``); on the fused backend, rescue the
+    selected groups from a bfloat16 copy of the item table
+    (``ranking.fused_precompute(rescue_bf16=True)``): past the narrow
+    branch (4,096 items) scores round to bf16 operands and ids may
+    differ from the exact answer's; up to it the answer is exact.  A distance model's fused scores
     leave out each user's |u|^2, so they differ from the dense scores by
     that per-user offset; the rankings agree.  The stream backend scores
     a dot-decomposable model by its decomposition too (GMF without its
@@ -89,10 +93,6 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     if backend == "fused" and not hasattr(model, "dot_decomposition"):
         raise ValueError(f"{model.name}: no dot decomposition — "
                          "fused retrieval unavailable")
-    if backend == "fused" and approx:
-        raise NotImplementedError(
-            "approx on the fused backend (the bf16 rescue copy) is not "
-            "ported yet (ROADMAP.md queue 1, item 7)")
     seen = device_data.seen
     # The fused path, and the stream with 32 | stream_chunk, mask with
     # bitmaps: gathered from the global table, or past its budget (bits
@@ -105,7 +105,8 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
         seen_tbl = torch.as_tensor(seen.bits, device=dev)
     elif filter_seen:
         seen_tbl = torch.as_tensor(seen.rows, device=dev).long()
-    pre = ranking.fused_precompute(model, aux) if backend == "fused" else None
+    pre = (ranking.fused_precompute(model, aux, rescue_bf16=approx)
+           if backend == "fused" else None)
 
     def bits_of(u):
         return seen_tbl[u] if use_bits else rows_to_bits(seen_tbl[u],

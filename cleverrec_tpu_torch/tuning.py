@@ -1,5 +1,5 @@
 """Hyperparameter grid search, the reference's ``main_tuning.py`` (as
-``cleverrec_tpu/tuning.py``), for the ranking models.
+``cleverrec_tpu/tuning.py``), for the ranking and the rating models.
 
 The data is loaded once; each combination trains a fresh model and
 trainer.  Any list-valued config key is a grid axis: pass the axes as
@@ -36,17 +36,14 @@ def grid_from_config(cfg: Config) -> dict[str, list]:
 def run_grid(cfg: Config, grid: Mapping[str, Sequence[Any]] | None = None,
              logger=None, device="cuda"):
     """Train every combination; returns (best, all_results), the best by
-    NDCG@topk[0] (the reference's criterion).  Each result is
-    ``{"params": {axis: value}, "best": Trainer.run()'s summary}``."""
+    NDCG@topk[0] for a ranking model (the reference's criterion) or by the
+    lowest RMSE for a rating model (FM, FFM).  Each result is
+    ``{"params": {axis: value}, "best": the trainer's run() summary}``."""
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
     from cleverrec_tpu_torch.train import Trainer
 
-    if cfg.model_type != "ranking":
-        raise NotImplementedError(
-            f"tuning model_type={cfg.model_type} is not ported yet "
-            "(ROADMAP.md queue 1, item 13: rating)")
     grid = dict(grid) if grid else grid_from_config(cfg)
     if not grid:
         raise ValueError("no grid axes: pass grid= or list-valued config")
@@ -54,12 +51,29 @@ def run_grid(cfg: Config, grid: Mapping[str, Sequence[Any]] | None = None,
     keys = sorted(grid)
     combos = list(itertools.product(*(grid[k] for k in keys)))
 
+    results = []
+    if cfg.model_type == "rating":
+        from cleverrec_tpu_torch.data.libfm import load_rating_data
+        from cleverrec_tpu_torch.rating import FMTrainer, make_rating_model
+        data = load_rating_data(cfg)              # preprocess once
+        for combo in combos:
+            overrides = {k: str(v) for k, v in zip(keys, combo)}
+            trial_cfg = cfg.with_overrides(**overrides)
+            log("== trial %s", overrides)
+            model = make_rating_model(trial_cfg, data)
+            best = FMTrainer(model, data, trial_cfg, logger=logger,
+                             device=device).run()
+            results.append({"params": dict(zip(keys, combo)), "best": best})
+        top = min(results, key=lambda r: r["best"]["rmse"])
+        log("== best trial: %s -> RMSE=%.4f", top["params"],
+            top["best"]["rmse"])
+        return top, results
+
     # Preprocess once (main_tuning.py:33-36).
     base = cfg.with_overrides(**{k: str(v[0]) for k, v in grid.items()})
     data = load_ranking_data(base, rng=np.random.default_rng(cfg.seed),
                              logger=logger)
     meta = DataMeta(data.user_nums, data.item_nums)
-    results = []
     for combo in combos:
         overrides = {k: str(v) for k, v in zip(keys, combo)}
         trial_cfg = cfg.with_overrides(**overrides)

@@ -19,7 +19,10 @@ EATNN: ``P_shared``, ``P_item``, ``P_social`` [U, d], ``Q``, ``att_w``
 ``W`` [2d, atten], ``h``, ``b`` [atten], ``W_gat`` [d, d] and, for
 ``mlp_type`` m >= 1, ``W_mlp_l``, ``b_mlp_l`` a layer; SoHRML: ``P``
 [U, d], ``Q`` [I, d], ``W``, ``h``, ``b``, ``W_gat_l`` [d, d] and
-``b_gat_l`` [d] a GAT layer, and RML_DGATs' ``W_mlp_l``, ``b_mlp_l``),
+``b_gat_l`` [d] a GAT layer, and RML_DGATs' ``W_mlp_l``, ``b_mlp_l``;
+the rating models, FM: ``w0`` (0-d), ``wi`` [rows], ``vif`` [rows, d],
+and FFM: the same with ``vif`` [rows, n_fields, d], rows =
+feature_nums + 1 rounded up to a multiple of 8),
 optax's Adam keeps ``opt_state[0]`` = (count, mu, nu) over the same
 names and optax's Adagrad ``opt_state[0].sum_of_squares``.  Shapes are
 the JAX shapes too, 0-d ones included, so nothing is transposed or

@@ -290,6 +290,3 @@ def test_run_grid_order_and_pick(toy_dataset, monkeypatch):
     assert all(0 < r["best"]["ndcg"] <= 1 for r in results)
     with pytest.raises(ValueError, match="no grid axes"):
         tuning.run_grid(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tuning.run_grid(cfg.with_overrides(model_type="rating"), grid=grid,
-                        device="cpu")

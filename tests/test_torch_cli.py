@@ -92,8 +92,7 @@ def test_cli_evaluates_every_interval(toy_argv, records):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "2x1"], ["--distributed"], ["--export-serving", "out"],
-    ["--tune", "--mesh", "2x1"], ["--set", "model_type=rating"],
-    ["--set", "nokey"]])
+    ["--tune", "--mesh", "2x1"], ["--set", "nokey"]])
 def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
     assert cli.main(toy_argv + ["--device", "cpu"] + flags) == 2
     err = capsys.readouterr().err

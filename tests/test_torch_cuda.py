@@ -4,8 +4,9 @@ bpr_epoch, gmf_epoch, mlp_epoch, rows_epoch (the social chain and LRML's
 form) and cml_epoch; LightGCN's fused serving and eval against dense,
 FISM's segment sums (f32 atomics) on the card against the CPU, and one
 scan step of each of DiffNet, DiffNet++, LR_GCCF, WMF, DMF, SML and
-EATNN, and one dual step of RML_DGATs and SoHRML, on the card against the
-CPU; the popularity negatives' draw on the card.
+EATNN, one dual step of RML_DGATs and SoHRML, and one FM and one FFM
+epoch, on the card against the CPU; the popularity negatives' draw on
+the card; serving's bf16 rescue against its plain version.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU.  The file imports
 only torch, numpy and the port, so on the GPU machine it runs without
@@ -13,6 +14,8 @@ the JAX package's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -1354,3 +1357,93 @@ def test_popularity_draw_on_the_card(cuda):
     assert counts[seen].sum() == 0
     expect = deg[unseen] / deg[unseen].sum() * n
     assert stats.chisquare(counts[unseen], expect).pvalue > 1e-3
+
+
+def _ml100k_libfm(path):
+    """The repo's ml-100k libFM files under ``path``/ml100k."""
+    import shutil
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (path / "ml100k").mkdir()
+    for part in ("train", "test"):
+        shutil.copy(os.path.join(repo, "benchmarks", "UIRT",
+                                 f"ml100k.{part}.libfm"),
+                    path / "ml100k" / f"ml100k.{part}.libfm")
+    return {"data.root_dir": str(path), "data.dataset": "ml100k",
+            "model_type": "rating", "train": ".train.libfm",
+            "test": ".test.libfm", "is_real_valued": "True",
+            "batch_size": "4096", "reg": "0.001", "lr": "0.001",
+            "optimizer": "Adam", "init_method": "normal", "stddev": "0.01",
+            "seed": "2026"}
+
+
+@pytest.mark.parametrize("name,d", [("FM", 16), ("FFM", 8)])
+def test_rating_epoch_on_the_card_matches_the_cpu(cuda, tmp_path, name, d):
+    """One FM and one FFM epoch at the confs' widths on ml-100k (20 Adam
+    steps of 4,096 rows), on the card and on the CPU, from one state on
+    one order: parameters, mean loss and training RMSE within
+    1e-5 + 1e-3 |x| (``index_put``'s atomics and the einsums add in
+    another order on the card)."""
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data.libfm import load_rating_data
+    from cleverrec_tpu_torch.rating import FMTrainer, make_rating_model
+    cfg = Config({"recommender": name, "embed_size": str(d),
+                  **_ml100k_libfm(tmp_path)})
+    data = load_rating_data(cfg)
+    runs, order = [], None
+    for device in ("cpu", cuda):
+        tr = FMTrainer(make_rating_model(cfg, data), data, cfg,
+                       device=device)
+        params, state = tr.init_state()
+        if order is None:
+            order, w = (x.cpu() for x in tr.epoch_order())
+        params, state, loss, o, ww, y_pres = tr.train_epoch(
+            params, state, order=order, w=w)
+        runs.append(({k: p.detach().cpu() for k, p in params.items()},
+                     float(loss), tr.train_rmse(o, ww, y_pres)))
+    (p_cpu, l_cpu, r_cpu), (p_gpu, l_gpu, r_gpu) = runs
+    assert order.shape == (20, 4096)
+    assert l_gpu == pytest.approx(l_cpu, rel=1e-3, abs=1e-5)
+    np.testing.assert_allclose(r_gpu, r_cpu, rtol=1e-3, atol=1e-5)
+    for k in p_cpu:
+        np.testing.assert_allclose(p_gpu[k].numpy(), p_cpu[k].numpy(),
+                                   rtol=1e-3, atol=1e-5, err_msg=k)
+
+
+def test_bf16_rescue_on_the_card_matches_plain(cuda, monkeypatch):
+    """``rank_fused`` with the bf16 rescue copy (``approx`` serving) on a
+    131,072-item catalog, d 128, 256 users, k 20: through ``dot_gmax``
+    (one launch) against the same path with ``dot_gmax``'s plain version,
+    on the card; scores within 1e-5 + 1e-5 |x|, ids equal but among
+    near-ties; and no seen item."""
+    from cleverrec_tpu_torch import ranking
+    b, n, d, k = 256, 131072, 128, 20
+    u, q, bits, _ = (None if x is None else torch.as_tensor(x).to(cuda)
+                     for x in _inputs(b, n, d, False, seed=4))
+
+    class Dot(torch.nn.Module):
+        cml_like = False
+
+        def __init__(self):
+            super().__init__()
+            self.q = torch.nn.Parameter(q)
+
+        def dot_decomposition(self, users, aux):
+            return u[users], self.q, None
+
+    model = Dot()
+    users = torch.arange(b, device=cuda)
+    pre = ranking.fused_precompute(model, {}, rescue_bf16=True)
+    before = S.launches["dot_gmax"]
+    gv, gi = ranking.rank_fused(model, {}, users, bits, k, pre=pre)
+    torch.cuda.synchronize()
+    assert S.launches["dot_gmax"] == before + 1
+    monkeypatch.setattr(ranking, "dot_gmax", S.dot_gmax_ref)
+    wv, wi = ranking.rank_fused(model, {}, users, bits, k, pre=pre)
+    (gv, gi), (wv, wi) = [(v.cpu().numpy(), i.cpu().numpy())
+                          for v, i in ((gv, gi), (wv, wi))]
+    np.testing.assert_allclose(gv, wv, rtol=1e-5, atol=1e-5)
+    for r, j in zip(*np.nonzero(gi != wi)):
+        assert (np.abs(np.delete(gv[r], j) - gv[r, j]) <= 1e-4).any()
+    seen = bits.cpu().numpy().view(np.uint32)
+    words = np.take_along_axis(seen, gi >> 5, axis=1)
+    assert not ((words >> (gi & 31).astype(np.uint32)) & 1).any()

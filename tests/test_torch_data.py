@@ -84,3 +84,71 @@ def test_rows_to_bits_matches_jax(toy_dataset):
     np.testing.assert_array_equal(
         rows_to_bits(rows, 64).numpy().view(np.uint32),
         np.asarray(j_rows_to_bits(rows.numpy().astype(np.int32), 64)))
+
+
+def _spy_numpy(monkeypatch):
+    """Records each call of the numpy parser (and still parses)."""
+    from cleverrec_tpu_torch.data import fastcsv
+    calls = []
+    real = fastcsv._numpy_columns
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(fastcsv, "_numpy_columns", spy)
+    return calls
+
+
+# Each file's lines, header first: the native parser's (one-byte
+# separator, numeric first data line) against the numpy parser's.
+NATIVE_FILES = {
+    "extra_columns": "u,i,r,t,note\n1,2,3.5,17,x\n4,5,1,18,yy\n\n7,8,2,19,z\n",
+    "crlf": "u\ti\tr\r\n1\t2\t3.5\r\n4\t5\t1e1\r\n-7\t8\t+2\r\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(NATIVE_FILES))
+def test_native_parser_matches_numpy(tmp_path, monkeypatch, name):
+    from cleverrec_tpu_torch.data import fastcsv
+    path = tmp_path / "f.csv"
+    path.write_bytes(NATIVE_FILES[name].encode())
+    sep = "\t" if name == "crlf" else ","
+    calls = _spy_numpy(monkeypatch)
+    got = fastcsv.read_columns(str(path), sep, 3)
+    assert calls == []                         # the native parser took it
+    want = fastcsv._numpy_columns(str(path), sep, 3, True)
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == np.float64 and len(g) == 3
+        np.testing.assert_array_equal(g, w)
+
+
+def test_parser_routes_like_the_jax_package(tmp_path, monkeypatch):
+    """A non-numeric first data line and a '::' file go to numpy (which
+    raises on a field that is not a number, where the native parser
+    would read 0); the '::' file's columns equal the native parser's on
+    the same table with ','."""
+    from cleverrec_tpu_torch.data import fastcsv
+    calls = _spy_numpy(monkeypatch)
+    bad = tmp_path / "bad.csv"
+    bad.write_text("u,i,r\nx,2,3\n4,5,1\n")
+    with pytest.raises(ValueError):
+        fastcsv.read_columns(str(bad), ",", 3)
+    assert len(calls) == 1
+    short = tmp_path / "short.csv"
+    short.write_text("u,i,r\n1,2\n4,5,1\n")
+    with pytest.raises(ValueError):
+        fastcsv.read_columns(str(short), ",", 3)
+    assert len(calls) == 2
+    ds = tmp_path / "toy"
+    ds.mkdir()
+    make_toy_interactions(ds / "ratings.csv", seed=4)
+    text = (ds / "ratings.csv").read_text()
+    (ds / "ratings.dat").write_text(text.replace(",", "::"))
+    native = fastcsv.read_columns(str(ds / "ratings.csv"), ",", 4)
+    assert len(calls) == 2
+    split = fastcsv.read_columns(str(ds / "ratings.dat"), "::", 4)
+    assert len(calls) == 3
+    for a, b in zip(native, split):
+        np.testing.assert_array_equal(a, b)
