@@ -166,6 +166,26 @@ width of ``conf/BPR.properties`` (embed_size 128):
   the trial of the lowest RMSE; one FM epoch profiled.  The ``phase M``
   line gives each run's epoch and eval ms, best RMSE and MAE beside the
   JAX package's, the busy share, and phase M's seconds.
+- Phase N, export (kernels ``dot_scores`` and ``dot_gmax`` inside
+  ``torch.export`` programs; run after phase B, its launch counts from 0
+  and set aside): phase A's model as a serving bundle
+  (``serving.export_bundle``, ``auto`` -> ``fused``) written to a
+  temporary directory and loaded back (``load_serialized``); its
+  retrieval program on phase A's 4 x 256-user calls and its rerank
+  program on 128 candidates a user (8 of them padding) equal the live
+  ``retrieve`` and ``rerank`` answers exactly, each retrieval call
+  launching ``dot_scores`` once; then a ``fused`` retrieval program at
+  phase B's catalog on its 4 x 1,024-user calls, held the same way with
+  ``dot_gmax``.  The ``phase N`` line gives each program's ms a call
+  beside the live call's, its bytes and its export and load seconds.
+- Phase O, ``classic/`` on the card (no kernel): on the rebuilt ml-100k
+  (all pairs split 7:1 at random for LFM and SLIM, the libFM split's
+  rating triples for the rating models, phase F's trust graph for
+  TrustSVD), ``classic_figures`` fits LFM, SLIM, FunkSVD, BiasSVD, SVD++
+  and TrustSVD (``O_MODELS``) on ``cuda``: precision@10 at least the JAX
+  package's on the same files less ``O_BAND``, test RMSE at most its
+  plus ``O_BAND``, and no kernel launch.  The ``phase O`` line gives each
+  figure beside the JAX package's and each fit's seconds.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -175,9 +195,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
   one wrapper call (``wrapper_us``, over the calls ``ms`` times);
   ``dot_scores`` is held and timed at A, at phase A's eval batches (E:
   its 1,024-user ``full_fused`` batches, which take another tile), at B,
-  at N, 1,024 users x 4,096 items (the narrow branch's border), and at J
-  (phase J's first serving call: LightGCN's 256 propagated user rows
-  against its 1,682 item rows, d 64) and at K (phase K's first LR_GCCF
+  at ``border``, 1,024 users x 4,096 items (the narrow branch's border),
+  and at J (phase J's first serving call: LightGCN's 256 propagated user
+  rows against its 1,682 item rows, d 64) and at K (phase K's first LR_GCCF
   serving call: 256 x 1,682, d 256, the four layers concatenated),
   ``dot_gmax`` at B and A, each timing naming the tile it took; inputs
   from the script's seeds.  The ``mlp_epoch``, ``rows_epoch`` and
@@ -193,10 +213,12 @@ width of ``conf/BPR.properties`` (embed_size 128):
   device kernel; ``device_trace_from``).
 
 Launch counts are set to 0 before phase A and read after phases A, B
-and H, again before and after each training run (phases I's, J's and
-M's included; M's must read 0), and before and after phase J's LightGCN and phase K's
-LR_GCCF and SML eval and serving (``dot_scores``' row counts A, B, H,
-J and K; ``bpr_epoch``'s C and L).  Exits non-zero, with no
+and H (phase N, run between B and H, counted from 0 apart and added
+after), again before and after each training run (phases I's, J's and
+M's included; M's must read 0), before and after phase J's LightGCN
+and phase K's LR_GCCF and SML eval and serving, and around phase O (which
+must read 0) (``dot_scores``' row counts A, B, H, J, K and N,
+``dot_gmax``'s B and N; ``bpr_epoch``'s C and L).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -213,12 +235,13 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from cleverrec_tpu_torch import cli
+from cleverrec_tpu_torch import classic, cli
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.data import build_device_data, load_ranking_data
 from cleverrec_tpu_torch.evalx import STREAM_THRESHOLD, Evaluator
@@ -228,7 +251,9 @@ from cleverrec_tpu_torch.ops import build, scores
 from cleverrec_tpu_torch.ops import train as train_ops
 from cleverrec_tpu_torch.ops.topk import topk
 from cleverrec_tpu_torch.sampling import build_member_table, rows_to_bits
-from cleverrec_tpu_torch.serving import build_retrieval_fn
+from cleverrec_tpu_torch.serving import (build_rerank_fn, build_retrieval_fn,
+                                         export_bundle, export_retrieval,
+                                         load_serialized)
 from cleverrec_tpu_torch.train import Trainer
 from cleverrec_tpu_torch.train.checkpoint import (copy_into,
                                                   load_checkpoint,
@@ -395,6 +420,33 @@ JAX_M_RMSE = {"FM": 0.9611, "FFM": 1.0063}
 JAX_M_MAE = {"FM": 0.7571, "FFM": 0.8095}
 M_BAND = 0.02
 M_TUNE_EPOCHS = 2
+N_CAND = 128          # phase N: the rerank program's candidates a user
+N_PAD = 8             # ... the last of them padding (-1)
+# Phase O: classic/ on ml-100k, each model's settings (the rest its
+# defaults) and its figure.  LFM at examples/classic_cf_ml100k.py's; SLIM's
+# default lr 0.01 diverges on ml-100k (a gradient step is stable only
+# below 2 over the largest eigenvalue of the co-count gram, here in the
+# tens of thousands); FunkSVD and BiasSVD take plain SGD on each batch's
+# MEAN loss, so a row's step is ~lr x its count / batch, and their default
+# 0.01 barely leaves the init.
+O_MODELS = {"LFM": ("precision@10", {"factors": 32, "iters": 30}),
+            "SLIM": ("precision@10", {"lr": 5e-5}),
+            "FunkSVD": ("rmse", {"factors": 32, "lr": 10.0}),
+            "BiasSVD": ("rmse", {"factors": 32, "lr": 10.0}),
+            "SVDpp": ("rmse", {}),
+            "TrustSVD": ("rmse", {})}
+# The JAX package's figures on the same files, the mean over seeds 0-2
+# (``classic_figures(cleverrec_tpu.classic, seed)`` on the CPU; PERF.md
+# names the command; seeds 0, 1, 2: LFM 0.1256, 0.1307, 0.1302; SLIM,
+# which draws nothing, 0.2807; FunkSVD 0.9375, 0.9391, 0.9425; BiasSVD
+# 0.9330, 0.9345, 0.9362; SVD++ 1.0100, 1.0128, 1.0112; TrustSVD 1.0607,
+# 1.0604, 1.0569), and the band each is held to: three times the spread
+# (max - min) of those three, rounded up, at least 0.002 (SLIM's: f32
+# rounding may reorder near-tied items of a top-10 list).
+JAX_O = {"LFM": 0.1288, "SLIM": 0.2807, "FunkSVD": 0.9397,
+         "BiasSVD": 0.9345, "SVDpp": 1.0113, "TrustSVD": 1.0593}
+O_BAND = {"LFM": 0.0153, "SLIM": 0.002, "FunkSVD": 0.0152,
+          "BiasSVD": 0.0096, "SVDpp": 0.0084, "TrustSVD": 0.0114}
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
 
@@ -614,18 +666,24 @@ def config(dataset: str, **overrides) -> Config:
                                   os.path.join(ROOT, "conf"), values)
 
 
-def write_ml100k() -> None:
-    """ml-100k as UIRT csv from the repo's libfm copy: `rating,<u>:1,
-    <943+i>:1` lines, train then test; the time is the row's position."""
+def libfm_rows(part: str) -> np.ndarray:
+    """[n, 3] (user, item, rating) of the repo's ml-100k libfm ``part``
+    (`rating,<u>:1,<943+i>:1` lines): ids dense from 0, ratings 1-5."""
     rows = []
-    for part in ("train", "test"):
-        path = os.path.join(ROOT, "benchmarks", "UIRT", f"ml100k.{part}.libfm")
-        with open(path) as f:
-            for line in f:
-                r, u, i = line.strip().split(",")
-                rows.append((int(u.split(":")[0]),
-                             int(i.split(":")[0]) - 943, int(float(r))))
-    table = np.asarray(rows, dtype=np.int64)
+    path = os.path.join(ROOT, "benchmarks", "UIRT", f"ml100k.{part}.libfm")
+    with open(path) as f:
+        for line in f:
+            r, u, i = line.strip().split(",")
+            rows.append((int(u.split(":")[0]), int(i.split(":")[0]) - 943,
+                         float(r)))
+    return np.asarray(rows)
+
+
+def write_ml100k() -> None:
+    """ml-100k as UIRT csv from the repo's libfm copy, train then test;
+    the time is the row's position."""
+    table = np.concatenate([libfm_rows("train"),
+                            libfm_rows("test")]).astype(np.int64)
     table = np.column_stack([table, np.arange(len(table))])
     os.makedirs(os.path.join(DATA, "ml-100k"), exist_ok=True)
     np.savetxt(os.path.join(DATA, "ml-100k", "ratings.csv"), table,
@@ -861,7 +919,7 @@ def phase_a(rng, profiles):
     # wrapped to a whole batch of test.batch_size, as the Evaluator pads.
     eval_users = dd.test_users[np.arange(cfg.test_batch_size)
                                % len(dd.test_users)]
-    return model, dd, calls[0], eval_users, times, metrics
+    return model, dd, calls, eval_users, times, metrics
 
 
 def phase_b(rng, profiles):
@@ -879,7 +937,7 @@ def phase_b(rng, profiles):
     times["B_data_s"] = load_s
     times["B_items"] = data.item_nums
     times.update(serve_approx("B", model, dd, 20, calls))
-    return model, dd, calls[0], times
+    return model, dd, calls, times
 
 
 @contextlib.contextmanager
@@ -2230,6 +2288,153 @@ def phase_m(profiles):
     return out
 
 
+def hold_artifact(tag, served, live, calls, op):
+    """A loaded retrieval program against the live ``retrieve`` on each
+    call's users: ids and scores equal, one launch of kernel ``op`` a
+    program call; the ms of a call of both."""
+    for u in calls:
+        before = scores.launches[op]
+        got = served(u)
+        torch.cuda.synchronize()
+        check(scores.launches[op] == before + 1,
+              f"{tag}: {scores.launches[op] - before} {op} launches a call")
+        want = live(u)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{tag}: the program's answers differ from live retrieve's")
+    u = calls[0]
+
+    def per_call_ms(fn):
+        return sync_s(lambda: [fn(u) for _ in range(10)])[1] * 100
+
+    return {f"{tag}_program_ms": per_call_ms(served),
+            f"{tag}_live_ms": per_call_ms(live),
+            f"{tag}_program_{op}_launches": len(calls)}
+
+
+def phase_n(rng, model_a, dd_a, calls_a, model_b, dd_b, calls_b):
+    """Export: phase A's model as a serving bundle in a temporary
+    directory, loaded back: its retrieval program (``auto`` -> ``fused``)
+    held to live ``retrieve`` on phase A's calls, its rerank program to
+    live ``rerank``; a ``fused`` retrieval program at phase B's catalog
+    held the same way."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        manifest = export_bundle(model_a, None, dd_a, tmp,
+                                 batch=len(calls_a[0]), n_cand=N_CAND, k=10)
+        out["N_A_bundle_export_s"] = time.perf_counter() - t
+        check(manifest["backend"] == "fused" and manifest["cuda_only"],
+              f"N: bundle manifest {manifest}")
+        blobs = {}
+        for name, file in manifest["artifacts"].items():
+            with open(os.path.join(tmp, file), "rb") as f:
+                blobs[name] = f.read()
+    t = time.perf_counter()
+    served = {name: load_serialized(blob) for name, blob in blobs.items()}
+    out["N_A_bundle_load_s"] = time.perf_counter() - t
+    out.update({f"N_A_{name}_bytes": len(blob)
+                for name, blob in blobs.items()})
+    out.update(hold_artifact("N_A", served["retrieval"],
+                             build_retrieval_fn(model_a, None, dd_a, k=10),
+                             calls_a, "dot_scores"))
+    live_rerank = build_rerank_fn(model_a, None, k=10)
+    cands = []
+    for u in calls_a:
+        cand = rng.integers(0, dd_a.item_nums, (len(u), N_CAND))
+        cand[:, -N_PAD:] = -1
+        got, want = served["rerank"](u, cand), live_rerank(u, cand)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and bool((got[0] >= 0).all()),
+              "N: the rerank program's answers differ from live rerank's")
+        cands.append(cand)
+    out["N_A_rerank_program_ms"] = sync_s(lambda: [
+        served["rerank"](calls_a[0], cands[0]) for _ in range(10)])[1] * 100
+    out["N_A_rerank_live_ms"] = sync_s(lambda: [
+        live_rerank(calls_a[0], cands[0]) for _ in range(10)])[1] * 100
+
+    t = time.perf_counter()
+    blob = export_retrieval(model_b, None, dd_b, len(calls_b[0]), k=20,
+                            backend="fused")
+    out["N_B_export_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    served_b = load_serialized(blob)
+    out.update(N_B_load_s=time.perf_counter() - t, N_B_bytes=len(blob))
+    del blob
+    out.update(hold_artifact("N_B", served_b, build_retrieval_fn(
+        model_b, None, dd_b, k=20, backend="fused"), calls_b, "dot_gmax"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def classic_data(module):
+    """ml-100k for ``module`` (the port's ``classic`` or the JAX
+    package's): the rebuilt ratings' 99,999 pairs split 7:1 at random
+    (seed 0) as ``module.InteractionData``; the libFM split's rating
+    triples, train and test; phase F's trust graph as (truster, trustee)
+    pairs (``write_ml100k`` and ``write_trusts`` first)."""
+    train, test = libfm_rows("train"), libfm_rows("test")
+    both = np.concatenate([train, test])
+    n_users, n_items = (int(both[:, c].max()) + 1 for c in (0, 1))
+    data = module.InteractionData.random_split(
+        both[:, :2].astype(np.int64), n_users, n_items, test_size=0.125,
+        rng=np.random.default_rng(0))
+    trust = np.loadtxt(os.path.join(DATA, "ml-100k", "trusts.csv"),
+                       delimiter=",", skiprows=1, dtype=np.int64)
+    return data, (train, test), [tuple(e) for e in trust.tolist()]
+
+
+def classic_figures(module, seed: int = 0, device=None) -> dict:
+    """Each model of ``O_MODELS`` fitted from ``module`` on
+    ``classic_data`` (with ``seed``, and on ``device`` where given):
+    precision@10 of LFM and SLIM on the random split, test RMSE of the
+    rating models on the libFM test triples, and each fit's seconds."""
+    data, (train, test), trust = classic_data(module)
+    out = {}
+    for name, (metric, settings) in O_MODELS.items():
+        kw = dict(settings)
+        if name != "SLIM":                      # SLIM draws nothing
+            kw["seed"] = seed
+        if device is not None:
+            kw["device"] = device
+        model = getattr(module, name)(**kw)
+        t = time.perf_counter()
+        if metric == "precision@10":
+            model.fit(data)
+            fit_s = time.perf_counter() - t
+            figure = module.evaluate_topn(model, data, n=10)["precision"]
+        else:
+            extra = {"trust_pairs": trust} if name == "TrustSVD" else {}
+            model.fit(train, data.user_nums, data.item_nums, **extra)
+            fit_s = time.perf_counter() - t
+            pred = model.predict(test[:, 0].astype(np.int64),
+                                 test[:, 1].astype(np.int64))
+            figure = float(np.sqrt(np.mean((test[:, 2] - pred) ** 2)))
+        out[name] = {metric: float(figure), "fit_s": fit_s}
+    return out
+
+
+def phase_o():
+    """``classic/`` on the card: ``classic_figures`` on ``cuda``, each
+    figure held to the JAX package's on the same files (precision@10 at
+    least ``JAX_O`` less ``O_BAND``, RMSE at most ``JAX_O`` plus it);
+    the classic path launches no kernel."""
+    t0 = time.perf_counter()
+    before = dict(scores.launches)
+    figures = classic_figures(classic, device="cuda")
+    check(scores.launches == before, f"O: launches {scores.launches}")
+    for name, res in figures.items():
+        metric = O_MODELS[name][0]
+        got, ref, band = res[metric], JAX_O[name], O_BAND[name]
+        check(np.isfinite(got) and (got >= ref - band
+                                    if metric == "precision@10"
+                                    else got <= ref + band),
+              f"O {name}: {metric} {got} against the JAX package's {ref} "
+              f"(band {band})")
+        res["jax"] = ref
+    return {**figures, "seconds": time.perf_counter() - t0}
+
+
 def cml_row(launches, profiles):
     """cml_epoch against its plain version at CML's main shape (ml-100k,
     embed 128, K 20, B 6144) on the state one epoch in and the next draw:
@@ -2472,13 +2677,24 @@ def main() -> int:
     profiles = {}
     gen = torch.Generator().manual_seed(1)
     scores.reset_launches()
-    model_a, dd_a, users_a, eval_a, t_a, metrics = phase_a(rng, profiles)
+    model_a, dd_a, calls_a, eval_a, t_a, metrics = phase_a(rng, profiles)
     launches_a = dict(scores.launches)
-    model_b, dd_b, users_b, t_b = phase_b(rng, profiles)
+    model_b, dd_b, calls_b, t_b = phase_b(rng, profiles)
     launches_b = dict(scores.launches)
-    shapes = {"A": kernel_inputs(model_a, dd_a, users_a, gen),
+    shapes = {"A": kernel_inputs(model_a, dd_a, calls_a[0], gen),
               "E": kernel_inputs(model_a, dd_a, eval_a, gen),
-              "B": kernel_inputs(model_b, dd_b, users_b, gen)}
+              "B": kernel_inputs(model_b, dd_b, calls_b[0], gen)}
+    # Phase N's launches are counted from 0 and added to the kernel rows
+    # apart from A's, B's and H's.
+    scores.reset_launches()
+    phase_n_out = phase_n(rng, model_a, dd_a, calls_a, model_b, dd_b,
+                          calls_b)
+    launches_n = dict(scores.launches)
+    scores.launches.update(launches_b)
+    check(launches_n["dot_scores"] > 0 and launches_n["dot_gmax"] > 0,
+          f"phase N launches {launches_n}")
+    phase_n_out["launches"] = launches_n
+    print("phase N: " + json.dumps(phase_n_out), flush=True)
     del model_b, dd_b                     # phase H needs the memory
     torch.cuda.empty_cache()
     model_h, dd_h, users_h, t_h, metrics_h = phase_h(rng, profiles)
@@ -2495,10 +2711,10 @@ def main() -> int:
                                     if k.startswith("H_")}), flush=True)
 
     shapes["H"] = kernel_inputs(model_h, dd_h, users_h, gen)
-    shapes["N"] = border_inputs(rng, gen)
+    shapes["border"] = border_inputs(rng, gen)
     del model_h, dd_h
     rows = [kernel_rows("dot_scores",
-                        {k: shapes[k] for k in ("A", "E", "B", "N")},
+                        {k: shapes[k] for k in ("A", "E", "B", "border")},
                         launches["dot_scores"],
                         scores.dot_scores_ref, scores.dot_scores,
                         "cleverrec_tpu/ops/pallas_scores.py:276",
@@ -2585,6 +2801,8 @@ def main() -> int:
     print("phase L: " + json.dumps(train["L"]), flush=True)
     train["M"] = phase_m(profiles)
     print("phase M: " + json.dumps(train["M"]), flush=True)
+    train["O"] = phase_o()
+    print("phase O: " + json.dumps(train["O"]), flush=True)
     # bpr_epoch's launches: phase C's and phase L's popularity run's.
     bpr = next(row for row in rows if row["name"] == "bpr_epoch")
     bpr["launches_by_phase"] = {"C": bpr["launches"],
@@ -2595,12 +2813,18 @@ def main() -> int:
         *train["L"]["bpr_epoch_popularity_hold"]["errors"].values())
     rows[0]["launches_by_phase"] = {"A_B_H": rows[0]["launches"],
                                     "J": j_row["launches"],
-                                    "K": k_row["launches"]}
+                                    "K": k_row["launches"],
+                                    "N": launches_n["dot_scores"]}
     for extra in (j_row, k_row):
         rows[0]["launches"] += extra["launches"]
         rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"],
                                      extra["max_abs_err"])
         rows[0]["timings"] += extra["timings"]
+    rows[0]["launches"] += launches_n["dot_scores"]
+    # dot_gmax's launches: phase B's (with its approx calls) and N's.
+    rows[1]["launches_by_phase"] = {"B": rows[1]["launches"],
+                                    "N": launches_n["dot_gmax"]}
+    rows[1]["launches"] += launches_n["dot_gmax"]
     rows.append(rows_row(train["F"]["launches"]["rows_epoch"], profiles))
     rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
                          profiles))
@@ -2612,7 +2836,7 @@ def main() -> int:
               f"plain_ms {row['plain_ms']}, library_ms {row['library_ms']}, "
               f"bound_ms {row['bound_ms']} ({row['bound_by']})")
     print(json.dumps({"timings": times, "launches_phase_a": launches_a,
-                      "metrics": metrics}))
+                      "metrics": metrics, "export": phase_n_out}))
     print(json.dumps({"training": train}))
     print(json.dumps({"profiles": profiles}))
     print(json.dumps({"kernels": rows}))

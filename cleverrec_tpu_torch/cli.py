@@ -9,11 +9,14 @@ run on the CPU).
 Usage:
     python -m cleverrec_tpu_torch.cli --config CleverRec.properties
            [--model BPR] [--set epoches=5 --set lr=0.01] [--device cpu]
-           [--resume saved_model/BPR] [--tune]
+           [--resume saved_model/BPR] [--tune] [--export-serving DIR]
 
 ``--resume`` restarts a run from a checkpoint that ``save.best=True``
 wrote (``saved_dir/<model>``); ``--tune`` grid-searches the list-valued
-embed_size, reg and neg_ratio (``tuning.py``) instead of one run.  With
+embed_size, reg and neg_ratio (``tuning.py``) instead of one run;
+``--export-serving DIR`` writes a serving bundle of the trained model
+(``serving.export_bundle``: retrieval and rerank ``torch.export``
+programs and ``meta.json``) after the run, on ``--device``.  With
 ``model_type=rating`` (FM, FFM: ``rating.py``) the run trains on the
 libFM files ``<data.root_dir>/<data.dataset>/<data.dataset><train>`` and
 ``...<test>``, and ``--resume`` and ``--export-serving`` are ignored, as
@@ -35,7 +38,6 @@ from cleverrec_tpu_torch.utils.logging import get_logger
 _UNPORTED_FLAGS = {
     "mesh": ("--mesh", "queue 1, item 16 (parallel)"),
     "distributed": ("--distributed", "queue 1, item 16 (parallel)"),
-    "export_serving": ("--export-serving", "queue 1, item 6 (export)"),
 }
 
 
@@ -59,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--distributed", action="store_true",
                    help="not ported yet")
     p.add_argument("--export-serving", default=None, metavar="DIR",
-                   help="not ported yet")
+                   help="after training, write a serving bundle "
+                        "(retrieval + rerank torch.export programs + "
+                        "meta.json) to DIR; serve.batch / serve.n_cand / "
+                        "serve.backend config keys tune it")
     p.add_argument("--resume", default=None, metavar="CKPT",
                    help="resume from a train-state checkpoint directory")
     p.add_argument("--tune", action="store_true",
@@ -70,10 +75,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run_experiment(cfg: Config, device="cuda", logger=None,
-                   resume_from=None):
+                   resume_from=None, export_serving=None):
     """Load data, build the model and trainer, run the full loop (from
     the checkpoint ``resume_from`` if given; a ``model_type=rating`` run
-    always starts afresh); returns the trainer's best-epoch summary."""
+    always starts afresh), then write a serving bundle to
+    ``export_serving`` if given (not for rating); returns the trainer's
+    best-epoch summary."""
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
@@ -89,8 +96,18 @@ def run_experiment(cfg: Config, device="cuda", logger=None,
                              logger=logger)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
                        device=device)
-    return Trainer(model, data, cfg, logger=logger, device=device).run(
-        resume_from=resume_from)
+    trainer = Trainer(model, data, cfg, logger=logger, device=device)
+    best = trainer.run(resume_from=resume_from)
+    if export_serving:
+        from cleverrec_tpu_torch.serving import export_bundle
+        manifest = export_bundle(
+            model, trainer.aux, trainer.dd, export_serving,
+            batch=cfg.int("serve.batch", 256),
+            n_cand=cfg.int("serve.n_cand", 128), k=cfg.topk[0],
+            backend=cfg.str("serve.backend", "auto"), device=device)
+        logger.info("serving bundle (%s backend) written to %s",
+                    manifest["backend"], export_serving)
+    return best
 
 
 def main(argv=None) -> int:
@@ -109,14 +126,13 @@ def main(argv=None) -> int:
         k, v = kv.split("=", 1)
         overrides[k] = v
     cfg = Config.from_properties(args.config, args.conf_dir, overrides)
-    # --tune and a rating run ignore --export-serving, as the JAX CLI does.
-    rating = cfg.model_type == "rating"
     for attr, (flag, where) in _UNPORTED_FLAGS.items():
-        if getattr(args, attr) and not ((args.tune or rating)
-                                        and attr == "export_serving"):
+        if getattr(args, attr):
             print(f"{flag} is not ported yet (ROADMAP.md {where})",
                   file=sys.stderr)
             return 2
+    # --tune and a rating run ignore --resume and --export-serving, as the
+    # JAX CLI does.
     if args.tune:
         from cleverrec_tpu_torch.tuning import run_grid
         logger = get_logger(cfg.get("log.dir"), cfg.recommender + "_tune")
@@ -124,7 +140,7 @@ def main(argv=None) -> int:
             logger.info("--resume/--export-serving are ignored with --tune")
         run_grid(cfg, logger=logger, device=args.device)
         return 0
-    if rating:
+    if cfg.model_type == "rating":
         # The JAX CLI returns from a rating run before it reads these.
         logger = get_logger(cfg.get("log.dir"), cfg.recommender)
         if args.resume or args.export_serving:
@@ -132,7 +148,8 @@ def main(argv=None) -> int:
                         "model_type=rating")
         run_experiment(cfg, device=args.device, logger=logger)
         return 0
-    run_experiment(cfg, device=args.device, resume_from=args.resume)
+    run_experiment(cfg, device=args.device, resume_from=args.resume,
+                   export_serving=args.export_serving)
     return 0
 
 

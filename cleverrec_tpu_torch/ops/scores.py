@@ -31,6 +31,14 @@ of ``dot_scores`` and ``dot_gmax`` pick the block tile by grid fill
 (``_scores_tile``), and every wrapper tells its kernel whether it may stage
 u and q with 16-byte copies (``_aligned``); each C entry point is bound
 once.
+
+``dot_scores`` and ``dot_gmax`` go through the PyTorch custom ops
+``cleverrec::dot_scores`` and ``cleverrec::dot_gmax`` (importing this
+module registers them): their CPU implementation is the plain version,
+their CUDA implementation the kernel, and a fake implementation gives
+``torch.export`` the output's shape, so that an exported program keeps
+each call as one node of its graph (``serving.export_retrieval``).  A
+program that names them loads only where this module was imported.
 """
 
 from __future__ import annotations
@@ -218,27 +226,60 @@ def _launch(name, u, q, bits, bias, outs, ints=()):
     launches[name] += 1
 
 
+def _dot_scores_cuda(u, q, bits, bias):
+    out = _empty(u, q.shape[0])
+    _launch("dot_scores", u, q, bits, bias, (out,), _tiling(u, q))
+    return out
+
+
+def _dot_gmax_cuda(u, q, bits, bias):
+    out = _empty(u, cdiv(q.shape[0], COMB_I))
+    _launch("dot_gmax", u, q, bits, bias, (out,), _tiling(u, q))
+    return out
+
+
+# The custom ops: the schema (u, q, bits, an optional bias), the plain
+# version for CPU tensors, the kernel for CUDA tensors, and a fake that
+# gives tracing the output's shape.  Defined with a ``Library`` rather
+# than ``torch.library.custom_op``, whose Python wrapper adds more host
+# time to each call (PERF.md section 6): the wrappers are launch-bound at
+# serving's shapes.
+_LIB = torch.library.Library("cleverrec", "DEF")
+_LIB.define("dot_scores(Tensor u, Tensor q, Tensor bits, Tensor? bias) "
+            "-> Tensor")
+_LIB.define("dot_gmax(Tensor u, Tensor q, Tensor bits, Tensor? bias) "
+            "-> Tensor")
+_LIB.impl("dot_scores", dot_scores_ref, "CPU")
+_LIB.impl("dot_scores", _dot_scores_cuda, "CUDA")
+_LIB.impl("dot_gmax", dot_gmax_ref, "CPU")
+_LIB.impl("dot_gmax", _dot_gmax_cuda, "CUDA")
+
+
+@torch.library.register_fake("cleverrec::dot_scores", lib=_LIB)
+def _dot_scores_fake(u, q, bits, bias):
+    return _empty(u, q.shape[0])
+
+
+@torch.library.register_fake("cleverrec::dot_gmax", lib=_LIB)
+def _dot_gmax_fake(u, q, bits, bias):
+    return _empty(u, cdiv(q.shape[0], COMB_I))
+
+
 def dot_scores(u, q, bits, bias=None):
     """Masked scores [B, I]: ``u @ q.T + bias``, NEG where seen.
 
     u [B, d] f32, q [I, d] f32, bits [B, ceil(I/32)] int32, bias [I] f32
     or None."""
-    if _on_cpu("dot_scores", u, q, bits, bias):
-        return dot_scores_ref(u, q, bits, bias)
-    out = _empty(u, q.shape[0])
-    _launch("dot_scores", u, q, bits, bias, (out,), _tiling(u, q))
-    return out
+    _on_cpu("dot_scores", u, q, bits, bias)      # checks; the op picks
+    return torch.ops.cleverrec.dot_scores(u, q, bits, bias)
 
 
 def dot_gmax(u, q, bits, bias=None):
     """Max masked score of each 32-item group [B, ceil(I/32)]; the
     [B, I] scores never reach device memory.  Same inputs as
     ``dot_scores``."""
-    if _on_cpu("dot_gmax", u, q, bits, bias):
-        return dot_gmax_ref(u, q, bits, bias)
-    out = _empty(u, cdiv(q.shape[0], COMB_I))
-    _launch("dot_gmax", u, q, bits, bias, (out,), _tiling(u, q))
-    return out
+    _on_cpu("dot_gmax", u, q, bits, bias)        # checks; the op picks
+    return torch.ops.cleverrec.dot_gmax(u, q, bits, bias)
 
 
 def dot_topk_scores(u, q, bits, bias=None):

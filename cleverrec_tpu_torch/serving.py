@@ -1,4 +1,5 @@
-"""Serving: top-K retrieval and re-ranking (as ``cleverrec_tpu/serving.py``).
+"""Serving: top-K retrieval and re-ranking, and their export (as
+``cleverrec_tpu/serving.py``).
 
 - ``build_retrieval_fn``: ``retrieve(user_ids) -> (items, scores)`` over
   the model's frozen tables with seen-item filtering on the device — the
@@ -9,12 +10,27 @@
   O(B * chunk), for large catalogs).
 - ``build_rerank_fn``: ``rerank(user_ids, candidate_ids) -> (items,
   scores)`` over an externally retrieved candidate set.
+- ``export_retrieval`` / ``export_rerank`` / ``load_serialized`` /
+  ``export_bundle``: ``torch.export`` programs (in place of
+  ``jax.export``'s StableHLO) that a serving process loads and runs
+  without the model's Python code.  Each exports the module that the
+  live function calls, at a static batch; the model's tables, the fused
+  path's precomputed table and the seen table are its parameters and
+  buffers.  A ``fused`` program keeps the scoring kernels as the custom
+  ops ``cleverrec::dot_scores`` / ``cleverrec::dot_gmax`` (``ops/scores.py``),
+  so it loads only where the port is importable, and a program exported
+  on the card runs only there.
 
-Export (``torch.export`` in place of ``jax.export``) and the sharded
-backend come with later slices.
+The sharded backend comes with the parallel layer (ROADMAP.md queue 1,
+item 16).
 """
 
 from __future__ import annotations
+
+import io
+import itertools
+import json
+import os
 
 import torch
 
@@ -64,10 +80,11 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     on a CUDA device for dot-decomposable models up to
     ``FUSED_MAX_ITEMS`` items, stream past ``STREAM_THRESHOLD`` items,
     and dense between and on the CPU.  ``retrieve.backend`` names the
-    backend in use.  ``stream_chunk``: items per chunk of the stream
-    backend (default 16384 past 262,144 items, else 4096).  ``approx``:
-    on the stream backend, select each chunk as the JAX package's
-    ``approx_max_k`` does off the TPU, exactly
+    backend in use, ``retrieve.module`` the module it calls (what
+    ``export_retrieval`` exports).  ``stream_chunk``: items per chunk of
+    the stream backend (default 16384 past 262,144 items, else 4096).
+    ``approx``: on the stream backend, select each chunk as the JAX
+    package's ``approx_max_k`` does off the TPU, exactly
     (``ops/topk.streaming_topk``); on the fused backend, rescue the
     selected groups from a bfloat16 copy of the item table
     (``ranking.fused_precompute(rescue_bf16=True)``): past the narrow
@@ -81,8 +98,7 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     """
     dev = resolve_device(device)
     model.to(dev)
-    aux = {key: torch.as_tensor(v, device=dev)
-           for key, v in (aux or {}).items()}
+    aux = _on(dev, aux)
     item_nums = model.meta.item_nums
     if stream_chunk is None:
         stream_chunk = 16384 if item_nums > 262_144 else 4096
@@ -107,33 +123,66 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
         seen_tbl = torch.as_tensor(seen.rows, device=dev).long()
     pre = (ranking.fused_precompute(model, aux, rescue_bf16=approx)
            if backend == "fused" else None)
-
-    def bits_of(u):
-        return seen_tbl[u] if use_bits else rows_to_bits(seen_tbl[u],
-                                                         item_nums)
+    module = _Retrieval(model, aux, seen_tbl, pre, backend, k, filter_seen,
+                        bitmaps, use_bits, stream_chunk, approx)
 
     @torch.no_grad()
     def retrieve(u):
-        u = torch.as_tensor(u, device=dev).long()
-        if backend == "dense":
-            rows = seen_tbl[u] if filter_seen else None
-            return _pad_ids(*ranking.rank_dense(model, aux, u, rows, k,
-                                                filter_seen))
-        if backend == "stream":
-            rows = seen_tbl[u] if filter_seen and not bitmaps else None
-            return _pad_ids(*ranking.rank_stream(
-                model, aux, u, rows, item_nums, k, chunk=stream_chunk,
-                filter_seen=filter_seen,
-                seen_bits=bits_of(u) if bitmaps else None, approx=approx))
-        if filter_seen:
-            bits = bits_of(u)
-        else:
-            bits = torch.zeros((u.shape[0], (item_nums + 31) // 32),
-                               dtype=torch.int32, device=dev)
-        return _pad_ids(*ranking.rank_fused(model, aux, u, bits, k, pre=pre))
+        return module(torch.as_tensor(u, device=dev).long())
 
     retrieve.backend = backend
+    retrieve.module = module
     return retrieve
+
+
+class _Retrieval(torch.nn.Module):
+    """The body of ``build_retrieval_fn``'s ``retrieve``: forward(user ids
+    [B] int64) -> (items [B, k], scores [B, k]).  The model is a
+    submodule; its aux, the seen table (``seen``: bitmaps or sorted rows,
+    None unfiltered) and ``fused_precompute``'s output (``pre_table``,
+    ``pre_bias``, ``pre_rescue``) are buffers."""
+
+    def __init__(self, model, aux, seen_tbl, pre, backend, k, filter_seen,
+                 bitmaps, use_bits, stream_chunk, approx):
+        super().__init__()
+        self.model = model
+        _register(self, aux)
+        self.register_buffer("seen", seen_tbl)
+        table, bias, rescue = pre if pre is not None else (None,) * 3
+        self.register_buffer("pre_table", table)
+        self.register_buffer("pre_bias", bias)
+        self.register_buffer("pre_rescue", rescue)
+        self.backend, self.k, self.filter_seen = backend, k, filter_seen
+        self.bitmaps, self.use_bits = bitmaps, use_bits
+        self.stream_chunk, self.approx = stream_chunk, approx
+
+    def bits_of(self, u):
+        if self.use_bits:
+            return self.seen[u]
+        return rows_to_bits(self.seen[u], self.model.meta.item_nums)
+
+    def forward(self, u):
+        model, k, aux = self.model, self.k, _aux(self)
+        item_nums = model.meta.item_nums
+        if self.backend == "dense":
+            rows = self.seen[u] if self.filter_seen else None
+            return _pad_ids(*ranking.rank_dense(model, aux, u, rows, k,
+                                                self.filter_seen))
+        if self.backend == "stream":
+            rows = (self.seen[u] if self.filter_seen and not self.bitmaps
+                    else None)
+            return _pad_ids(*ranking.rank_stream(
+                model, aux, u, rows, item_nums, k, chunk=self.stream_chunk,
+                filter_seen=self.filter_seen,
+                seen_bits=self.bits_of(u) if self.bitmaps else None,
+                approx=self.approx))
+        if self.filter_seen:
+            bits = self.bits_of(u)
+        else:
+            bits = torch.zeros((u.shape[0], (item_nums + 31) // 32),
+                               dtype=torch.int32, device=u.device)
+        pre = (self.pre_table, self.pre_bias, self.pre_rescue)
+        return _pad_ids(*ranking.rank_fused(model, aux, u, bits, k, pre=pre))
 
 
 def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
@@ -143,19 +192,137 @@ def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
     Negative candidate ids are treated as padding and never surface."""
     dev = resolve_device(device)
     model.to(dev)
-    aux = {key: torch.as_tensor(v, device=dev)
-           for key, v in (aux or {}).items()}
+    module = _Rerank(model, _on(dev, aux), k)
 
     @torch.no_grad()
     def rerank(u, cand):
-        u = torch.as_tensor(u, device=dev).long()
-        cand = torch.as_tensor(cand, device=dev).long()
+        return module(torch.as_tensor(u, device=dev).long(),
+                      torch.as_tensor(cand, device=dev).long())
+
+    rerank.module = module
+    return rerank
+
+
+class _Rerank(torch.nn.Module):
+    """The body of ``build_rerank_fn``'s ``rerank``: forward(user ids [B],
+    candidates [B, C], both int64) -> (items [B, k], scores [B, k]); the
+    model a submodule, its aux buffers."""
+
+    def __init__(self, model, aux, k):
+        super().__init__()
+        self.model, self.k = model, k
+        _register(self, aux)
+
+    def forward(self, u, cand):
         valid = cand >= 0
-        scores = model.score_candidates(u, cand.clamp(min=0), aux)
-        if model.cml_like:
+        scores = self.model.score_candidates(u, cand.clamp(min=0), _aux(self))
+        if self.model.cml_like:
             scores = -scores
         scores = scores.masked_fill(~valid, -torch.inf)
-        v, idx = topk(scores, min(k, cand.shape[1]))
+        v, idx = topk(scores, min(self.k, cand.shape[1]))
         return _pad_ids(v, torch.gather(cand, 1, idx))
 
-    return rerank
+
+def _on(dev, aux):
+    return {key: torch.as_tensor(v, device=dev)
+            for key, v in (aux or {}).items()}
+
+
+def _register(module, aux):
+    """The model's aux tensors as buffers ``aux_<name>`` of ``module``."""
+    module.aux_names = tuple(aux)
+    for name, value in aux.items():
+        module.register_buffer(f"aux_{name}", value)
+
+
+def _aux(module):
+    return {name: getattr(module, f"aux_{name}") for name in module.aux_names}
+
+
+def _program_bytes(module, args) -> bytes:
+    """``torch.export.save``'s bytes of ``module`` traced at ``args``."""
+    with torch.no_grad():
+        program = torch.export.export(module, args, strict=False)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+def export_retrieval(model, aux, device_data, batch: int, k: int = 10,
+                     filter_seen: bool = True, backend: str = "auto",
+                     device="cuda") -> bytes:
+    """The retrieval function of ``build_retrieval_fn`` on ``device`` as a
+    ``torch.export`` program for [batch] int64 user ids, serialized.
+
+    A ``fused`` program calls the port's scoring ops: exported on the
+    card it runs their CUDA kernels and only there; ``dense`` and
+    ``stream`` programs are plain PyTorch, on the device they were
+    exported on."""
+    fn = build_retrieval_fn(model, aux, device_data, k, filter_seen,
+                            backend=backend, device=device)
+    u = torch.zeros(batch, dtype=torch.long, device=resolve_device(device))
+    return _program_bytes(fn.module, (u,))
+
+
+def export_rerank(model, aux, batch: int, n_cand: int, k: int = 10,
+                  device="cuda") -> bytes:
+    """The rerank function for [batch] user ids and [batch, n_cand]
+    candidates (int64), serialized as ``export_retrieval``'s."""
+    fn = build_rerank_fn(model, aux, k, device=device)
+    dev = resolve_device(device)
+    u = torch.zeros(batch, dtype=torch.long, device=dev)
+    cand = torch.zeros((batch, n_cand), dtype=torch.long, device=dev)
+    return _program_bytes(fn.module, (u, cand))
+
+
+def load_serialized(blob: bytes):
+    """Deserialize an exported serving artifact; returns a callable that
+    takes its inputs (tensors, arrays or lists of ids) and returns its
+    (items, scores)."""
+    # A fused program names the cleverrec:: ops: register them first.
+    from cleverrec_tpu_torch.ops import scores  # noqa: F401
+    program = torch.export.load(io.BytesIO(blob))
+    module = program.module()
+    dev = next((t.device for t in itertools.chain(
+        program.state_dict.values(), program.constants.values())
+        if isinstance(t, torch.Tensor)), torch.device("cpu"))
+
+    @torch.no_grad()
+    def call(*args):
+        return module(*(torch.as_tensor(a, device=dev).long() for a in args))
+
+    return call
+
+
+# The JAX package's other name for it.
+load_retrieval = load_serialized
+
+
+def export_bundle(model, aux, device_data, out_dir: str, batch: int = 256,
+                  n_cand: int = 128, k: int = 10, filter_seen: bool = True,
+                  backend: str = "auto", device="cuda") -> dict:
+    """Write a serving bundle: ``retrieval.pt2``, ``rerank.pt2`` and
+    ``meta.json``, the manifest, which it returns.  ``auto`` resolves as
+    ``build_retrieval_fn``'s does on ``device``; ``cuda_only`` is true for
+    a ``fused`` program exported on a CUDA device (it launches the port's
+    kernels)."""
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    resolved = backend if backend != "auto" else _pick_backend(model, dev)
+    paths = {"retrieval": "retrieval.pt2", "rerank": "rerank.pt2"}
+    with open(os.path.join(out_dir, paths["retrieval"]), "wb") as f:
+        f.write(export_retrieval(model, aux, device_data, batch, k,
+                                 filter_seen, backend=resolved, device=dev))
+    with open(os.path.join(out_dir, paths["rerank"]), "wb") as f:
+        f.write(export_rerank(model, aux, batch, n_cand, k, device=dev))
+    manifest = {
+        "model": model.name, "k": k, "batch": batch, "n_cand": n_cand,
+        "backend": resolved, "filter_seen": filter_seen,
+        "user_nums": int(model.meta.user_nums),
+        "item_nums": int(model.meta.item_nums),
+        "cuda_only": resolved == "fused" and dev.type == "cuda",
+        "artifacts": paths,
+    }
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(manifest, f, indent=1)
+    return manifest

@@ -1,6 +1,7 @@
 """The port's CLI: the default recipe's flow (properties files, --set
 overrides, train, eval, best epoch) on the toy dataset on the CPU, the
-flags that are not ported yet, and the card the default device needs."""
+serving bundle it exports, the flags that are not ported yet, and the
+card the default device needs."""
 
 import logging
 import os
@@ -91,12 +92,41 @@ def test_cli_evaluates_every_interval(toy_argv, records):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2x1"], ["--distributed"], ["--export-serving", "out"],
-    ["--tune", "--mesh", "2x1"], ["--set", "nokey"]])
+    ["--mesh", "2x1"], ["--distributed"], ["--tune", "--mesh", "2x1"],
+    ["--set", "nokey"]])
 def test_cli_refuses_what_is_not_ported(toy_argv, flags, capsys):
     assert cli.main(toy_argv + ["--device", "cpu"] + flags) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err or "bad --set" in err
+
+
+def test_cli_exports_a_serving_bundle(toy_argv, records, tmp_path):
+    """--export-serving DIR writes retrieval.pt2, rerank.pt2 and meta.json
+    after training (on the CPU ``auto`` resolves to ``dense``, at
+    serve.batch and k = topk[0]); the programs load and answer."""
+    import json
+
+    from cleverrec_tpu_torch.serving import load_serialized
+    got = records()
+    out = tmp_path / "bundle"
+    assert cli.main(toy_argv + ["--device", "cpu", "--export-serving",
+                                str(out), "--set", "serve.batch=4",
+                                "--set", "serve.n_cand=6"]) == 0
+    meta = json.loads((out / "meta.json").read_text())
+    assert (meta["backend"], meta["batch"], meta["n_cand"], meta["k"]) == (
+        "dense", 4, 6, 5)
+    assert not meta["cuda_only"]
+    assert any(r.getMessage() == f"serving bundle (dense backend) written "
+               f"to {out}" for r in got)
+    users = torch.arange(4)
+    items, scores = load_serialized((out / "retrieval.pt2").read_bytes())(
+        users)
+    assert items.shape == scores.shape == (4, 5)
+    assert bool(torch.isfinite(scores).all())
+    cand = torch.arange(24).reshape(4, 6)
+    items, _ = load_serialized((out / "rerank.pt2").read_bytes())(users,
+                                                                  cand)
+    assert bool(((items >= 0) & (items < 24)).all())
 
 
 def test_cli_resumes(toy_argv, records, tmp_path):

@@ -1447,3 +1447,123 @@ def test_bf16_rescue_on_the_card_matches_plain(cuda, monkeypatch):
     seen = bits.cpu().numpy().view(np.uint32)
     words = np.take_along_axis(seen, gi >> 5, axis=1)
     assert not ((words >> (gi & 31).astype(np.uint32)) & 1).any()
+
+
+@pytest.mark.parametrize("n_items,op", [(1682, "dot_scores"),
+                                        (20000, "dot_gmax")])
+def test_fused_artifact_on_the_card_equals_live(cuda, n_items, op):
+    """A fused retrieval program exported on the card (BPR, d 128, 943
+    users x 40 seen items, 256 users a call, k 10): at ml-100k's catalog
+    the narrow branch, past 4,096 items the wide one.  Its answers equal
+    the live ``retrieve``'s on the same card, each call launches the
+    kernel once, and the graph holds the op, not its arithmetic."""
+    import io
+    import types
+
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.sampling import build_member_table
+    from cleverrec_tpu_torch.serving import (build_retrieval_fn,
+                                             export_retrieval,
+                                             load_serialized)
+    rng = np.random.default_rng(n_items)
+    cfg = Config({"recommender": "BPR", "embed_size": "128", "reg": "0.01",
+                  "init_method": "normal", "stddev": "0.1", "seed": "3"})
+    model = make_model(cfg, DataMeta(943, n_items), device=cuda)
+    dd = types.SimpleNamespace(seen=build_member_table(
+        {u: rng.choice(n_items, 40, replace=False).tolist()
+         for u in range(943)}, 943, n_items))
+    blob = export_retrieval(model, {}, dd, 256, 10, backend="fused")
+    program = torch.export.load(io.BytesIO(blob))
+    assert {str(n.target) for n in program.graph.nodes
+            if str(n.target).startswith("cleverrec.")} == {
+        f"cleverrec.{op}.default"}
+    served = load_serialized(blob)
+    live = build_retrieval_fn(model, {}, dd, 10, backend="fused")
+    for _ in range(3):
+        users = torch.as_tensor(np.sort(rng.choice(943, 256, replace=False)),
+                                device=cuda)
+        before = S.launches[op]
+        got = served(users)
+        torch.cuda.synchronize()
+        assert S.launches[op] == before + 1
+        want = live(users)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+def _classic_data():
+    from cleverrec_tpu_torch.classic import InteractionData
+    rng = np.random.default_rng(0)
+    pairs = [(u, i) for u in range(60) for i in rng.choice(
+        np.arange(0, 25) + (25 if u >= 30 else 0), 12, replace=False)]
+    pairs = np.asarray(pairs)
+    perm = rng.permutation(len(pairs))
+    return InteractionData.from_pairs(pairs[perm[90:]], pairs[perm[:90]],
+                                      60, 50)
+
+
+def _classic_ratings():
+    rng = np.random.default_rng(1)
+    rows = [(u, i, float(np.clip(3.2 + rng.normal(0, 0.8), 1, 5)))
+            for u in range(40) for i in rng.choice(30, 12, replace=False)]
+    trust = [(u, int(v)) for u in range(40)
+             for v in rng.choice(40, 3, replace=False) if v != u]
+    return rows, trust
+
+
+@pytest.mark.parametrize("name", ["LFM", "FunkSVD", "BiasSVD", "SVDpp",
+                                  "TrustSVD"])
+def test_classic_epochs_on_the_card_match_the_cpu(cuda, name):
+    """Each trained classic model's epoch on the card and on the CPU from
+    one initial state and the same draws, 2 epochs: within 1e-5 +
+    1e-3 |x| (the card's index_add and gathers' backward sum in a
+    run-dependent order); then ``fit`` on the card, the default device,
+    gives finite answers."""
+    import cleverrec_tpu_torch.classic as C
+    rows, trust = _classic_ratings()
+    gen = torch.Generator().manual_seed(2)
+    models = {dev: getattr(C, name)(batch=128, seed=2, device=dev)
+              for dev in ("cpu", "cuda")}
+    for model in models.values():
+        if name == "LFM":
+            model.prepare(_classic_data())
+        else:
+            model.prepare(rows, 40, 30,
+                          *([trust] if name == "TrustSVD" else []))
+    params = models["cpu"].init_params(gen)
+    draws = [models["cpu"].draws(gen) if name == "LFM"
+             else (torch.randperm(models["cpu"].padded, generator=gen),)
+             for _ in range(2)]
+    out = {}
+    for dev, model in models.items():
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in
+             params.items()}
+        state = model.opt.init(p)
+        for d in draws:
+            model.epoch(p, state, *(x.to(dev) for x in d))
+        out[dev] = p
+    for k in params:
+        np.testing.assert_allclose(out["cuda"][k].detach().cpu().numpy(),
+                                   out["cpu"][k].detach().numpy(),
+                                   rtol=1e-3, atol=1e-5, err_msg=k)
+    if name == "LFM":
+        fitted = C.LFM(batch=128).fit(_classic_data())
+        assert np.isfinite(fitted.P).all() and np.isfinite(fitted.Q).all()
+        assert (fitted.recommend(np.arange(60), 10) >= 0).all()
+    else:
+        extra = {"trust_pairs": trust} if name == "TrustSVD" else {}
+        fitted = getattr(C, name)(batch=128).fit(rows, 40, 30, **extra)
+        assert np.isfinite(fitted.predict(np.arange(40), np.arange(40) % 30)
+                           ).all()
+
+
+def test_slim_on_the_card_matches_the_cpu(cuda):
+    import cleverrec_tpu_torch.classic as C
+    data = _classic_data()
+    got = C.SLIM(iters=100).fit(data)
+    want = C.SLIM(iters=100, device="cpu").fit(data)
+    np.testing.assert_allclose(got.w, want.w, rtol=1e-5, atol=1e-5)
+    users = np.arange(60)
+    assert (got.recommend(users, 10) >= 0).all()

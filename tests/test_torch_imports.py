@@ -46,7 +46,7 @@ def test_port_never_loads_jax_or_the_jax_package():
                  "ops.sparse_adam", "train.checkpoint", "tuning",
                  "models.itemsim", "models.gcn", "models.diffnet",
                  "models.extra", "rating", "data.libfm", "data.fm_convert",
-                 "data.fastcsv"):
+                 "data.fastcsv", "serving", "classic", "classic.mf"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]
@@ -62,7 +62,9 @@ def _cfg():
 def test_default_device_raises_without_a_card(monkeypatch):
     from cleverrec_tpu_torch.common import resolve_device
     from cleverrec_tpu_torch.models import make_model
-    from cleverrec_tpu_torch.serving import build_rerank_fn
+    from cleverrec_tpu_torch.classic import (SLIM, LFM, FunkSVD,
+                                             InteractionData)
+    from cleverrec_tpu_torch.serving import build_rerank_fn, export_rerank
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
@@ -71,6 +73,14 @@ def test_default_device_raises_without_a_card(monkeypatch):
     model = make_model(_cfg(), DataMeta(4, 40), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_rerank_fn(model, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        export_rerank(model, {}, 2, 3)
+    data = InteractionData.from_pairs([(0, 1), (1, 2)], [(0, 2)], 2, 3)
+    for classic in (LFM(), SLIM()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            classic.fit(data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FunkSVD().fit([(0, 1, 4.0)], 2, 3)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
