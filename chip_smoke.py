@@ -186,6 +186,25 @@ width of ``conf/BPR.properties`` (embed_size 128):
   package's on the same files less ``O_BAND``, test RMSE at most its
   plus ``O_BAND``, and no kernel launch.  The ``phase O`` line gives each
   figure beside the JAX package's and each fit's seconds.
+- Phase P, the trainer's capacity tiers (after O; the variants of
+  ``bpr_epoch``, ``rows_epoch`` and ``cml_epoch`` and the grouped
+  launches of ``gmf_epoch`` and ``mlp_epoch``).  P-kernels: one grouped
+  trainer epoch (``train.fused_groups``, ``P_GROUPS``) each of BPR at
+  phase C's recipe, GMF, NeuMF (its first ``MLP_HELD_STEPS`` steps, two
+  a group) and CML (the frozen partial sums) through the kernels and
+  through ``ops.train.PLAIN_EPOCH_FNS`` from one state on one draw, held
+  to the atomics tolerances, one launch a group.  P-scale: the
+  user-heavy catalog of ``benchmarks/grouped_scale.py`` (98,304 users x
+  2,048 items, ~20 pairs a user) rebuilt from its seed, BPR at embed 64,
+  batch 6,144, in 32 groups of 3,072 rows: one grouped epoch held the
+  same way, then ``P_SCALE_EPOCHS`` timed epochs beside the ungrouped
+  fused epoch's (the ``phase P scale`` line).  P-quality: the same CLI
+  with BPR (phase C's recipe) in 4 groups and with ``train.fused_bf16``,
+  GMF, NeuMF and CML in 2 groups, SBPR and LRML with bf16 storage, each
+  at its conf's epochs: the run takes the tier its log line names, its
+  kernel launches once a group (a bf16 run: once) an epoch, and its
+  best HR@10 lies within ``P_BAND`` of the same model's f32 ungrouped
+  run in phases C, E, F and G.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -210,7 +229,14 @@ width of ``conf/BPR.properties`` (embed_size 128):
   epoch (``device_launches``): the persistent BPR, GMF and CML kernels
   must take one launch an epoch, seen on the device (in a fresh process
   of this script, ``--trace``, where the smoke's own trace records no
-  device kernel; ``device_trace_from``).
+  device kernel; ``device_trace_from``).  Phase P's variants have rows
+  of their own: ``bpr_epoch_bf16`` at phase C's shape and
+  ``rows_epoch_bf16`` and ``rows_epoch_lrml_bf16`` at SBPR's and LRML's
+  (bf16 storage, held over their first ``BF16_HELD_STEPS`` steps by the
+  one-ulp rule, the whole epoch timed; their bound counts the state at 2
+  bytes an element), and ``cml_epoch_grouped`` (group 1's launch of CML
+  in 2 groups, with the frozen sums); each variant's launches are its
+  P-quality run's.
 
 Launch counts are set to 0 before phase A and read after phases A, B
 and H (phase N, run between B and H, counted from 0 apart and added
@@ -218,7 +244,8 @@ after), again before and after each training run (phases I's, J's and
 M's included; M's must read 0), before and after phase J's LightGCN
 and phase K's LR_GCCF and SML eval and serving, and around phase O (which
 must read 0) (``dot_scores``' row counts A, B, H, J, K and N,
-``dot_gmax``'s B and N; ``bpr_epoch``'s C and L).  Exits non-zero, with no
+``dot_gmax``'s B and N; ``bpr_epoch``'s C, L and P's grouped runs,
+``gmf_epoch``'s and ``mlp_epoch``'s E and P's).  Exits non-zero, with no
 result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
@@ -449,6 +476,31 @@ O_BAND = {"LFM": 0.0153, "SLIM": 0.002, "FunkSVD": 0.0152,
           "BiasSVD": 0.0096, "SVDpp": 0.0084, "TrustSVD": 0.0114}
 H_IDS = 4_194_304     # phase H: the synthetic catalog's id range
 H_K = 20
+# Phase P: the trainer's capacity tiers.  The grouped epoch's user groups
+# for each model (BPR at phase C's recipe; the others at their confs), and
+# the models trained with bf16 storage; each run's best HR@10 within
+# P_BAND of the same model's f32 ungrouped run in phases C, E, F and G.
+P_GROUPS = {"BPR": 4, "GMF": 2, "NeuMF": 2, "CML": 2}
+P_BF16 = ("BPR", "SBPR", "LRML")
+P_BAND = 0.03
+# bf16 storage against its plain version: every state element is a bf16
+# value, and all but a share BF16_OUTLIERS of them lie within one bf16
+# ulp (of the larger of the two) of the plain version's.  The two sum each
+# step's row gradients in another order (f32 atomics here), so a value
+# near a rounding boundary lands on the neighbouring bf16; Adam's
+# normalisation then carries a flipped moment into its parameter as a
+# step of up to ~lr, and over a whole epoch the two trajectories part at
+# the bf16 scale (tools/bf16_drift.py measures the share step by step;
+# PERF.md has its numbers).  So bf16 is held over the first
+# BF16_HELD_STEPS steps of the main path's next epoch, as mlp_epoch is
+# over MLP_HELD_STEPS, and the whole epoch is timed.
+BF16_OUTLIERS = 2e-3
+BF16_HELD_STEPS = 2
+# P-scale: benchmarks/grouped_scale.py's user-heavy catalog and its 32
+# groups of 3,072 rows (the JAX plan in benchmarks/GROUPED_SCALE.jsonl).
+P_SCALE = {"users": 98304, "items": 2048, "per_user": 20, "groups": 32,
+           "group_rows": 3072}
+P_SCALE_EPOCHS = 5
 
 
 class SmokeError(Exception):
@@ -1142,6 +1194,7 @@ class Records(logging.Handler):
     def __init__(self):
         super().__init__()
         self.train, self.eval, self.bests, self.buckets = [], [], [], []
+        self.forms = []
 
     @property
     def best(self):
@@ -1156,6 +1209,8 @@ class Records(logging.Handler):
             self.bests.append(record.best)
         if hasattr(record, "buckets"):
             self.buckets.append(record.buckets)
+        if hasattr(record, "fused_form"):
+            self.forms.append(record.fused_form)
 
 
 def run_cli(tag, model, flags, values):
@@ -1226,7 +1281,8 @@ def drive_cli(tag, model="BPR", epochs=EPOCHS, flags=(), runs=None,
             "best_epoch": records.best["epoch"], "best": best,
             "last": last, "bests": [b["ndcg"] for b in records.bests],
             "epoch_ms": train_ms, "losses": losses,
-            "buckets": records.buckets[-1] if records.buckets else None}
+            "buckets": records.buckets[-1] if records.buckets else None,
+            "fused_form": records.forms[-1] if records.forms else None}
 
 
 def phase_c():
@@ -2651,6 +2707,466 @@ def epoch_row(launches, profiles):
     return row
 
 
+# -- phase P: the trainer's capacity tiers --------------------------------
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def bf16_hold(tag, pairs):
+    """Each (name, got, want) of bf16 storage: got equals its own bf16
+    rounding, and all but a share BF16_OUTLIERS of its elements lie
+    within one bf16 ulp of want's.  Returns each one's largest error and
+    its share of elements that differ at all and by more than an ulp."""
+    out = {}
+    for name, g, w in pairs:
+        check(bool(torch.isfinite(g).all()), f"{tag} {name}: non-finite")
+        check(torch.equal(g, g.to(torch.bfloat16).float()),
+              f"{tag} {name}: a value that bf16 does not hold")
+        err = (g - w).abs()
+        far = err > bf16_ulp(torch.maximum(g.abs(), w.abs()))
+        out[name] = {"max_abs": err.max().item(),
+                     "differ": (g != w).float().mean().item(),
+                     "past_one_ulp": far.float().mean().item()}
+        check(out[name]["past_one_ulp"] <= BF16_OUTLIERS,
+              f"{tag} {name}: {out[name]['past_one_ulp']} of the elements "
+              "past one bf16 ulp")
+    return out
+
+
+def bpr_bf16_row(launches):
+    """bpr_epoch with bf16 storage against its plain version at phase C's
+    shape, on the state one bf16 epoch in and the next draw."""
+    run = one_epoch_in("BPR", **{"train.fused_bf16": "True"})
+    cfg, data, model, trainer, params, state, tensors = run
+    check(trainer.table_dtype == torch.bfloat16,
+          "P: BPR's trainer does not store bf16")
+    ids = sentinel_ids(data, tensors, ("u", "i", "j"))
+    names = ("P", "Q", "mP", "vP", "mQ", "vQ")
+    base = (params["P"].detach(), params["Q"].detach(), state.mu["P"],
+            state.nu["P"], state.mu["Q"], state.nu["Q"])
+    opts = {"lr": cfg.lr, "reg": model.reg, "table_dtype": torch.bfloat16}
+    got, want = [x.clone() for x in base], [x.clone() for x in base]
+    held = [x[:BF16_HELD_STEPS] for x in ids]
+    loss = train_ops.fused_bpr_epoch(*got, *held, state.count, **opts)
+    ref = train_ops.fused_bpr_epoch_ref(*want, *held, state.count, **opts)
+    torch.cuda.synchronize()
+    errors = bf16_hold("bpr_epoch_bf16", zip(names, got, want))
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL, f"bpr_epoch_bf16 loss: rel {loss_rel}")
+    k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
+    steps, b = ids[0].shape
+    u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
+    n_real = int((tensors["w"] != 0).sum())
+    # bf16 storage halves the state's bytes: six state tables in and out
+    # at 2 bytes an element; the three id planes and the loss at 4.
+    moved = 2 * 12 * (u_n + i_n) * d + 4 * (3 * steps * b + steps)
+    flops = 21 * d * n_real + 14 * (u_n + i_n) * d * steps
+    args = (*k_state, *ids, state.count)
+    return {"name": "bpr_epoch_bf16", "route": "cuda",
+            "source": "cleverrec_tpu_torch/csrc/bpr_epoch.cu",
+            "replaces": "cleverrec_tpu/ops/pallas_train.py:276",
+            "variant_of": "bpr_epoch (table_dtype=bfloat16)",
+            "storage": "bf16 values in f32 buffers",
+            "launches": launches,
+            "max_abs_err": max(e["max_abs"] for e in errors.values()),
+            "ms": time_ms(lambda: train_ops.fused_bpr_epoch(*args, **opts)),
+            **epoch_split("bpr_epoch", args, opts, ("bpr_persist",)),
+            "plain_ms": time_ms(lambda: train_ops.fused_bpr_epoch_ref(
+                *r_state, *ids, state.count, **opts), iters=5),
+            **bound(moved, flops), "library_ms": None,
+            "errors": errors, "loss_rel_err": loss_rel,
+            "held_steps": BF16_HELD_STEPS,
+            "shape": {"U": u_n, "I": i_n, "d": d, "B": b, "steps": steps,
+                      "real_slots": n_real, "bytes": moved, "flops": flops}}
+
+
+def rows_bf16_row(name, kernel, launches):
+    """rows_epoch (``kernel``: the chain's or LRML's form) with bf16
+    storage against its plain version at ``name``'s main shape, on the
+    state one bf16 epoch in and the next draw."""
+    cfg, data, model, trainer, params, state, tensors = one_epoch_in(
+        name, **{"train.fused_bf16": "True"})
+    check(trainer.table_dtype == torch.bfloat16,
+          f"P: {name}'s trainer does not store bf16")
+    spec = model.fused_rows_spec()
+    planes = sentinel_ids(data, tensors, [n for n, _ in spec["planes"]])
+    floats = [tensors[n].to(torch.float32).contiguous()
+              for n in spec["floats"]]
+    opts = {"sides": [sd for _, sd in spec["planes"]], "lr": cfg.lr,
+            "table_dtype": torch.bfloat16}
+
+    def packed():
+        return [tuple(x.clone() for x in group)
+                for t in (params, state.mu, state.nu)
+                for group in spec["pack"](t)]
+
+    got, want = packed(), packed()
+    held = [x[:BF16_HELD_STEPS] for x in planes]
+    held_f = [x[:BF16_HELD_STEPS] for x in floats]
+    loss = train_ops.fused_rows_epoch(*got, held, held_f, state.count,
+                                      spec=spec, **opts)
+    ref = train_ops.fused_rows_epoch_ref(*want, held, held_f, state.count,
+                                         row_loss=spec["row_loss"], **opts)
+    torch.cuda.synchronize()
+    parts = ("P", "Q") + (("bias",) if kernel == "rows_epoch" else ()) \
+        + tuple(spec["dense"])
+    labels = [f"{pre}{n}" for pre in ("", "m_", "v_") for n in parts]
+    errors = bf16_hold(f"{kernel}_bf16", zip(
+        labels, (x for g in got for x in g), (x for g in want for x in g)))
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL,
+          f"{kernel}_bf16 loss: rel error {loss_rel}")
+    k_state, r_state = packed(), packed()
+    steps, b = planes[0].shape
+    u_n, i_n, d = data.user_nums, data.item_nums, model.embed_size
+    n_real = int((tensors["w"] != 0).sum())
+    n_state = sum(x.numel() for g in k_state[:3] for x in g)
+    # bf16 storage: the params and both moments in and out at 2 bytes an
+    # element; the id planes, float columns and loss at 4.
+    moved = 2 * 6 * n_state + 4 * ((len(planes) + len(floats)) * steps * b
+                                   + steps)
+    if kernel == "rows_epoch":
+        # rows_timing's count: the chain's per-row work and Adam.
+        flops = (10 * (len(planes) - 1) + 4) * d * n_real \
+            + 14 * n_state * steps
+        names = ("rows_chain", "adam_slices", "round_tables")
+    else:
+        # lrml_row's count: the forward of every real row and Adam.
+        flops = (8 * d * model.mem_size + 16 * d) * n_real \
+            + 14 * n_state * steps
+        names = ("lrml_tiles", "adam_slices", "round_tables")
+
+    def epoch():
+        return train_ops.fused_rows_epoch(*k_state, planes, floats,
+                                          state.count, spec=spec, **opts)
+    split = kernel_split(epoch, names)
+    return {"name": f"{kernel}_bf16", "route": "cuda",
+            "source": "cleverrec_tpu_torch/csrc/rows_epoch.cu",
+            "replaces": "cleverrec_tpu/ops/pallas_train.py:847",
+            "variant_of": f"{kernel} (table_dtype=bfloat16), {name}",
+            "storage": "bf16 values in f32 buffers",
+            "launches": launches,
+            "max_abs_err": max(e["max_abs"] for e in errors.values()),
+            "ms": time_ms(epoch), "device_ms": sum(split.values()),
+            "device_split": split,
+            "plain_ms": time_ms(lambda: train_ops.fused_rows_epoch_ref(
+                *r_state, planes, floats, state.count,
+                row_loss=spec["row_loss"], **opts), iters=3),
+            **bound(moved, flops), "library_ms": None,
+            "errors": errors, "loss_rel_err": loss_rel,
+            "held_steps": BF16_HELD_STEPS,
+            "shape": {"model": name, "U": u_n, "I": i_n, "d": d, "B": b,
+                      "steps": steps, "real_rows": n_real, "bytes": moved,
+                      "flops": flops}}
+
+
+def grouped_trainer(name, groups, **overrides):
+    """``name``'s main-path trainer on ml-100k with ``groups`` user groups,
+    its state one grouped epoch in and the next draw."""
+    cfg = config("ml-100k", recommender=name,
+                 **{"train.fused_groups": str(groups), **overrides})
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    check(trainer.fused and trainer._groups == groups,
+          f"P {name}: the grouped epoch of {groups} groups is not planned")
+    params, state = trainer.init_state()
+    params, state, _ = trainer.train_epoch(params, state)
+    return cfg, data, model, trainer, params, state, trainer.sample_epoch()
+
+
+def snapshot(params, state):
+    return ({n: p.detach().clone() for n, p in params.items()},
+            {n: m.clone() for n, m in state.mu.items()},
+            {n: v.clone() for n, v in state.nu.items()}, state.count)
+
+
+def restore(params, state, snap):
+    for t, saved in zip((params, state.mu, state.nu), snap[:3]):
+        for n, x in saved.items():
+            t[n].detach().copy_(x)
+    state.count = snap[3]
+
+
+def grouped_hold(tag, trainer, params, state, draw, kernel, dense=()):
+    """One grouped trainer epoch on ``draw`` through the kernels and
+    through their plain versions (``train_ops.PLAIN_EPOCH_FNS``) from one
+    state: one launch of ``kernel`` a group, the loss and every parameter
+    and moment within the atomics tolerances (``dense`` names: the
+    tower's)."""
+    snap = snapshot(params, state)
+    before = train_ops.launches[kernel]
+    _, state, loss = trainer._run_epoch(params, state, draw)
+    torch.cuda.synchronize()
+    launched = train_ops.launches[kernel] - before
+    check(launched == trainer._groups,
+          f"{tag}: {launched} launches of {kernel} for "
+          f"{trainer._groups} groups")
+    got = snapshot(params, state)
+    restore(params, state, snap)
+    trainer.epoch_fns = dict(train_ops.PLAIN_EPOCH_FNS)
+    try:
+        _, state, ref = trainer._run_epoch(params, state, draw)
+    finally:
+        trainer.epoch_fns = dict(train_ops.EPOCH_FNS)
+    torch.cuda.synchronize()
+    errors = {}
+    for part, g_t, w_t in zip(("", "m_", "v_"), got[:3],
+                              (params, state.mu, state.nu)):
+        for n, g in g_t.items():
+            tol = (DENSE_ATOL, DENSE_RTOL) if n in dense else (EPOCH_ATOL,
+                                                               EPOCH_RTOL)
+            errors.update(hold(tag, [(part + n, g, w_t[n].detach())], *tol))
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= (MLP_LOSS_RTOL if dense else EPOCH_LOSS_RTOL),
+          f"{tag} loss: rel error {loss_rel}")
+    restore(params, state, got)
+    return {"errors": errors, "max_abs_err": max(errors.values()),
+            "loss_rel_err": loss_rel, "launches": launched,
+            "steps": trainer.steps_per_epoch}
+
+
+def grouped_holds():
+    """P-kernels, the grouped epoch: one grouped trainer epoch each of
+    bpr_epoch (phase C's recipe, 4 groups), gmf_epoch, mlp_epoch (NeuMF,
+    the first MLP_HELD_STEPS // 2 steps of each of its 2 groups: the
+    ReLU-kink trap) and cml_epoch with the frozen sums (2 groups), held
+    to their plain versions."""
+    out = {}
+    for name, kernel in (("BPR", "bpr_epoch"), ("GMF", "gmf_epoch"),
+                         ("NeuMF", "mlp_epoch"), ("CML", "cml_epoch")):
+        run = grouped_trainer(name, P_GROUPS[name])
+        _, _, model, trainer, params, state, draw = run
+        dense = ()
+        if kernel == "mlp_epoch":
+            draw = {"groups": [{k: v[:MLP_HELD_STEPS // 2]
+                                for k, v in g.items()}
+                               for g in draw["groups"]]}
+            dense = tuple(model.fused_mlp_spec()["dense"])
+        out[name] = grouped_hold(f"P grouped {name}", trainer, params,
+                                 state, draw, kernel, dense)
+    return out
+
+
+def cml_grouped_row(launches):
+    """cml_epoch with the frozen partial sums (a grouped launch) against
+    its plain version at CML's main shape in 2 groups: group 1's slice
+    of the permuted user state one grouped epoch in, its draw, and the
+    partial sums of the rows outside it, as the trainer's grouped epoch
+    launches it."""
+    from cleverrec_tpu_torch.train.trainer import _p_stats
+    cfg, data, model, trainer, params, state, draw = grouped_trainer(
+        "CML", P_GROUPS["CML"])
+    plan, g = trainer._group_plan, 1
+    rows, old = plan["rows"], plan["dev"]["old"]
+    user = [torch.cat([x.detach(), torch.zeros_like(x[:1])])[old]
+            for x in (params["P"], state.mu["P"], state.nu["P"])]
+    item = [params["Q"].detach(), state.mu["Q"], state.nu["Q"]]
+    u_sent, i_sent = (n - 1 for n in train_ops.sentinel_dims(
+        rows, data.item_nums))
+    grp = draw["groups"][g]
+    inval = grp["w"] == 0
+    u = torch.where(inval, u_sent, grp["u"] - g * rows).to(
+        torch.int32).contiguous()
+    i = torch.where(inval, i_sent, grp["i"]).to(torch.int32).contiguous()
+    negs = torch.where(inval[..., None], i_sent, grp["negs"]).to(
+        torch.int32).contiguous()
+    steps, b, k = negs.shape
+    p_g = [x[g * rows:(g + 1) * rows] for x in user]
+    fro = tuple(a - r for a, r in zip(_p_stats(user[0]), _p_stats(p_g[0])))
+    ur = int(plan["grp_counts"][g])
+    frozen = (ur, data.user_nums - ur, *fro)
+    base = (p_g[0], item[0], p_g[1], p_g[2], item[1], item[2])
+    t0 = state.count + g * steps
+    opts = {"lr": cfg.lr, "reg": model.reg, "margin": model.margin,
+            "item_nums": data.item_nums, "frozen": frozen}
+    got, want = [x.clone() for x in base], [x.clone() for x in base]
+    loss = train_ops.fused_cml_epoch(*got, u, i, negs, t0, **opts)
+    ref = train_ops.fused_cml_epoch_ref(*want, u, i, negs, t0, **opts)
+    torch.cuda.synchronize()
+    errors = hold("cml_epoch_grouped", zip(
+        ("P", "Q", "mP", "vP", "mQ", "vQ"), got, want), EPOCH_ATOL,
+        EPOCH_RTOL)
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    check(loss_rel <= EPOCH_LOSS_RTOL,
+          f"cml_epoch_grouped loss: rel error {loss_rel}")
+    k_state, r_state = [x.clone() for x in base], [x.clone() for x in base]
+    d = model.embed_size
+    n_real = int((grp["w"] != 0).sum())
+    n_state = (rows + data.item_nums) * d
+    # cml_row's counts on the slice: six state tensors in and out, the
+    # u, i and K negative planes, the loss, the frozen sums (d + 3).
+    moved = 4 * (12 * n_state + (2 + k) * steps * b + steps + d + 3)
+    flops = (k + 1) * 3 * d * n_real + 22 * n_state * steps
+    args = (*k_state, u, i, negs, t0)
+    return {"name": "cml_epoch_grouped", "route": "cuda",
+            "source": "cleverrec_tpu_torch/csrc/cml_epoch.cu",
+            "replaces": "cleverrec_tpu/ops/pallas_train.py:1610",
+            "variant_of": "cml_epoch (frozen partial sums)",
+            "launches": launches, "max_abs_err": max(errors.values()),
+            "ms": time_ms(lambda: train_ops.fused_cml_epoch(*args, **opts)),
+            **epoch_split("cml_epoch", args, opts, ("cml_persist",)),
+            "plain_ms": time_ms(lambda: train_ops.fused_cml_epoch_ref(
+                *r_state, u, i, negs, t0, **opts), iters=3),
+            **bound(moved, flops), "library_ms": None,
+            "errors": errors, "loss_rel_err": loss_rel,
+            "shape": {"rows": rows, "ur": ur, "n_out": data.user_nums - ur,
+                      "I": data.item_nums, "d": d, "K": k, "B": b,
+                      "steps": steps, "real_rows": n_real, "bytes": moved,
+                      "flops": flops}}
+
+
+def write_grouped_synth() -> str:
+    """benchmarks/grouped_scale.py's synthetic catalog, rebuilt here from
+    its seed: P_SCALE's users, each with the smallest ``per_user`` of 2
+    ``per_user`` Zipf(0.8)-popular draws that are distinct, a random time
+    each; as UIRT csv under build/data.  Returns the dataset's name."""
+    n_users, n_items, per_user = (P_SCALE[k] for k in ("users", "items",
+                                                       "per_user"))
+    name = f"grouped-synth-{n_users}x{n_items}"
+    path = os.path.join(DATA, name, "ratings.csv")
+    if os.path.exists(path):
+        return name
+    rng = np.random.default_rng(7)
+    pop = 1.0 / np.arange(1, n_items + 1) ** 0.8
+    pop /= pop.sum()
+    draws = np.sort(rng.choice(n_items, size=(n_users, per_user * 2),
+                               p=pop), axis=1)
+    ts = rng.integers(1e8, 2e8, size=(n_users, per_user))
+    first = np.ones_like(draws, bool)
+    first[:, 1:] = draws[:, 1:] != draws[:, :-1]
+    rank = np.cumsum(first, axis=1) - 1
+    keep = first & (rank < per_user)
+    users, _ = np.nonzero(keep)
+    table = np.column_stack([users, draws[keep], np.full(len(users), 5),
+                             ts[users, rank[keep]]])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savetxt(path, table, fmt="%d", delimiter=",",
+               header="u_id,i_id,rating,time", comments="")
+    return name
+
+
+def scale_epochs(trainer, n):
+    """(params, state, per-epoch ms) of ``n`` timed epochs of ``trainer``
+    after one untimed, each timed from its draw to its last kernel."""
+    params, state = trainer.init_state()
+    params, state, _ = trainer.train_epoch(params, state)
+    times = []
+    for _ in range(n):
+        (params, state, _), s = sync_s(
+            lambda: trainer.train_epoch(params, state))
+        times.append(s * 1e3)
+    return params, state, times
+
+
+def phase_p_scale():
+    """P-scale: grouped_scale.py's user-heavy catalog (98,304 users x
+    2,048 items, ~20 pairs a user; BPR at embed 64, batch 6,144,
+    neg_ratio 4) in P_SCALE's 32 groups: one grouped epoch held against
+    its plain version, then timed epochs, and the ungrouped fused epoch
+    timed beside it."""
+    t0 = time.perf_counter()
+    name = write_grouped_synth()
+    values = {"recommender": "BPR", "embed_size": "64", "batch_size": "6144",
+              "lr": "0.001", "neg_ratio": "4", "reg": "0.01",
+              "test.neg_samples": "0", "data.user_min": "0",
+              "data.item_min": "0", "topk": "[10]"}
+    out = {"dataset": name, "write_s": time.perf_counter() - t0}
+    cfg = config(name, **values,
+                 **{"train.fused_groups": str(P_SCALE["groups"])})
+    data = load_ranking_data(cfg)
+    out.update(users=data.user_nums, items=data.item_nums)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+    trainer = Trainer(model, data, cfg)
+    out["pairs"] = trainer.n_pairs
+    plan = trainer._group_plan
+    check(trainer._groups == P_SCALE["groups"]
+          and plan["rows"] == P_SCALE["group_rows"],
+          f"P-scale: plan {trainer._groups} x {plan['rows']}")
+    out["plan"] = {"groups": trainer._groups, "rows": plan["rows"],
+                   "steps_eq": plan["steps_eq"],
+                   "steps": trainer.steps_per_epoch}
+    params, state = trainer.init_state()
+    params, state, _ = trainer.train_epoch(params, state)
+    out["hold"] = grouped_hold("P-scale", trainer, params, state,
+                               trainer.sample_epoch(), "bpr_epoch")
+    train_ops.reset_launches()
+    _, _, times = scale_epochs(trainer, P_SCALE_EPOCHS)
+    out["launches"] = train_ops.launches["bpr_epoch"]
+    check(out["launches"] == (P_SCALE_EPOCHS + 1) * P_SCALE["groups"],
+          f"P-scale: bpr_epoch launched {out['launches']} times")
+    out["grouped_epoch_ms"] = times
+    del trainer, params, state
+    cfg = config(name, **values)
+    flat = Trainer(make_model(cfg, DataMeta(data.user_nums, data.item_nums)),
+                   data, cfg)
+    check(flat.fused and flat._group_plan is None,
+          "P-scale: the ungrouped trainer")
+    _, _, flat_times = scale_epochs(flat, P_SCALE_EPOCHS)
+    out["ungrouped_epoch_ms"] = flat_times
+    out["grouped_ms_median"] = statistics.median(times)
+    out["ungrouped_ms_median"] = statistics.median(flat_times)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_p(train):
+    """The capacity tiers: P-kernels (each variant against its plain
+    version), P-scale, and P-quality: each tier's run of a model held to
+    that model's f32 ungrouped run in phases C, E, F and G (best HR@10
+    within P_BAND)."""
+    t0 = time.perf_counter()
+    out = {"grouped_holds": grouped_holds()}
+    out["scale"] = phase_p_scale()
+    print("phase P scale: " + json.dumps(out["scale"]), flush=True)
+    base = {"BPR": train["C"], "GMF": train["E"]["runs"]["GMF"],
+            "NeuMF": train["E"]["runs"]["NeuMF"],
+            "CML": train["G"]["runs"]["CML"],
+            "SBPR": train["F"]["runs"]["SBPR"],
+            "LRML": train["G"]["runs"]["LRML"]}
+    epochs = {"BPR": EPOCHS, "GMF": EPOCHS, "NeuMF": EPOCHS,
+              "CML": METRIC_EPOCHS["CML"], "SBPR": SOCIAL_EPOCHS,
+              "LRML": METRIC_EPOCHS["LRML"]}
+    kernels = {"BPR": "bpr_epoch", "GMF": "gmf_epoch", "NeuMF": "mlp_epoch",
+               "CML": "cml_epoch", "SBPR": "rows_epoch",
+               "LRML": "rows_epoch_lrml"}
+    runs = {}
+    for tier, models in (("grouped", P_GROUPS), ("bf16", P_BF16)):
+        for name in models:
+            if tier == "grouped":
+                opt = {"train.fused_groups": str(P_GROUPS[name])}
+                want = {"groups": P_GROUPS[name], "storage": "torch.float32"}
+                per_epoch = P_GROUPS[name]
+            else:
+                opt = {"train.fused_bf16": "True"}
+                want = {"groups": 0, "storage": "torch.bfloat16"}
+                per_epoch = 1
+            res = drive_cli(f"P_{name}_{tier}", model=name,
+                            epochs=epochs[name], **opt)
+            kernel = kernels[name]
+            check(res["fused_form"] == want,
+                  f"P {name} {tier}: the trainer ran {res['fused_form']}")
+            check(res["launches"][kernel] == per_epoch * epochs[name],
+                  f"P {name} {tier}: launches {res['launches']}")
+            ref = base[name]["best"]["HR@10"]
+            check(abs(res["best"]["HR@10"] - ref) <= P_BAND,
+                  f"P {name} {tier}: best HR@10 {res['best']['HR@10']} "
+                  f"against the f32 ungrouped run's {ref}")
+            runs[f"{name}_{tier}"] = {
+                "best": res["best"], "ref_hr10": ref,
+                "loss_first": res["loss_first"],
+                "loss_last": res["loss_last"],
+                "epoch_ms_median": res["epoch_ms_median"],
+                "ref_epoch_ms_median": base[name]["epoch_ms_median"],
+                "launches": {kernel: res["launches"][kernel]}}
+    out["runs"] = runs
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     missing = [p for p in NEEDED if not os.path.exists(os.path.join(ROOT, p))]
     if missing:
@@ -2803,6 +3319,9 @@ def main() -> int:
     print("phase M: " + json.dumps(train["M"]), flush=True)
     train["O"] = phase_o()
     print("phase O: " + json.dumps(train["O"]), flush=True)
+    train["P"] = phase_p(train)
+    print("phase P: " + json.dumps({k: v for k, v in train["P"].items()
+                                    if k != "scale"}), flush=True)
     # bpr_epoch's launches: phase C's and phase L's popularity run's.
     bpr = next(row for row in rows if row["name"] == "bpr_epoch")
     bpr["launches_by_phase"] = {"C": bpr["launches"],
@@ -2829,6 +3348,38 @@ def main() -> int:
     rows.append(lrml_row(train["G"]["launches"]["rows_epoch_lrml"],
                          profiles))
     rows.append(cml_row(train["G"]["launches"]["cml_epoch"], profiles))
+    # Phase P's variants, their launches from its tier runs; the grouped
+    # runs of the unchanged kernels (and P-scale's) add to their rows.
+    p_runs = train["P"]["runs"]
+    rows.append(bpr_bf16_row(p_runs["BPR_bf16"]["launches"]["bpr_epoch"]))
+    rows.append(rows_bf16_row(
+        "SBPR", "rows_epoch", p_runs["SBPR_bf16"]["launches"]["rows_epoch"]))
+    rows.append(rows_bf16_row(
+        "LRML", "rows_epoch_lrml",
+        p_runs["LRML_bf16"]["launches"]["rows_epoch_lrml"]))
+    rows.append(cml_grouped_row(
+        p_runs["CML_grouped"]["launches"]["cml_epoch"]))
+    for row in rows:
+        extra = {"bpr_epoch": {
+                     "P": p_runs["BPR_grouped"]["launches"]["bpr_epoch"],
+                     "P_scale": train["P"]["scale"]["launches"]},
+                 "gmf_epoch": {
+                     "P": p_runs["GMF_grouped"]["launches"]["gmf_epoch"]},
+                 "mlp_epoch": {
+                     "P": p_runs["NeuMF_grouped"]["launches"]["mlp_epoch"]}
+                 }.get(row["name"], {})
+        if extra:
+            row["launches_by_phase"] = {
+                **row.get("launches_by_phase", {"E": row["launches"]}),
+                **extra}
+            row["launches"] += sum(extra.values())
+        hold_p = train["P"]["grouped_holds"].get(
+            {"bpr_epoch": "BPR", "gmf_epoch": "GMF", "mlp_epoch": "NeuMF",
+             "cml_epoch_grouped": "CML"}.get(row["name"], ""))
+        if hold_p:
+            row["grouped_hold"] = hold_p
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     hold_p["max_abs_err"])
     for row in rows:
         print(f"kernel {row['name']}: launches {row['launches']}, "
               f"max_abs_err {row['max_abs_err']}, ms {row['ms']}, "

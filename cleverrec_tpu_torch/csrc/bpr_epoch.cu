@@ -50,6 +50,15 @@
 //             in shared memory for the whole launch instead took more
 //             time at ml-100k's shape (PERF.md section 5).
 //
+// bf16 storage (bf16 = 1; the TPU kernel's table_dtype=bfloat16,
+// pallas_train.py:114-316): the six state tensors hold bf16-representable
+// values in their f32 buffers (the prologue rounds them on entry), each
+// slot's three row gradients are rounded to bf16 before their f32
+// reductions, and adam_tables rounds p, m and v back to bf16 on write.
+// Every read and the loss stay f32.  The buffers stay f32, so the bytes
+// moved are those of the f32 kernel: this variant reproduces the TPU
+// kernel's numbers, not its halved storage.
+//
 // Then the steps' losses are summed (persist.cuh's finish_losses).  The
 // loss, and m and v of a row no slot of the step touched, are the same
 // from run to run after one step; the row sums use f32 atomics, whose
@@ -86,6 +95,7 @@ struct BprArgs {
   int U, I, d, steps, B, blocks, vec;
   float lr, reg, eps;
   double b1, b2;
+  int bf16;                      // bf16 storage: see above
 };
 
 namespace {
@@ -187,6 +197,11 @@ __device__ __forceinline__ void scatter(const BprArgs& a, const Ids& id,
       gp[e] = g * (qi - qj) + reg * pe;
       gi[e] = g * pe + reg * qi;
       gj[e] = -g * pe + reg * qj;
+      if (a.bf16) {
+        gp[e] = bf16r(gp[e]);
+        gi[e] = bf16r(gi[e]);
+        gj[e] = bf16r(gj[e]);
+      }
     }
     if (ru) atomic_add<W>(a.dP + (size_t)id.u * d + c, gp);
     if (ri) atomic_add<W>(a.dQ + (size_t)id.i * d + c, gi);
@@ -249,6 +264,7 @@ bpr_persist(BprArgs a, AdamBase ab) {
   adam_add(tab, a.P, a.mP, a.vP, a.dP, (int64_t)a.U * a.d);
   adam_add(tab, a.Q, a.mQ, a.vQ, a.dQ, (int64_t)a.I * a.d);
   const bool vec[ADAM_MAX_SEGS] = {(bool)a.vec, (bool)a.vec};
+  if (a.bf16) round_tables(tab);
   grid_zero(a.dP, (int64_t)a.U * a.d);
   grid_zero(a.dQ, (int64_t)a.I * a.d);
   if (a.steps > 0) prefetch_ids(a, 0);
@@ -288,7 +304,7 @@ bpr_persist(BprArgs a, AdamBase ab) {
       ahead = load_ids(a, s + 1, first);
     }
     adam_tables(tab, vec, step_at(ab, a.bc, s), grid_thread(),
-                (int64_t)G * blockDim.x);
+                (int64_t)G * blockDim.x, a.bf16);
     PERSIST_PHASE(3);
     if (more) grid_sync(a.bar, round);
     PERSIST_PHASE(4);

@@ -66,6 +66,19 @@
 //             into part_loss[s, block]; the next step's ids prefetched.
 //             A barrier.
 //
+// The grouped epoch's launches (fsum set; the TPU kernel's ``frozen``
+// argument, pallas_train.py:1288-1299, 1446-1503): P is one group's slice
+// whose first ur rows are real, and n_out real user rows outside it are
+// frozen.  The population is n = ur + I + n_out rows: the prologue and
+// phase B leave P's rows from ur on out of the column sums, the column
+// sums take the frozen rows' fsum [d], the regulariser's gradient and
+// its row terms reach only the slice's real rows, and one warp a step
+// adds the frozen rows' loss terms around the mean mu from their partial
+// sums sum_a, sum_a2 and sum_sq (fsa, fsa2, fsq: a a row's sum, sq its
+// squared norm): reg ((sum_a2 - 2 sum(mu) sum_a + n_out sum(mu)^2) - (sum_sq - 2
+// fsum . mu + n_out |mu|^2)) / n.  Without fsum (ur = U, n_out = 0) the
+// kernel's arithmetic is the ungrouped one, operation for operation.
+//
 // Then the steps' losses are summed (persist.cuh's finish_losses).  The
 // column sums and the loss are the same from run to run after one step;
 // the tables' row sums use f32 atomics, whose order varies, so the state
@@ -104,6 +117,12 @@ struct CmlArgs {
   int U, I, d, steps, B, K, blocks, vec;
   float lr, reg, margin, item_nums, eps;
   double b1, b2;
+  // The grouped launch's frozen rows (null fsum: none): their column sums
+  // [d], sum_a, sum_a2 and sum_sq (device scalars); the slice's real rows
+  // ur (U without fsum) and the frozen rows' count n_out.
+  const float *fsum, *fsa, *fsa2, *fsq;
+  int ur;
+  float n_out;
 };
 
 namespace {
@@ -275,9 +294,11 @@ template <int W, bool ONE>
 __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
                               float* colw) {
   const int lane = threadIdx.x & 31, d = a.d;
-  const float n = (float)(a.U + a.I);
+  const float n = (float)(a.ur + a.I) + a.n_out;
   bool on_q;
   const size_t off = cat_off(r, a.I, d, &on_q);
+  // A P row past the slice's real rows: no regulariser, no column sum.
+  const bool real = on_q || r - a.I < a.ur;
   float* x = (on_q ? a.Q : a.P) + off;
   float* m = (on_q ? a.mQ : a.mP) + off;
   float* v = (on_q ? a.vQ : a.vP) + off;
@@ -294,7 +315,7 @@ __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
     float xc[W], s = 0.f, sq = 0.f;
 #pragma unroll
     for (int e = 0; e < W; ++e) {
-      xc[e] = in ? xv.a[e] - cs.a[e] / n : 0.f;
+      xc[e] = in && real ? xv.a[e] - cs.a[e] / n : 0.f;
       s += xc[e];
       sq = fmaf(xc[e], xc[e], sq);
     }
@@ -304,7 +325,7 @@ __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
 #pragma unroll
       for (int e = 0; e < W; ++e) {
         adam_val(xv.a[e], mv.a[e], vv.a[e], gv.a[e] + g_cov * (s - xc[e]), st);
-        colw[col + e] += xv.a[e];
+        if (real) colw[col + e] += xv.a[e];
       }
       st4<W>(x + col, xv);
       st4<W>(m + col, mv);
@@ -314,7 +335,7 @@ __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
     return a.reg * (s * s - sq) / n;
   }
   float s = 0.f, sq = 0.f;
-  for (int c = col; c < d; c += 32 * W) {
+  for (int c = col; real && c < d; c += 32 * W) {
     const Piece<W> xv = ld<W>(x + c, true), cs = ld<W>(a.colsum + c, true);
 #pragma unroll
     for (int e = 0; e < W; ++e) {
@@ -332,9 +353,9 @@ __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
     const Piece<W> cs = ld<W>(a.colsum + c, true);
 #pragma unroll
     for (int e = 0; e < W; ++e) {
-      const float xc = xv.a[e] - cs.a[e] / n;
+      const float xc = real ? xv.a[e] - cs.a[e] / n : 0.f;
       adam_val(xv.a[e], mv.a[e], vv.a[e], gv.a[e] + g_cov * (s - xc), st);
-      colw[c + e] += xv.a[e];
+      if (real) colw[c + e] += xv.a[e];
     }
     st4<W>(x + c, xv);
     st4<W>(m + c, mv);
@@ -342,6 +363,27 @@ __device__ float cov_adam_row(const CmlArgs& a, int r, const AdamStep& st,
     st4<W>(g + c, Piece<W>{});
   }
   return a.reg * (s * s - sq) / n;
+}
+
+// The frozen rows' loss terms of a step (a whole warp; fsum set): with
+// mu = colsum / n, reg ((sum_a2 - 2 sum(mu) sum_a + n_out sum(mu)^2) -
+// (sum_sq - 2 fsum . mu + n_out |mu|^2)) / n (every lane).
+__device__ float frozen_loss(const CmlArgs& a) {
+  const int lane = threadIdx.x & 31;
+  const float n = (float)(a.ur + a.I) + a.n_out;
+  float ms = 0.f, fm = 0.f, mm = 0.f;
+  for (int c = lane; c < a.d; c += 32) {
+    const float mu = a.colsum[c] / n;
+    ms += mu;
+    fm = fmaf(a.fsum[c], mu, fm);
+    mm = fmaf(mu, mu, mm);
+  }
+  ms = warp_sum(ms);
+  fm = warp_sum(fm);
+  mm = warp_sum(mm);
+  const float s2 = *a.fsa2 - 2.f * ms * *a.fsa + a.n_out * ms * ms;
+  const float xc2 = *a.fsq - 2.f * fm + a.n_out * mm;
+  return a.reg * (s2 - xc2) / n;
 }
 
 // The block's column sums: its warps' colw (``cols`` [WARPS][d], shared
@@ -381,6 +423,7 @@ cml_persist(CmlArgs a, AdamBase ab) {
   for (int r = grid_warp(); r < rows; r += WARPS * G) {
     bool on_q;
     const float* x = (r < a.I ? a.Q : a.P) + cat_off(r, a.I, d, &on_q);
+    if (!on_q && r - a.I >= a.ur) continue;   // past the slice's real rows
     for (int c = W * lane; c < d; c += 32 * W) {
       const Piece<W> xv = ld<W>(x + c, true);
 #pragma unroll
@@ -412,7 +455,7 @@ cml_persist(CmlArgs a, AdamBase ab) {
     // warps, which have the fewest rows.
     for (int c = warps - 1 - grid_warp(); c < d; c += warps) {
       const float sum = slice_sum(a.colpart + c, d, G);
-      if (lane == 0) a.colsum[c] = sum;
+      if (lane == 0) a.colsum[c] = a.fsum ? sum + a.fsum[c] : sum;
     }
     PERSIST_PHASE(1);
     grid_sync(a.bar, round);
@@ -426,6 +469,7 @@ cml_persist(CmlArgs a, AdamBase ab) {
       ahead = row_ids(a, s + 1, grid_warp());
     }
     const AdamStep st = step_at(ab, a.bc, s);
+    if (a.fsum && grid_warp() == 0) warp_loss += frozen_loss(a);
     for (int r = grid_warp(); r < rows; r += WARPS * G)
       warp_loss += cov_adam_row<W, ONE>(a, r, st, colw);
     if (lane == 0) loss_w[warp] = warp_loss;
@@ -488,7 +532,9 @@ extern "C" int cml_epoch_occupancy(int vec, int d, int* per_sm,
 // not fit).
 extern "C" int cml_epoch(const CmlArgs* a, cudaStream_t stream) {
   if (a->d < 1 || a->K < 1 || a->blocks < 1 ||
-      a->B < 0 || a->steps < 0 || (a->vec && a->d % 4))
+      a->B < 0 || a->steps < 0 || (a->vec && a->d % 4) || a->ur < 0 ||
+      a->ur > a->U || (!a->fsum && a->ur != a->U) ||
+      (a->fsum && !(a->fsa && a->fsa2 && a->fsq)))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       pick(a->vec, a->d).fn, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -18,9 +18,16 @@
 // from their wrapper's table (persist.cuh's step_at).  A pass over tables
 // in device memory is bound by memory traffic (5 f32 reads and 4 writes an
 // element); at the ml-100k shapes the state stays in L2.
+//
+// bf16 storage (the BPR and rows kernels' ``bf16`` flag, the TPU kernels'
+// table_dtype=bfloat16): the state stays in f32 buffers that hold
+// bf16-representable values; Adam computes in f32, p's step from the
+// unrounded moments, and rounds p, m and v to bf16 (to nearest even) on
+// write, as _adam_apply does.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -43,20 +50,28 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// x rounded to bf16 (to nearest even) and back to f32.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Adam's constants at one step: b1, 1 - b1, b2, 1 - b2 and the bias
 // corrections, each rounded to f32 once.
 struct AdamStep {
   float lr, b1, c1, b2, c2, eps, bc1, bc2;
 };
 
-// One element of Adam: reads g, updates m, v and p in place.
+// One element of Adam: reads g, updates m, v and p in place; bf: bf16
+// storage.
 __device__ __forceinline__ void adam_elem(float* p, float* m, float* v,
-                                          float g, const AdamStep& a) {
+                                          float g, const AdamStep& a,
+                                          bool bf = false) {
   const float mk = a.b1 * *m + a.c1 * g;
   const float vk = a.b2 * *v + a.c2 * (g * g);
-  *m = mk;
-  *v = vk;
-  *p = *p - a.lr * (mk / a.bc1) / (sqrtf(vk / a.bc2) + a.eps);
+  const float pk = *p - a.lr * (mk / a.bc1) / (sqrtf(vk / a.bc2) + a.eps);
+  *m = bf ? bf16r(mk) : mk;
+  *v = bf ? bf16r(vk) : vk;
+  *p = bf ? bf16r(pk) : pk;
 }
 
 // b1 and b2 come as doubles so that log b and 1 - b round to f32 once,
@@ -77,8 +92,8 @@ struct AdamSegs {
 };
 
 // Appends a tensor of n elements, its moments and its gradient scratch.
-__host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m, float* v, float* g,
-                     int64_t n) {
+__host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m,
+                                         float* v, float* g, int64_t n) {
   s.p[s.count] = p;
   s.m[s.count] = m;
   s.v[s.count] = v;
@@ -89,24 +104,29 @@ __host__ __device__ inline void adam_add(AdamSegs& s, float* p, float* m, float*
 
 // Adam on one element held in registers (adam_elem's arithmetic).
 __device__ __forceinline__ void adam_val(float& p, float& m, float& v, float g,
-                                         const AdamStep& a) {
+                                         const AdamStep& a, bool bf = false) {
   m = a.b1 * m + a.c1 * g;
   v = a.b2 * v + a.c2 * (g * g);
   p = p - a.lr * (m / a.bc1) / (sqrtf(v / a.bc2) + a.eps);
+  if (bf) {
+    m = bf16r(m);
+    v = bf16r(v);
+    p = bf16r(p);
+  }
 }
 
 // Four elements of a table at once: 16-byte loads and stores of p, m, v
 // and g, g zeroed.
 __device__ __forceinline__ void adam4(float* p, float* m, float* v, float* g,
-                                      const AdamStep& a) {
+                                      const AdamStep& a, bool bf = false) {
   float4 pv = *reinterpret_cast<float4*>(p);
   float4 mv = *reinterpret_cast<float4*>(m);
   float4 vv = *reinterpret_cast<float4*>(v);
   const float4 gv = *reinterpret_cast<const float4*>(g);
-  adam_val(pv.x, mv.x, vv.x, gv.x, a);
-  adam_val(pv.y, mv.y, vv.y, gv.y, a);
-  adam_val(pv.z, mv.z, vv.z, gv.z, a);
-  adam_val(pv.w, mv.w, vv.w, gv.w, a);
+  adam_val(pv.x, mv.x, vv.x, gv.x, a, bf);
+  adam_val(pv.y, mv.y, vv.y, gv.y, a, bf);
+  adam_val(pv.z, mv.z, vv.z, gv.z, a, bf);
+  adam_val(pv.w, mv.w, vv.w, gv.w, a, bf);
   *reinterpret_cast<float4*>(p) = pv;
   *reinterpret_cast<float4*>(m) = mv;
   *reinterpret_cast<float4*>(v) = vv;
@@ -133,16 +153,18 @@ struct AdamSlices {
   // whether a table's p, m, v and g are all 16-byte aligned.
   int epb;
   bool vec[ADAM_MAX_SEGS];
+  bool bf16;     // bf16 storage of every tensor
 };
 
 // Adam over the tables of ``tab`` as one run of units, unit e for e =
 // first, first + stride, ...: a segment's float4s where vec[k] (its four
 // pointers 16-byte aligned), then its remaining elements one by one, so
-// that every unit is in flight at once; the gradients are zeroed.
+// that every unit is in flight at once; the gradients are zeroed.  bf:
+// bf16 storage.
 __device__ __forceinline__ void adam_tables(const AdamSegs& tab,
                                             const bool (&vec)[ADAM_MAX_SEGS],
                                             const AdamStep& a, int64_t first,
-                                            int64_t stride) {
+                                            int64_t stride, bool bf = false) {
   for (int64_t e = first;; e += stride) {
     int k = 0;
     int64_t j = e, n4 = 0;
@@ -158,13 +180,27 @@ __device__ __forceinline__ void adam_tables(const AdamSegs& tab,
     float* v = tab.v[k];
     float* g = tab.g[k];
     if (j < n4) {
-      adam4(p + 4 * j, m + 4 * j, v + 4 * j, g + 4 * j, a);
+      adam4(p + 4 * j, m + 4 * j, v + 4 * j, g + 4 * j, a, bf);
     } else {
       j += 3 * n4;
-      adam_elem(p + j, m + j, v + j, g[j], a);
+      adam_elem(p + j, m + j, v + j, g[j], a, bf);
       g[j] = 0.f;
     }
   }
+}
+
+// bf16 storage on entry: every p, m and v of ``tab`` rounded to bf16 in
+// place by a grid-stride pass of all the launch's threads (a value
+// already in bf16 stays as it is).
+__device__ __forceinline__ void round_tables(const AdamSegs& tab) {
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int k = 0; k < tab.count; ++k)
+    for (int64_t e = first; e < tab.n[k]; e += stride) {
+      tab.p[k][e] = bf16r(tab.p[k][e]);
+      tab.m[k][e] = bf16r(tab.m[k][e]);
+      tab.v[k][e] = bf16r(tab.v[k][e]);
+    }
 }
 
 // Sets vec[k] for each table of ``tab`` (its p, m, v and g 16-byte
@@ -215,12 +251,12 @@ adam_slices(AdamSlices s, AdamStep a, float* loss, int dense_blocks) {
     }
     int t = 0, j = e;
     while (j >= s.n[t]) j -= s.n[t++];
-    adam_elem(s.p[t] + j, s.m[t] + j, s.v[t] + j, g, a);
+    adam_elem(s.p[t] + j, s.m[t] + j, s.v[t] + j, g, a, s.bf16);
     return;
   }
   adam_tables(s.tab, s.vec, a,
               (int64_t)(blockIdx.x - dense_blocks) * ADAM_THREADS + threadIdx.x,
-              (int64_t)(gridDim.x - dense_blocks) * ADAM_THREADS);
+              (int64_t)(gridDim.x - dense_blocks) * ADAM_THREADS, s.bf16);
 }
 
 // Launches one adam_slices pass at step t, the loss into *loss; returns

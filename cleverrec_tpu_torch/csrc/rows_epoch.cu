@@ -103,6 +103,14 @@
 //
 // So K, M, their moments and the loss are the same from run to run after
 // one step.
+//
+// bf16 storage (bf16 = 1, both forms; the TPU kernel's
+// table_dtype=bfloat16, pallas_train.py:679-776): the state holds
+// bf16-representable values in its f32 buffers (round_tables_kernel, one
+// launch before the first step, rounds it on entry); the float column is rounded to bf16 as it is read; each
+// plane's row gradient is rounded to bf16 before its atomicAdd (the
+// chain's bias gradient too); the dense gradients (ds, dK, dM) stay f32;
+// adam_slices rounds every p, m and v back to bf16 on write.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -154,6 +162,7 @@ struct RowsArgs {
   // memory a block.  Form 1's p, m, v hold P, Q, K [d, mem], M [mem, d].
   int form, mem, rows, blocks, slice, vec, smem_bytes;
   float margin;
+  int bf16;                       // bf16 storage: see above
 };
 
 namespace {
@@ -214,7 +223,7 @@ rows_chain(const float* __restrict__ P, const float* __restrict__ Q,
            float* __restrict__ dP, float* __restrict__ dQ,
            float* __restrict__ dbias, StepPlanes st, float* __restrict__ part,
            int slice, int U, int I, int d, int B, int items, int float_link,
-           int dense_link, float reg) {
+           int dense_link, float reg, bool bf) {
   __shared__ float part_loss[WARPS];
   __shared__ float part_ds[WARPS];
 #ifdef ROWS_CLOCKS
@@ -232,6 +241,7 @@ rows_chain(const float* __restrict__ P, const float* __restrict__ Q,
     const int b = b0 + rr;
     u[rr] = b < B ? st.plane[0][b] : -1;
     f[rr] = b < B && float_link >= 0 ? st.fcol[b] : 0.f;
+    if (bf) f[rr] = bf16r(f[rr]);
 #pragma unroll
     for (int m = 0; m < ROWS_MAX_ITEMS; ++m)
       id[rr][m] = b < B && m < items ? st.plane[1 + m][b] : -1;
@@ -321,10 +331,14 @@ rows_chain(const float* __restrict__ P, const float* __restrict__ Q,
           for (int e = 0; e < W; ++e) {
             acc[e] = fmaf(dx[rr][m], q.a[e], acc[e]);
             gq[e] = fmaf(dx[rr][m], pe.a[e], reg * q.a[e]);
+            if (bf) gq[e] = bf16r(gq[e]);
           }
           atomic_addv<W>(dQ + o, gq);
         }
       }
+      if (bf)
+#pragma unroll
+        for (int e = 0; e < W; ++e) acc[e] = bf16r(acc[e]);
       atomic_addv<W>(dP + (size_t)u[rr] * d + c, acc);
     }
   }
@@ -333,8 +347,10 @@ rows_chain(const float* __restrict__ P, const float* __restrict__ Q,
     for (int rr = 0; rr < RW; ++rr)
 #pragma unroll
       for (int m = 0; m < ROWS_MAX_ITEMS; ++m)
-        if (ok[rr][m])
-          atomicAdd(dbias + id[rr][m], fmaf(reg, bm[rr][m], dx[rr][m]));
+        if (ok[rr][m]) {
+          const float gb = fmaf(reg, bm[rr][m], dx[rr][m]);
+          atomicAdd(dbias + id[rr][m], bf ? bf16r(gb) : gb);
+        }
   }
   PHASE(1);
   if (lane == 0) {
@@ -732,6 +748,11 @@ lrml_tiles(const RowsArgs a, const int32_t* __restrict__ u_idx,
           gu = fmaf(gaj[c], xj[c], gu);
           gj = fmaf(gaj[c], ue[c], gj);
         }
+        if (a.bf16) {   // bf16 storage: the row grads rounded
+          gu = bf16r(gu);
+          gi = bf16r(gi);
+          gj = bf16r(gj);
+        }
       };
       float* dpu = a.g[0] + (size_t)u * d;
       float* dqi = i >= 0 ? a.g[1] + (size_t)i * d : nullptr;
@@ -773,6 +794,25 @@ lrml_tiles(const RowsArgs a, const int32_t* __restrict__ u_idx,
 #endif
 }
 
+__global__ void __launch_bounds__(ADAM_THREADS)
+round_tables_kernel(AdamSegs tab) {
+  round_tables(tab);
+}
+
+// bf16 storage on entry: one launch that rounds the tables of ``s`` and
+// its dense tensors (their p, m and v) to bf16 in place.
+int round_state(const AdamSlices& s, cudaStream_t stream) {
+  AdamSegs all = s.tab;
+  for (int k = 0; k < s.count; ++k)
+    adam_add(all, s.p[k], s.m[k], s.v[k], nullptr, s.n[k]);
+  int64_t most = 1;
+  for (int k = 0; k < all.count; ++k) most = all.n[k] > most ? all.n[k] : most;
+  const int64_t want = (most + ADAM_THREADS - 1) / ADAM_THREADS;
+  round_tables_kernel<<<(int)(want < 1024 ? want : 1024), ADAM_THREADS, 0,
+                        stream>>>(all);
+  return (int)cudaGetLastError();
+}
+
 // LRML's epoch (form 1); see rows_epoch.
 int lrml_epoch(const RowsArgs* a, cudaStream_t stream) {
   const LrmlLayout lay(a->d, a->mem, a->rows);
@@ -797,6 +837,11 @@ int lrml_epoch(const RowsArgs* a, cudaStream_t stream) {
   s.part = a->part;
   s.slice = a->slice;
   s.blocks = a->B > 0 ? a->blocks : 0;
+  s.bf16 = a->bf16;
+  if (a->bf16) {
+    err = (cudaError_t)round_state(s, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
   for (int t = 0; t < a->steps; ++t) {
     if (a->B > 0) {
       const size_t off = (size_t)t * a->B;
@@ -833,6 +878,11 @@ int chain_epoch(const RowsArgs* a, cudaStream_t stream) {
   s.part = a->part;
   s.slice = a->slice;
   s.blocks = a->blocks;
+  s.bf16 = a->bf16;
+  if (a->bf16) {
+    const int err = round_state(s, stream);
+    if (err != 0) return err;
+  }
   for (int t = 0; t < a->steps; ++t) {
     if (a->B > 0) {
       const size_t off = (size_t)t * a->B;
@@ -843,12 +893,12 @@ int chain_epoch(const RowsArgs* a, cudaStream_t stream) {
         rows_chain<4, CHAIN_RW><<<a->blocks, THREADS, 0, stream>>>(
             a->p[0], a->p[1], a->p[2], a->p[3], a->g[0], a->g[1], a->g[2], st,
             a->part, a->slice, a->U, a->I, a->d, a->B, a->items,
-            a->float_link, a->dense_link, a->reg);
+            a->float_link, a->dense_link, a->reg, a->bf16);
       else
         rows_chain<1, CHAIN_RW><<<a->blocks, THREADS, 0, stream>>>(
             a->p[0], a->p[1], a->p[2], a->p[3], a->g[0], a->g[1], a->g[2], st,
             a->part, a->slice, a->U, a->I, a->d, a->B, a->items,
-            a->float_link, a->dense_link, a->reg);
+            a->float_link, a->dense_link, a->reg, a->bf16);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

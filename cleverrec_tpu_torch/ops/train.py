@@ -45,6 +45,16 @@ included: the caller subtracts ``n_sentinel * LOG2`` (CML:
 ``n_sentinel * cml_sentinel_bias``).  The tables are not padded, so no
 padding of the wrapper's own enters the loss.
 
+The trainer's capacity tiers (cleverrec_tpu/train/trainer.py:867-1319):
+``fused_bpr_epoch`` and ``fused_rows_epoch`` take
+``table_dtype=torch.bfloat16``, the TPU kernels' bf16 state storage
+(bf16 values in the f32 tensors, rounded where the TPU kernels round);
+``fused_cml_epoch`` takes ``frozen``, the partial sums through which a
+grouped launch's regulariser spans the user rows outside its slice;
+``grouped_rows`` is the grouped epoch's rows a group.  ``EPOCH_FNS`` and
+``PLAIN_EPOCH_FNS`` map the trainer's protocols to the wrappers and to
+their plain versions under the same signatures.
+
 A wrapper given CPU tensors runs its ``*_ref`` plain version; given CUDA
 tensors it launches its kernel or raises; it never falls back.
 ``launches`` counts kernel launches (one per epoch each).  The BPR, GMF
@@ -84,6 +94,45 @@ def sentinel_dims(u_real: int, i_real: int) -> tuple[int, int]:
     return pad(u_real), pad(i_real)
 
 
+def grouped_rows(u_real: int, n_groups: int) -> int:
+    """The user rows of a group of the grouped epoch: ceil(u_real / G)
+    rounded up to 128, the JAX planners' formula
+    (cleverrec_tpu/ops/pallas_train.py:1230, :1766).  The card has no
+    VMEM ceiling, so there is no block size or budget to plan."""
+    return -(-cdiv(u_real, n_groups) // 128) * 128
+
+
+# bf16 storage takes tables whose padded heights stay below this (the JAX
+# planners' i16-addressable limit, pallas_train.py:1715); past it the
+# epoch runs in f32.
+BF16_MAX_ROWS = 1 << 15
+
+
+def bf16_fits(u_real: int, i_real: int) -> bool:
+    """Does bf16 storage take tables of ``u_real`` and ``i_real`` rows?"""
+    return max(sentinel_dims(u_real, i_real)) < BF16_MAX_ROWS
+
+
+def _bf16(x):
+    """x rounded to bf16 (to nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _table_dtype(table_dtype) -> bool:
+    """Is ``table_dtype`` bf16 storage?  Only f32 and bf16 are taken."""
+    if table_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table_dtype {table_dtype}: want torch.float32 or "
+                         "torch.bfloat16")
+    return table_dtype == torch.bfloat16
+
+
+def _store_bf16(tensors) -> None:
+    """Rounds each state tensor to bf16 in place (bf16 storage on entry;
+    a value that is already bf16 stays as it is)."""
+    for x in tensors:
+        x.copy_(_bf16(x))
+
+
 def _bias_corrections(t: int, b1: float, b2: float):
     """1 - exp(t log b) in float32, as the TPU kernel computes them."""
     t32 = np.float32(t)
@@ -100,14 +149,19 @@ def _epoch_bias_corrections(t0: int, steps: int, b1: float, b2: float):
 
 
 def _adam_dense(state, t: int, lr: float, b1: float, b2: float, eps: float,
-                bc=None):
+                bc=None, bf16: bool = False):
     """Adam at step t over (param, m, v, grad) quadruples, in place; ``bc``
-    the step's bias corrections where given."""
+    the step's bias corrections where given.  ``bf16``: bf16 storage, the
+    arithmetic in f32 and p, m and v rounded to bf16 on write, p's step
+    from the unrounded moments (``_adam_apply`` of pallas_train.py)."""
     bc1, bc2 = _bias_corrections(t, b1, b2) if bc is None else bc
+    put = _bf16 if bf16 else (lambda y: y)
     for x, m, v, g in state:
-        m.copy_(b1 * m + (1.0 - b1) * g)
-        v.copy_(b2 * v + (1.0 - b2) * (g * g))
-        x.copy_(x - lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        m_new = b1 * m + (1.0 - b1) * g
+        v_new = b2 * v + (1.0 - b2) * (g * g)
+        x.copy_(put(x - lr * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)))
+        m.copy_(put(m_new))
+        v.copy_(put(v_new))
 
 
 def _rows(table, ids):
@@ -182,10 +236,16 @@ def _stream(device):
 @torch.no_grad()
 def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
                         *, lr: float, reg: float, b1: float = ADAM_B1,
-                        b2: float = ADAM_B2, eps: float = ADAM_EPS):
+                        b2: float = ADAM_B2, eps: float = ADAM_EPS,
+                        table_dtype=torch.float32):
     """Plain version of ``fused_bpr_epoch``: the same per-step arithmetic
-    in PyTorch ops, ``index_add_`` for the scatter.  Same arguments and
-    result; updates the state in place."""
+    in PyTorch ops, ``index_add_`` for the scatter, and bf16 storage's
+    rounding at the same points.  Same arguments and result; updates the
+    state in place."""
+    bf16 = _table_dtype(table_dtype)
+    if bf16:
+        _store_bf16((p, q, mp, vp, mq, vq))
+    put = _bf16 if bf16 else (lambda y: y)
     steps = u_idx.shape[0]
     losses = torch.zeros(steps, dtype=torch.float32, device=p.device)
     bcs = _epoch_bias_corrections(t0, steps, b1, b2)
@@ -198,9 +258,12 @@ def fused_bpr_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
         losses[s] = (-torch.nn.functional.logsigmoid(diff)).sum() + (
             0.5 * reg * ((pe * pe).sum() + (qi * qi).sum() + (qj * qj).sum()))
         g = -torch.sigmoid(-diff)[:, None]
-        dq = _scatter(q, (i, g * pe + reg * qi), (j, -g * pe + reg * qj))
-        _adam_dense(((p, mp, vp, _scatter(p, (u, g * qd + reg * pe))),
-                     (q, mq, vq, dq)), t0 + s + 1, lr, b1, b2, eps, bcs[s])
+        # bf16 storage rounds each slot's row gradient before the f32 sum.
+        dq = _scatter(q, (i, put(g * pe + reg * qi)),
+                      (j, put(-g * pe + reg * qj)))
+        _adam_dense(((p, mp, vp, _scatter(p, (u, put(g * qd + reg * pe)))),
+                     (q, mq, vq, dq)), t0 + s + 1, lr, b1, b2, eps, bcs[s],
+                    bf16)
     return losses.sum()
 
 
@@ -215,17 +278,27 @@ def _check(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx):
 
 def fused_bpr_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
                     *, lr: float, reg: float, b1: float = ADAM_B1,
-                    b2: float = ADAM_B2, eps: float = ADAM_EPS):
+                    b2: float = ADAM_B2, eps: float = ADAM_EPS,
+                    table_dtype=torch.float32):
     """One BPR epoch with dense Adam, in place.
 
     p [U, d], q [I, d] f32 tables; mp, vp, mq, vq their Adam moments;
     u_idx, i_idx, j_idx [steps, B] int32 sampled rows, invalid slots at
     the sentinel ids; t0 the Adam step count so far.  Updates the six
     state tensors in place and returns the summed per-step loss (a 0-dim
-    f32 tensor) that still includes log 2 per sentinel slot."""
+    f32 tensor) that still includes log 2 per sentinel slot.
+
+    ``table_dtype=torch.bfloat16`` is the JAX kernel's bf16 storage
+    (pallas_train.py:114-127, 212-316): the six state tensors are rounded
+    to bf16 on entry, each slot's row gradients are rounded to bf16
+    before their f32 sum, and Adam computes in f32 and rounds p, m and v
+    back on write.  The tensors stay f32 and carry bf16 values, so the
+    next epoch's rounding on entry changes nothing; the loss is f32."""
     _check(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx)
+    _table_dtype(table_dtype)
     args = (p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, int(t0))
-    opts = dict(lr=lr, reg=reg, b1=b1, b2=b2, eps=eps)
+    opts = dict(lr=lr, reg=reg, b1=b1, b2=b2, eps=eps,
+                table_dtype=table_dtype)
     if p.device.type == "cpu":
         return fused_bpr_epoch_ref(*args, **opts)
     if p.device.type != "cuda":
@@ -234,8 +307,10 @@ def fused_bpr_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0: int,
 
 
 def _launch_bpr(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg,
-                b1, b2, eps):
+                b1, b2, eps, table_dtype):
     state = (p, q, mp, vp, mq, vq)
+    # bf16 storage: the kernel's prologue rounds the state on entry.
+    bf16 = _table_dtype(table_dtype)
     _contiguous("fused_bpr_epoch", (*state, u_idx, i_idx, j_idx))
     steps, b = u_idx.shape
     u_n, i_n, d = p.shape[0], q.shape[0], p.shape[1]
@@ -256,7 +331,7 @@ def _launch_bpr(p, q, mp, vp, mq, vq, u_idx, i_idx, j_idx, t0, *, lr, reg,
             loss, bar)
     a = _BprArgs(*(t.data_ptr() for t in ptrs), U=u_n, I=i_n, d=d,
                  steps=steps, B=b, blocks=plan["blocks"], vec=vec, lr=lr,
-                 reg=reg, eps=eps, b1=b1, b2=b2)
+                 reg=reg, eps=eps, b1=b1, b2=b2, bf16=int(bf16))
     fn = lib.bpr_epoch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -428,7 +503,8 @@ class _BprArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("U", "I", "d", "steps", "B",
                                                "blocks", "vec")]
                 + [(n, ctypes.c_float) for n in ("lr", "reg", "eps")]
-                + [(n, ctypes.c_double) for n in ("b1", "b2")])
+                + [(n, ctypes.c_double) for n in ("b1", "b2")]
+                + [("bf16", ctypes.c_int)])
 
 
 class _GmfArgs(ctypes.Structure):
@@ -775,13 +851,19 @@ def _cols(t):
 def fused_rows_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
                          planes, floats, t0: int, *, sides, row_loss,
                          lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
-                         eps: float = ADAM_EPS):
+                         eps: float = ADAM_EPS, table_dtype=torch.float32):
     """Plain version of ``fused_rows_epoch``: per step, each plane's rows
     gathered (its side's tables side by side, zero past a table), the
     model's ``row_loss`` over them differentiated with autograd, the row
-    grads scattered back with ``index_add_``, then dense Adam.  Same
-    arguments as the wrapper, with ``row_loss`` for its ``spec``."""
+    grads scattered back with ``index_add_``, then dense Adam; bf16
+    storage rounds at the wrapper's points.  Same arguments as the
+    wrapper, with ``row_loss`` for its ``spec``."""
     pu, qi, mpu, mqi, vpu, vqi = map(_side, (pu, qi, mpu, mqi, vpu, vqi))
+    bf16 = _table_dtype(table_dtype)
+    if bf16:
+        _store_bf16((*pu, *qi, *dense, *mpu, *mqi, *mdense, *vpu, *vqi,
+                     *vdense))
+    put = _bf16 if bf16 else (lambda y: y)
     tables = {"u": (pu, mpu, vpu), "i": (qi, mqi, vqi)}
     n_planes, n_users = len(planes), pu[0].shape[0]
     steps = planes[0].shape[0]
@@ -799,24 +881,27 @@ def fused_rows_epoch_ref(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
             leaves = [r.requires_grad_() for r in rows] + [
                 x.detach().requires_grad_() for x in dense]
             loss = row_loss(tuple(leaves[:n_planes]),
-                            tuple(f[s][:, None] for f in floats),
+                            tuple(put(f[s])[:, None] for f in floats),
                             tuple(leaves[n_planes:]), w)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         losses[s] = loss
+        # bf16 storage rounds each plane's row gradients before the
+        # scatter; the dense gradients stay f32.
+        row_grads = [put(grads[p]) for p in range(n_planes)]
         quads = []
         for sd, (params, ms, vs) in tables.items():
             off = 0
             for x, m, v in zip(params, ms, vs):
                 width = _cols(x).shape[1]
                 g = _scatter(_cols(x), *(
-                    (spare[p], grads[p][:, off:off + width])
+                    (spare[p], row_grads[p][:, off:off + width])
                     for p in range(n_planes) if sides[p] == sd))
                 quads.append((x, m, v, g.reshape(x.shape)))
                 off += width
         quads += [(x, m, v, torch.zeros_like(x) if g is None else g)
                   for x, m, v, g in zip(dense, mdense, vdense,
                                         grads[n_planes:])]
-        _adam_dense(quads, t0 + s + 1, lr, b1, b2, eps)
+        _adam_dense(quads, t0 + s + 1, lr, b1, b2, eps, bf16=bf16)
     return losses.sum()
 
 
@@ -961,7 +1046,7 @@ def _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
 def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
                      planes, floats, t0: int, *, sides, spec: dict,
                      lr: float, b1: float = ADAM_B1, b2: float = ADAM_B2,
-                     eps: float = ADAM_EPS):
+                     eps: float = ADAM_EPS, table_dtype=torch.float32):
     """One multi-plane epoch (social-triple family, LRML) with dense Adam,
     in place.
 
@@ -977,18 +1062,26 @@ def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
     ``spec`` is the model's ``fused_rows_spec()``: the kernel takes its
     form (``rows_epoch_plan``), the plain version its ``row_loss``.
     Updates every state tensor in place and returns the summed per-step
-    loss (a 0-dim f32 tensor); no correction is due."""
+    loss (a 0-dim f32 tensor); no correction is due.
+
+    ``table_dtype=torch.bfloat16`` is bf16 storage, with the rounding
+    points of the JAX kernel (pallas_train.py ``_rows_kernel``, 679-776):
+    every state tensor rounded to bf16 on entry, the float columns
+    rounded to bf16, each plane's row gradients rounded to bf16 before
+    the scatter (the dense gradients summed in f32), and Adam in f32
+    rounding p, m and v on write; the tensors stay f32."""
     pu, qi, mpu, mqi, vpu, vqi = map(_side, (pu, qi, mpu, mqi, vpu, vqi))
     dense, mdense, vdense = tuple(dense), tuple(mdense), tuple(vdense)
     planes, floats, sides = tuple(planes), tuple(floats), tuple(sides)
     _check_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
                 floats, sides)
+    _table_dtype(table_dtype)
     args = (pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
             floats, int(t0))
     if pu[0].device.type == "cpu":
         return fused_rows_epoch_ref(*args, sides=sides,
                                     row_loss=spec["row_loss"], lr=lr, b1=b1,
-                                    b2=b2, eps=eps)
+                                    b2=b2, eps=eps, table_dtype=table_dtype)
     if pu[0].device.type != "cuda":
         raise ValueError(f"fused_rows_epoch: no kernel for device "
                          f"{pu[0].device}")
@@ -997,7 +1090,8 @@ def fused_rows_epoch(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense,
     if sides != ("u",) + ("i",) * plan["items"]:
         raise ValueError(f"fused_rows_epoch: sides {sides} differ from the "
                          "spec's planes")
-    return _launch_rows(*args, plan=plan, lr=lr, b1=b1, b2=b2, eps=eps)
+    return _launch_rows(*args, plan=plan, lr=lr, b1=b1, b2=b2, eps=eps,
+                        table_dtype=table_dtype)
 
 
 # On the card the state stays in device memory whatever its size: the
@@ -1019,7 +1113,7 @@ class _RowsArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("form", "mem", "rows",
                                                "blocks", "slice", "vec",
                                                "smem_bytes")]
-                + [("margin", ctypes.c_float)])
+                + [("margin", ctypes.c_float), ("bf16", ctypes.c_int)])
 
 
 def rows_vec(tables) -> bool:
@@ -1062,7 +1156,7 @@ def _check_rows_lrml(pu, qi, dense, floats, plan):
 
 
 def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
-                 floats, t0, *, plan, lr, b1, b2, eps):
+                 floats, t0, *, plan, lr, b1, b2, eps, table_dtype):
     lrml = plan["form"] == "lrml"
     if lrml:
         _check_rows_lrml(pu, qi, dense, floats, plan)
@@ -1071,6 +1165,8 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
     params = (*pu, *qi, *dense)
     _contiguous("fused_rows_epoch", (*params, *mpu, *mqi, *mdense, *vpu,
                                      *vqi, *vdense, *planes, *floats))
+    # bf16 storage: the kernel rounds the state on entry.
+    bf16 = _table_dtype(table_dtype)
     steps, b = planes[0].shape
     (p, q), d = params[:2], pu[0].shape[1]
     if max(p.numel(), q.numel(), steps, b, t0 + steps,
@@ -1094,7 +1190,7 @@ def _launch_rows(pu, qi, dense, mpu, mqi, mdense, vpu, vqi, vdense, planes,
                   slice=plan["slice"],
                   vec=int(rows_vec(params if lrml else (p, q))),
                   smem_bytes=plan.get("smem_bytes", 0),
-                  margin=plan.get("margin", 0.0))
+                  margin=plan.get("margin", 0.0), bf16=int(bf16))
     for key, group in (("p", params), ("m", (*mpu, *mqi, *mdense)),
                        ("v", (*vpu, *vqi, *vdense)), ("g", grads)):
         getattr(a, key)[:len(group)] = [x.data_ptr() for x in group]
@@ -1150,16 +1246,55 @@ def cml_sentinel_bias(margin: float, item_nums: int, neg_ratio: int) -> float:
     return margin * math.log(item_nums / neg_ratio + 1.0)
 
 
+def _cml_covariance(p, q, reg, frozen):
+    """The covariance regulariser of one CML step over concat(Q, P) on
+    the tables before the step: (its gradient on P, on Q, its loss).
+    ``frozen`` (the grouped epoch's launches; None otherwise): (ur, n_out,
+    sum_a, sum_a2, sum_sq, col_sum [d]), the slice's real rows P[:ur] and
+    the n_out real user rows outside it, which enter the population
+    through their partial sums (a: a row's sum, sq: its squared norm,
+    col_sum: their column sums) and get no gradient (pallas_train.py
+    ``_cml_kernel``, 1446-1503)."""
+    n_users = p.shape[0]
+    if frozen is None:
+        n_rows = n_users + q.shape[0]
+        x = torch.cat([q, p])
+        xc = x - x.sum(dim=0) / n_rows
+        s_r = xc.sum(dim=1, keepdim=True)
+        g_cov = (2.0 * reg / n_rows) * (s_r - xc)
+        loss = reg * (torch.sum(s_r * s_r) - torch.sum(xc * xc)) / n_rows
+        return g_cov[-n_users:], g_cov[:-n_users], loss
+    ur, n_out, sum_a, sum_a2, sum_sq, col_sum = frozen
+    ur = int(ur)
+    n_rows = float(ur) + q.shape[0] + float(n_out)
+    x = torch.cat([q, p[:ur]])
+    mu = (x.sum(dim=0) + col_sum) / n_rows
+    xc = x - mu
+    s_r = xc.sum(dim=1, keepdim=True)
+    g_cov = (2.0 * reg / n_rows) * (s_r - xc)
+    # The frozen rows' terms around the mean: sum_r (a_r - sum(mu))^2 and
+    # sum_r |x_r - mu|^2 from their partial sums.
+    ms = mu.sum()
+    frozen_s2 = sum_a2 - 2.0 * ms * sum_a + n_out * ms * ms
+    frozen_xc2 = sum_sq - 2.0 * torch.sum(col_sum * mu) + n_out * torch.sum(
+        mu * mu)
+    loss = reg * ((torch.sum(s_r * s_r) + frozen_s2)
+                  - (torch.sum(xc * xc) + frozen_xc2)) / n_rows
+    g_p = torch.zeros_like(p)
+    g_p[:ur] = g_cov[q.shape[0]:]
+    return g_p, g_cov[:q.shape[0]], loss
+
+
 @torch.no_grad()
 def fused_cml_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
                         *, lr: float, reg: float, margin: float,
                         item_nums: int, b1: float = ADAM_B1,
-                        b2: float = ADAM_B2, eps: float = ADAM_EPS):
+                        b2: float = ADAM_B2, eps: float = ADAM_EPS,
+                        frozen=None):
     """Plain version of ``fused_cml_epoch``: the same per-step arithmetic
     in PyTorch ops, ``index_add_`` for the scatter.  Same arguments and
     result; updates the state in place."""
     steps, _, k = n_idx.shape
-    n_users, n_rows = p.shape[0], p.shape[0] + q.shape[0]
     width = cml_width(p, q, mp, vp, mq, vq)
     bcs = _epoch_bias_corrections(t0, steps, b1, b2)
     big = torch.iinfo(torch.int64).max
@@ -1180,15 +1315,10 @@ def fused_cml_epoch_ref(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
         c = (2.0 * wlog * (slack > 0))[:, None]
         qs, sel = _rows(q, sel)
         # The covariance regulariser over concat(Q, P), before the step.
-        x = torch.cat([q, p])
-        xc = x - x.sum(dim=0) / n_rows
-        s_r = xc.sum(dim=1, keepdim=True)
-        g_cov = (2.0 * reg / n_rows) * (s_r - xc)
-        losses[s] = torch.sum(wlog * torch.clamp(slack, min=0.0)) + reg * (
-            torch.sum(s_r * s_r) - torch.sum(xc * xc)) / n_rows
-        dp = _scatter(p, (u, c * (qs - qi))) + g_cov[-n_users:]
-        dq = _scatter(q, (i, -c * (pe - qi)), (sel, c * (pe - qs))) + (
-            g_cov[:-n_users])
+        g_p, g_q, cov_loss = _cml_covariance(p, q, reg, frozen)
+        losses[s] = torch.sum(wlog * torch.clamp(slack, min=0.0)) + cov_loss
+        dp = _scatter(p, (u, c * (qs - qi))) + g_p
+        dq = _scatter(q, (i, -c * (pe - qi)), (sel, c * (pe - qs))) + g_q
         _adam_dense(((p, mp, vp, dp), (q, mq, vq, dq)), t0 + s + 1, lr, b1,
                     b2, eps, bcs[s])
     return losses.sum()
@@ -1209,7 +1339,7 @@ def _check_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx):
 def fused_cml_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
                     *, lr: float, reg: float, margin: float, item_nums: int,
                     b1: float = ADAM_B1, b2: float = ADAM_B2,
-                    eps: float = ADAM_EPS):
+                    eps: float = ADAM_EPS, frozen=None):
     """One CML epoch with dense Adam, in place.
 
     p [U, d], q [I, d] f32 tables; mp, vp, mq, vq their Adam moments;
@@ -1224,16 +1354,47 @@ def fused_cml_epoch(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0: int,
     tables before the step; dense Adam at t0 + s + 1.  Updates the six
     state tensors in place and returns the summed per-step loss (a 0-dim
     f32 tensor) that still includes ``cml_sentinel_bias`` per sentinel
-    row."""
+    row.
+
+    ``frozen`` (the grouped epoch's launch of one user group; None
+    otherwise): (ur, n_out, sum_a, sum_a2, sum_sq, col_sum), the real
+    rows P[:ur] of the slice, and the n_out real user rows outside it
+    through their partial sums (row sums a, squared norms sq, col_sum
+    [d] their column sums), as in pallas_train.py:1548-1553: the
+    regulariser's population is n = ur + I + n_out rows, its mean takes
+    col_sum, its loss the frozen rows' terms around the mean, and its
+    gradient reaches only the slice's real rows.  ur and n_out are
+    counts; the sums are numbers or tensors on p's device."""
     _check_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx)
+    if frozen is not None:
+        frozen = _check_frozen(frozen, p)
     args = (p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, int(t0))
     opts = dict(lr=lr, reg=reg, margin=margin, item_nums=item_nums, b1=b1,
-                b2=b2, eps=eps)
+                b2=b2, eps=eps, frozen=frozen)
     if p.device.type == "cpu":
         return fused_cml_epoch_ref(*args, **opts)
     if p.device.type != "cuda":
         raise ValueError(f"fused_cml_epoch: no kernel for device {p.device}")
     return _launch_cml(*args, **opts)
+
+
+def _check_frozen(frozen, p):
+    """``frozen`` with its counts as ints and its sums as f32 tensors on
+    p's device (col_sum [d])."""
+    ur, n_out, *sums = frozen
+    if len(sums) != 4:
+        raise ValueError("frozen must be (ur, n_out, sum_a, sum_a2, sum_sq, "
+                         "col_sum)")
+    ur, n_out = int(ur), int(n_out)
+    if not (0 <= ur <= p.shape[0] and n_out >= 0):
+        raise ValueError(f"frozen: {ur} real rows of a {p.shape[0]}-row "
+                         f"slice, {n_out} outside it")
+    sums = [torch.as_tensor(x, dtype=torch.float32,
+                            device=p.device).contiguous() for x in sums]
+    if sums[3].shape != (p.shape[1],):
+        raise ValueError(f"frozen col_sum {tuple(sums[3].shape)} must be "
+                         f"[{p.shape[1]}]")
+    return (ur, n_out, *sums)
 
 
 class _CmlArgs(ctypes.Structure):
@@ -1247,11 +1408,13 @@ class _CmlArgs(ctypes.Structure):
                                                "K", "blocks", "vec")]
                 + [(n, ctypes.c_float) for n in ("lr", "reg", "margin",
                                                  "item_nums", "eps")]
-                + [(n, ctypes.c_double) for n in ("b1", "b2")])
+                + [(n, ctypes.c_double) for n in ("b1", "b2")]
+                + [(n, _P) for n in ("fsum", "fsa", "fsa2", "fsq")]
+                + [("ur", ctypes.c_int), ("n_out", ctypes.c_float)])
 
 
 def _launch_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0, *, lr, reg,
-                margin, item_nums, b1, b2, eps):
+                margin, item_nums, b1, b2, eps, frozen):
     state = (p, q, mp, vp, mq, vq)
     _contiguous("fused_cml_epoch", (*state, u_idx, i_idx, n_idx))
     steps, b, k = n_idx.shape
@@ -1281,7 +1444,14 @@ def _launch_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0, *, lr, reg,
                  d=d, steps=steps, B=b, K=k,
                  blocks=plan["blocks"], vec=vec, lr=lr, reg=reg,
                  margin=margin, item_nums=float(item_nums), eps=eps, b1=b1,
-                 b2=b2)
+                 b2=b2, ur=p.shape[0], n_out=0.0)
+    if frozen is not None:
+        # The frozen rows' sums on the card, read by the kernel: no other
+        # launch.
+        ur, n_out, sum_a, sum_a2, sum_sq, col_sum = frozen
+        a.fsum, a.fsa, a.fsa2, a.fsq = (x.data_ptr() for x in (
+            col_sum, sum_a, sum_a2, sum_sq))
+        a.ur, a.n_out = ur, float(n_out)
     fn = lib.cml_epoch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -1289,3 +1459,26 @@ def _launch_cml(p, q, mp, vp, mq, vq, u_idx, i_idx, n_idx, t0, *, lr, reg,
         err = fn(ctypes.addressof(a), _stream(dev))
     _launch_ok("cml_epoch", err, lib)
     return loss[steps]
+
+
+# -- the epoch functions by protocol ----------------------------------------
+
+def _mlp_plain(*args, spec: dict, **opts):
+    return fused_mlp_epoch_ref(*args, row_loss=spec["row_loss"], **opts)
+
+
+def _rows_plain(*args, sides, spec: dict, **opts):
+    return fused_rows_epoch_ref(*args, sides=sides,
+                                row_loss=spec["row_loss"], **opts)
+
+
+# The trainer's fused tier calls its epoch functions through one of these
+# (``Trainer.epoch_fns``): the wrappers, and their plain versions under the
+# wrappers' signatures, which run wherever the tensors lie (a check on the
+# card holds a whole trainer epoch of the kernels against them).
+EPOCH_FNS = {"bpr": fused_bpr_epoch, "gmf": fused_gmf_epoch,
+             "mlp": fused_mlp_epoch, "rows": fused_rows_epoch,
+             "cml": fused_cml_epoch}
+PLAIN_EPOCH_FNS = {"bpr": fused_bpr_epoch_ref, "gmf": fused_gmf_epoch_ref,
+                   "mlp": _mlp_plain, "rows": _rows_plain,
+                   "cml": fused_cml_epoch_ref}

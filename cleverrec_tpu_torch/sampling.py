@@ -98,6 +98,27 @@ def build_member_table(sets: dict[int, list[int]], n_entities: int,
     return MemberTable(rows=rows, lens=lens, bits=bits)
 
 
+def permute_rows(table: MemberTable, old_of_new: np.ndarray,
+                 id_range: int) -> MemberTable:
+    """``table``'s rows, lens and bits (numpy) in the order ``old_of_new``
+    [N']: new entity k holds old entity old_of_new[k]'s set, and an entry
+    at or past the table's N entities (a filler slot of the grouped
+    epoch's user order) an empty set: lens 0, rows all ``id_range``, no
+    bit set."""
+    n = len(table.lens)
+    old = np.asarray(old_of_new)
+    filler = old >= n
+    safe = np.where(filler, 0, old)
+    rows = np.asarray(table.rows)[safe]
+    rows[filler] = id_range
+    lens = np.where(filler, 0, np.asarray(table.lens)[safe]).astype(np.int32)
+    bits = None
+    if table.bits is not None:
+        bits = np.asarray(table.bits)[safe]
+        bits[filler] = 0
+    return MemberTable(rows=rows, lens=lens, bits=bits)
+
+
 def table_to(table: MemberTable, device) -> MemberTable:
     """The table's arrays as tensors on ``device`` (None stays None)."""
     return MemberTable(*(None if a is None else torch.as_tensor(a,

@@ -45,7 +45,31 @@ trained through one of two tiers:
   ``fused_rows_spec`` (the social BPR chain, or LRML's form), invalid
   slots at the sentinel ids, masked in the kernel, with no correction
   (``train.fused_stream`` selects the same kernel: on the card the state
-  stays in device memory either way);
+  stays in device memory either way).  The config shapes the tier as the
+  JAX trainer's capacity tiers do, less their VMEM planning, which has no
+  counterpart on the card (``_fused_options``; one log line says what
+  runs):
+
+  - the grouped epoch (``train.fused_groups`` G > 1, on the BPR, GMF,
+    MLP/NeuMF and CML protocols; the rows protocol raises): users dealt
+    to G groups of equal pair mass once a run (``_build_group_plan``),
+    each group's whole epoch drawn in the permuted id space
+    (``_sample_fused_groups``) and trained by one launch of the same
+    epoch kernel on that group's slice of the user state
+    (``_fused_grouped_epoch``): block-coordinate Adam, a user row's
+    moments advancing only in its group's steps, items and dense params
+    every step, CML's covariance regulariser spanning the frozen rows
+    through their partial sums; the state is back in user order after
+    the epoch, so checkpoints, resume and evaluation see no difference;
+  - bf16 state storage (``train.fused_bf16``, on the BPR and rows
+    protocols): the state rounded to bf16 on entry and on every write,
+    row gradients rounded before their sums, f32 arithmetic; it yields to
+    the grouped epoch and to ``train.fused_stream`` (both f32, as in the
+    JAX trainer) and declines, to f32, where a padded table reaches
+    32,768 rows;
+  - ``train.fused_grouped``: in JAX the grouped epoch where the resident
+    one overflows VMEM; on the card it never does, so it changes
+    nothing (as ``train.sparse_rows`` below);
 - the lazy row-Adam tier (``train.sparse_rows_force``; BPR and the
   social-triple family with Adam): per step, autograd of the model's
   ``fused_rows_spec`` row loss over the gathered rows, then
@@ -114,11 +138,9 @@ from cleverrec_tpu_torch.evalx import Evaluator
 from cleverrec_tpu_torch.models.base import RecModel
 from cleverrec_tpu_torch.ops.sparse_adam import (dense_adam_leaf,
                                                  sparse_rows_adam)
-from cleverrec_tpu_torch.ops.train import (LOG2, _cols, _side,
-                                           cml_sentinel_bias,
-                                           fused_bpr_epoch, fused_cml_epoch,
-                                           fused_gmf_epoch, fused_mlp_epoch,
-                                           fused_rows_epoch, mlp_epoch_plan,
+from cleverrec_tpu_torch.ops.train import (EPOCH_FNS, LOG2, _cols, _side,
+                                           bf16_fits, cml_sentinel_bias,
+                                           grouped_rows, mlp_epoch_plan,
                                            rows_epoch_plan, sentinel_dims)
 from cleverrec_tpu_torch.train import checkpoint
 
@@ -128,14 +150,15 @@ HISTORY_WIDTHS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 # Options of the JAX trainer that the port does not have yet, each with
 # the test that it is set and where ROADMAP.md queues it.  A set option
 # raises rather than be ignored.
-_TIERS = "queue 1, item 17 (the trainer's VMEM-capacity tiers)"
 _UNPORTED = (
-    ("train.fused_bf16", lambda c, k: c.bool(k), _TIERS),
-    ("train.fused_grouped", lambda c, k: c.bool(k), _TIERS),
-    ("train.fused_groups", lambda c, k: c.int(k, 0) > 1, _TIERS),
     ("profile.dir", lambda c, k: bool(c.get(k)),
      "queue 1, item 4 (the port's benchmark and traces)"),
 )
+# The protocols whose fused epoch has a grouped form
+# (cleverrec_tpu/train/trainer.py:867-1319), and those with bf16 storage.
+GROUPED_PROTOCOLS = ("pairwise_bpr", "pointwise_bce", "pointwise_mlp",
+                     "cml_hinge")
+BF16_PROTOCOLS = ("pairwise_bpr", "rows")
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -186,6 +209,13 @@ def _split_back(tensors, names, joined):
         off += width
 
 
+def _p_stats(x):
+    """(sum_a, sum_a2, sum_sq, col_sum) over the rows of x [N, d]: a is a
+    row's sum, sq its squared norm (zero rows add nothing)."""
+    row_a = x.sum(dim=1)
+    return (row_a.sum(), (row_a * row_a).sum(), (x * x).sum(), x.sum(dim=0))
+
+
 class Trainer:
     """Trains ``model`` on ``data`` on ``device`` (default ``cuda``; the
     model is moved there) and evaluates it with the ``Evaluator``."""
@@ -196,6 +226,12 @@ class Trainer:
             raise NotImplementedError(
                 "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
         _refuse_unported(cfg)
+        if (cfg.int("train.fused_groups", 0) > 1
+                and getattr(model, "fused_protocol", None) == "rows"):
+            raise ValueError(
+                f"train.fused_groups: {model.name}'s rows epoch has no "
+                "grouped form (the JAX trainer's grouped epoch takes the "
+                f"{', '.join(GROUPED_PROTOCOLS)} protocols); unset it")
         self.dd: DeviceData = build_device_data(data)
         pop_cdf = popularity_cdf(self.dd, cfg, model.sampler)
         self.device = resolve_device(device)
@@ -236,8 +272,23 @@ class Trainer:
             if isinstance(a, np.ndarray)}
         self._buckets = self._build_buckets(pos_u, pos_i) if bucketed else None
         self.optimizer = make_optimizer(cfg.optimizer, cfg.lr)
+        # The fused tier's form (_fused_options): the grouped epoch's
+        # group count (0: ungrouped) and the state's storage.
+        self._groups, self.table_dtype = 0, torch.float32
+        # The fused tier's epoch functions by protocol: the kernels'
+        # wrappers (ops.train.PLAIN_EPOCH_FNS holds their plain versions).
+        self.epoch_fns = dict(EPOCH_FNS)
         self.sparse_rows = self._sparse_rows_eligible()
         self.fused = not self.sparse_rows and self._fused_epoch_eligible()
+        self._group_plan = (self._build_group_plan(pos_u, pos_i)
+                            if self._groups else None)
+        if not self.fused and logger and (
+                cfg.int("train.fused_groups", 0) > 1
+                or cfg.bool("train.fused_bf16", False)
+                or cfg.bool("train.fused_grouped", False)):
+            logger.info("train.fused_groups, train.fused_bf16 and "
+                        "train.fused_grouped shape the fused epoch tier, "
+                        "which this run does not take")
         self._gen: torch.Generator | None = None
         self._dropout_gen: torch.Generator | None = None
         self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
@@ -451,6 +502,80 @@ class Trainer:
             self._tables["social_neg"] = sampling.MemberTable(
                 self._neg_rows, self._neg_lens, None)
 
+    def _build_group_plan(self, pos_u, pos_i) -> dict:
+        """The grouped epoch's plan, built once a run
+        (cleverrec_tpu/train/trainer.py:905-1040): users sorted by pair
+        count (stable), heaviest first, dealt to the G groups in snake
+        order, a user's slot in its group its round, so that each group
+        holds the same pair mass; ``new_of_old`` [U] and ``old_of_new``
+        [G * rows] (a filler slot holds U, a zero pad row).  Each group's
+        pairs in the permuted id space get their own static layout
+        (``pairwise_epoch_static``; pointwise for GMF, MLP and NeuMF; CML
+        the pairwise one at neg_ratio 1) padded to ``steps_eq`` steps, the
+        most any group needs; ``n_sents`` the padding rows of each group,
+        ``grp_counts`` its real users, and ``seen`` the negatives' table
+        with its rows permuted.  The ungrouped layout is dropped."""
+        proto, g_n = self.model.fused_protocol, self._groups
+        un, item_nums, b = self.dd.user_nums, self.dd.item_nums, \
+            self.batch_size
+        rows = grouped_rows(un, g_n)
+        counts = np.bincount(pos_u, minlength=un)
+        rank_of = np.argsort(-counts, kind="stable")
+        r = np.arange(un)
+        rnd, pos = r // g_n, r % g_n
+        g_of_rank = np.where(rnd % 2 == 0, pos, g_n - 1 - pos)
+        new_of_old = np.empty(un, np.int64)
+        new_of_old[rank_of] = g_of_rank * rows + rnd
+        old_of_new = np.full(g_n * rows, un, np.int64)
+        old_of_new[new_of_old] = r
+        neg = self.model_aux.get("social_neg", self.dd.seen)
+        seen = sampling.permute_rows(neg, old_of_new, item_nums)
+        pos_up = new_of_old[pos_u]
+        order = np.argsort(pos_up, kind="stable")
+        pos_up, pos_ip = pos_up[order].astype(np.int32), pos_i[order]
+        bounds = np.searchsorted(pos_up, np.arange(g_n + 1) * rows)
+        per_pair = {"pairwise_bpr": self.neg_ratio, "cml_hinge": 1}.get(
+            proto, 1 + self.neg_ratio)
+        if proto in ("pairwise_bpr", "cml_hinge"):
+            static_fn = sampling.pairwise_epoch_static
+            static_neg = self.neg_ratio if proto == "pairwise_bpr" else 1
+        else:
+            static_fn, static_neg = (sampling.pointwise_epoch_static,
+                                     self.neg_ratio)
+        pairs = np.diff(bounds)
+        steps_eq = max(1, max(cdiv(int(n) * per_pair, b) for n in pairs))
+        padded = steps_eq * b
+        statics = [static_fn(pos_up[lo:hi], pos_ip[lo:hi], seen.lens,
+                             item_nums, padded, static_neg)
+                   for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+        def put(a):
+            return torch.as_tensor(a, device=self.device)
+
+        plan = {"rows": rows, "new_of_old": new_of_old,
+                "old_of_new": old_of_new, "statics": statics,
+                "steps_eq": steps_eq,
+                "n_sents": [padded - int(n) * per_pair for n in pairs],
+                "rows_total": [int(n) * per_pair for n in pairs],
+                "grp_counts": np.bincount(g_of_rank, minlength=g_n),
+                "seen": seen,
+                "dev": {"statics": [{k: put(v) for k, v in st.items()}
+                                    for st in statics],
+                        "seen": sampling.MemberTable(
+                            put(seen.rows), put(seen.lens),
+                            put(seen.bits) if self._pop_cdf is not None
+                            and seen.bits is not None else None),
+                        "old": put(old_of_new), "new": put(new_of_old)}}
+        self._static = {}
+        self.steps_per_epoch = g_n * steps_eq
+        if self.logger:
+            self.logger.info(
+                "grouped fused epoch: %d user groups x %d rows, %d steps a "
+                "group", g_n, rows, steps_eq,
+                extra={"groups": {"groups": g_n, "rows": rows,
+                                  "steps": steps_eq}})
+        return plan
+
     def _warm_start_keys(self) -> tuple[str, ...]:
         """The warm-start keys set in the config: all of the model's
         ``pretrain_keys`` or none.  A key the model does not read, or
@@ -516,12 +641,68 @@ class Trainer:
                 self.logger.info("fused epoch kernel skipped (%s); using the "
                                  "scan tier", e)
             return False
-        if (proto == "rows" and self.logger
-                and self.cfg.bool("train.fused_stream", False)):
-            self.logger.info("train.fused_stream: the streamed rows epoch is "
-                             "the same kernel here (the state stays in "
-                             "device memory)")
+        self._fused_options(proto)
         return True
+
+    def _fused_options(self, proto: str) -> None:
+        """The fused tier's form, from the options the config names
+        (cleverrec_tpu/train/trainer.py:337-476, less its VMEM planning,
+        which has no counterpart on the card):
+
+        - ``train.fused_groups`` G > 1: the grouped epoch with G user
+          groups (``_build_group_plan``) on the ``GROUPED_PROTOCOLS``
+          (the rows protocol raised in ``__init__``);
+        - ``train.fused_bf16``: bf16 state storage on the
+          ``BF16_PROTOCOLS``, unless the grouped epoch or
+          ``train.fused_stream`` takes precedence (both store f32 in the
+          JAX trainer) or a padded table reaches ``BF16_MAX_ROWS`` rows
+          (the JAX planners' decline); other protocols store f32;
+        - ``train.fused_grouped``: in JAX the grouped epoch where the
+          resident one overflows VMEM; the card's resident epoch never
+          overflows, so it changes nothing;
+        - ``train.fused_stream`` (rows): the same kernel here, the state
+          in device memory either way.
+
+        One log line says what runs."""
+        cfg, notes = self.cfg, []
+        groups = cfg.int("train.fused_groups", 0)
+        if groups > 1:
+            self._groups = groups
+            notes.append(f"the grouped epoch, {groups} user groups "
+                         "(train.fused_groups; block-coordinate Adam over "
+                         "the user table, f32)")
+        stream = proto == "rows" and cfg.bool("train.fused_stream", False)
+        if stream:
+            notes.append("train.fused_stream: the streamed rows epoch is "
+                         "the same kernel here (the state stays in device "
+                         "memory)")
+        if cfg.bool("train.fused_bf16", False):
+            heights = sentinel_dims(self.dd.user_nums, self.dd.item_nums)
+            if proto not in BF16_PROTOCOLS:
+                notes.append(f"train.fused_bf16 does not apply: the {proto} "
+                             "epoch stores f32, as in the JAX trainer")
+            elif self._groups:
+                notes.append("train.fused_bf16 yields to the grouped epoch, "
+                             "which stores f32")
+            elif stream:
+                notes.append("train.fused_bf16 yields to train.fused_stream, "
+                             "which stores f32")
+            elif not bf16_fits(self.dd.user_nums, self.dd.item_nums):
+                notes.append(f"train.fused_bf16 declined: a padded table of "
+                             f"{max(heights)} rows is past bf16 storage's "
+                             "32767; the epoch stores f32")
+            else:
+                self.table_dtype = torch.bfloat16
+                notes.append("bf16 state storage (f32 compute, "
+                             "train.fused_bf16)")
+        if cfg.bool("train.fused_grouped", False):
+            notes.append("train.fused_grouped changes nothing: the resident "
+                         "epoch has no VMEM ceiling to overflow on the card")
+        if notes and self.logger:
+            self.logger.info("fused epoch kernel: %s", "; ".join(notes),
+                             extra={"fused_form": {
+                                 "groups": self._groups,
+                                 "storage": str(self.table_dtype)}})
 
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict:
@@ -536,6 +717,8 @@ class Trainer:
             raise RuntimeError("call init_state first")
         if self.model.sampler == "dual":
             return self._sample_dual()
+        if self._group_plan is not None:
+            return self._sample_fused_groups()
         if self._grid is not None:
             return self._sample_grouped()
         if self._buckets is not None:
@@ -552,18 +735,36 @@ class Trainer:
         head = (self._gen, self._static, self._neg_rows, self._neg_lens)
         lists = {"sbpr": ("spu_csr",), "tbpr": ("ts_csr", "tw_csr")}.get(
             self.model.sampler, ())
-        tensors_fn = {"sbpr": sampling.sbpr_epoch_tensors,
-                      "tbpr": sampling.tbpr_epoch_tensors,
-                      "pointwise": sampling.pointwise_epoch_tensors,
-                      "pairwise": sampling.pairwise_epoch_tensors,
-                      "cml": functools.partial(sampling.cml_epoch_tensors,
-                                               neg_ratio=self.neg_ratio)}[
-                          self.model.sampler]
         pop = ({"pop_cdf": self._pop_cdf, "bits": self._neg_bits}
                if self._pop_cdf is not None else {})
-        return tensors_fn(*head, *(self._csr[n] for n in lists),
-                          self._epoch_rows, self.steps_per_epoch,
-                          self.batch_size, **pop)
+        return self._tensors_fn()(*head, *(self._csr[n] for n in lists),
+                                  self._epoch_rows, self.steps_per_epoch,
+                                  self.batch_size, **pop)
+
+    def _tensors_fn(self):
+        """The model's whole-epoch sampler of ``sampling``."""
+        return {"sbpr": sampling.sbpr_epoch_tensors,
+                "tbpr": sampling.tbpr_epoch_tensors,
+                "pointwise": sampling.pointwise_epoch_tensors,
+                "pairwise": sampling.pairwise_epoch_tensors,
+                "cml": functools.partial(sampling.cml_epoch_tensors,
+                                         neg_ratio=self.neg_ratio)}[
+                                             self.model.sampler]
+
+    def _sample_fused_groups(self) -> dict:
+        """The grouped epoch's draw: ``groups``, each group's whole epoch
+        of ``steps_eq`` steps in the permuted id space, drawn in group
+        order from the trainer's generator over the group's static
+        layout and the permuted seen table."""
+        plan, dev = self._group_plan, self._group_plan["dev"]
+        seen = dev["seen"]
+        pop = ({"pop_cdf": self._pop_cdf, "bits": seen.bits}
+               if self._pop_cdf is not None else {})
+        fn = self._tensors_fn()
+        return {"groups": [
+            fn(self._gen, static, seen.rows, seen.lens, total,
+               plan["steps_eq"], self.batch_size, **pop)
+            for static, total in zip(dev["statics"], plan["rows_total"])]}
 
     def _seen_table(self) -> sampling.MemberTable:
         """The table the item negatives avoid, as tensors."""
@@ -641,9 +842,10 @@ class Trainer:
 
     def _run_epoch(self, params, opt_state, tensors):
         """Train one epoch on given sampled tensors ([steps, B] each, the
-        grouped epoch's ``j`` and ``perm``, or the bucketed tier's
-        ``buckets``); returns (params, opt_state, mean per-step loss as a
-        0-dim tensor).  ``params`` must be the model's own parameters."""
+        grouped epoch's ``j`` and ``perm``, the bucketed tier's
+        ``buckets``, or the grouped fused epoch's ``groups``); returns
+        (params, opt_state, mean per-step loss as a 0-dim tensor).
+        ``params`` must be the model's own parameters."""
         if self._grid is not None:
             return self._grouped_epoch(params, opt_state, tensors)
         if self._buckets is not None:
@@ -651,6 +853,9 @@ class Trainer:
                                         tensors["buckets"])
         if self.sparse_rows:
             return self._sparse_rows_epoch(params, opt_state, tensors)
+        if self._group_plan is not None:
+            return self._fused_grouped_epoch(params, opt_state,
+                                             tensors["groups"])
         if self.fused:
             return self._fused_epoch(params, opt_state, tensors)
         return self._scan_epoch(params, opt_state, tensors)
@@ -782,26 +987,27 @@ class Trainer:
 
         if proto == "pairwise_bpr":
             (p, mp, vp), (q, mq, vq) = map(with_moments, ("P", "Q"))
-            raw = fused_bpr_epoch(p, q, mp, vp, mq, vq, ids("u", u_sent),
-                                  ids("i", i_sent), ids("j", i_sent), t0,
-                                  lr=lr, reg=self.model.reg)
+            raw = self.epoch_fns["bpr"](
+                p, q, mp, vp, mq, vq, ids("u", u_sent), ids("i", i_sent),
+                ids("j", i_sent), t0, lr=lr, reg=self.model.reg,
+                table_dtype=self.table_dtype)
             loss = raw - self._n_sent * LOG2
         elif proto == "pointwise_bce":
             (p, mp, vp), (q, mq, vq), (h, mh, vh) = map(
                 with_moments, ("P", "Q", "h_gmf"))
-            raw = fused_gmf_epoch(p, q, h, mp, vp, mq, vq, mh, vh,
-                                  ids("u", u_sent), ids("i", i_sent),
-                                  col("y"), t0, lr=lr, reg=self.model.reg)
+            raw = self.epoch_fns["gmf"](
+                p, q, h, mp, vp, mq, vq, mh, vh, ids("u", u_sent),
+                ids("i", i_sent), col("y"), t0, lr=lr, reg=self.model.reg)
             loss = raw - self._n_sent * LOG2
         elif proto == "cml_hinge":
             (p, mp, vp), (q, mq, vq) = map(with_moments, ("P", "Q"))
             negs = torch.where(inval[..., None], i_sent, tensors["negs"]).to(
                 torch.int32).contiguous()
             margin, item_nums = self.model.margin, self.dd.item_nums
-            raw = fused_cml_epoch(p, q, mp, vp, mq, vq, ids("u", u_sent),
-                                  ids("i", i_sent), negs, t0, lr=lr,
-                                  reg=self.model.reg, margin=margin,
-                                  item_nums=item_nums)
+            raw = self.epoch_fns["cml"](
+                p, q, mp, vp, mq, vq, ids("u", u_sent), ids("i", i_sent),
+                negs, t0, lr=lr, reg=self.model.reg, margin=margin,
+                item_nums=item_nums)
             loss = raw - self._n_sent * cml_sentinel_bias(
                 margin, item_nums, self.neg_ratio)
         elif proto == "rows":
@@ -811,9 +1017,9 @@ class Trainer:
                       for name, sd in spec["planes"]]
             state = [x for t in (params, opt_state.mu, opt_state.nu)
                      for x in spec["pack"](t)]
-            loss = fused_rows_epoch(*state, planes,
-                                    [col(n) for n in spec["floats"]], t0,
-                                    sides=sides, spec=spec, lr=lr)
+            loss = self.epoch_fns["rows"](
+                *state, planes, [col(n) for n in spec["floats"]], t0,
+                sides=sides, spec=spec, lr=lr, table_dtype=self.table_dtype)
         else:
             loss = self._fused_mlp(params, opt_state, ids("u", u_sent),
                                    ids("i", i_sent), col("y"), col("w"))
@@ -821,6 +1027,103 @@ class Trainer:
         # trainer: padded steps are Adam steps too.
         opt_state.count += steps
         return params, opt_state, loss / steps
+
+    def _fused_grouped_epoch(self, params, opt_state, groups):
+        """The grouped fused epoch (cleverrec_tpu/train/trainer.py:
+        1042-1282) on each group's draw ``groups[g]``: the user state (P,
+        or MLP's and NeuMF's joined user table, and its moments) permuted
+        into group order with one zero pad row behind the fillers; group
+        g's epoch kernel on its slice of ``rows`` rows, ids shifted by
+        g * rows and invalid slots at ``sentinel_dims(rows, I)``, with
+        Adam from step count + g * steps (block-coordinate: a user row's
+        moments move only in its group's steps; items and dense params
+        every step); CML's launches carry the frozen rows' partial sums,
+        kept as running totals across the groups.  Then the state goes
+        back to the user order, the count advances by G * steps and the
+        loss is the groups' (sentinel terms off) over G * steps."""
+        plan, proto = self._group_plan, self.model.fused_protocol
+        rows, lr, reg = plan["rows"], self.cfg.lr, getattr(self.model,
+                                                          "reg", 0.0)
+        u_sent, i_sent = (n - 1 for n in sentinel_dims(rows,
+                                                       self.dd.item_nums))
+        trio = (params, opt_state.mu, opt_state.nu)
+        mlp = proto == "pointwise_mlp"
+        spec = self.model.fused_mlp_spec() if mlp else None
+        names = spec["u"] if mlp else ("P",)
+        old = plan["dev"]["old"]
+
+        def perm_in(t):
+            x = _joined(t, names)
+            return torch.cat([x, x.new_zeros((1, x.shape[1]))])[old]
+        user = [perm_in(t) for t in trio]
+        if mlp:
+            item = [_joined(t, spec["i"]) for t in trio]
+            dense = [[t[n].detach() for n in spec["dense"]] for t in trio]
+        else:
+            item = [t["Q"].detach() for t in trio]
+        steps = groups[0]["u"].shape[0]
+        count = opt_state.count
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        if proto == "cml_hinge":
+            tot = _p_stats(user[0])
+            bias = cml_sentinel_bias(self.model.margin, self.dd.item_nums,
+                                     self.neg_ratio)
+        for g, draw in enumerate(groups):
+            g0 = g * rows
+            inval = draw["w"] == 0
+            u = torch.where(inval, u_sent, draw["u"] - g0).to(
+                torch.int32).contiguous()
+            i = torch.where(inval, i_sent, draw["i"]).to(
+                torch.int32).contiguous()
+            p, mp, vp = (x[g0:g0 + rows] for x in user)
+            t0 = count + g * steps
+            n_sent = plan["n_sents"][g]
+            if proto == "pairwise_bpr":
+                j = torch.where(inval, i_sent, draw["j"]).to(
+                    torch.int32).contiguous()
+                raw = self.epoch_fns["bpr"](p, item[0], mp, vp, item[1],
+                                            item[2], u, i, j, t0, lr=lr,
+                                            reg=reg)
+                total = total + (raw - n_sent * LOG2)
+            elif proto == "pointwise_bce":
+                h = [t["h_gmf"].detach() for t in trio]
+                raw = self.epoch_fns["gmf"](
+                    p, item[0], h[0], mp, vp, item[1], item[2], h[1], h[2],
+                    u, i, draw["y"].to(torch.float32).contiguous(), t0,
+                    lr=lr, reg=reg)
+                total = total + (raw - n_sent * LOG2)
+            elif proto == "cml_hinge":
+                negs = torch.where(inval[..., None], i_sent, draw["negs"]).to(
+                    torch.int32).contiguous()
+                res = _p_stats(p)
+                fro = tuple(a - b for a, b in zip(tot, res))
+                ur = int(plan["grp_counts"][g])
+                raw = self.epoch_fns["cml"](
+                    p, item[0], mp, vp, item[1], item[2], u, i, negs, t0,
+                    lr=lr, reg=reg, margin=self.model.margin,
+                    item_nums=self.dd.item_nums,
+                    frozen=(ur, self.dd.user_nums - ur, *fro))
+                tot = tuple(a + b for a, b in zip(fro, _p_stats(p)))
+                total = total + (raw - n_sent * bias)
+            else:
+                col = {k: draw[k].to(torch.float32).contiguous()
+                       for k in ("y", "w")}
+                total = total + self.epoch_fns["mlp"](
+                    p, item[0], dense[0], mp, item[1], dense[1], vp,
+                    item[2], dense[2], u, i, col["y"], col["w"], t0,
+                    spec=spec, lr=lr)
+        new = plan["dev"]["new"]
+        for t, x in zip(trio, user):
+            back = x[new]
+            if len(names) == 1:
+                t[names[0]].detach().copy_(back)
+            else:
+                _split_back(t, names, back)
+        if mlp:
+            for t, x in zip(trio, item):
+                _split_back(t, spec["i"], x)
+        opt_state.count = count + len(groups) * steps
+        return params, opt_state, total / (len(groups) * steps)
 
     def _fused_mlp(self, params, opt_state, u, i, y, w):
         """The tower epoch over the model's spec: each side's tables joined
@@ -832,8 +1135,8 @@ class Trainer:
         for t in (params, opt_state.mu, opt_state.nu):
             state += [_joined(t, spec["u"]), _joined(t, spec["i"]),
                       [t[n].detach() for n in spec["dense"]]]
-        raw = fused_mlp_epoch(*state, u, i, y, w, opt_state.count, spec=spec,
-                              lr=self.cfg.lr)
+        raw = self.epoch_fns["mlp"](*state, u, i, y, w, opt_state.count,
+                                    spec=spec, lr=self.cfg.lr)
         for k, t in enumerate((params, opt_state.mu, opt_state.nu)):
             _split_back(t, spec["u"], state[3 * k])
             _split_back(t, spec["i"], state[3 * k + 1])

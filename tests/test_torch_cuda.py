@@ -1567,3 +1567,197 @@ def test_slim_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(got.w, want.w, rtol=1e-5, atol=1e-5)
     users = np.arange(60)
     assert (got.recommend(users, 10) >= 0).all()
+
+
+# -- the capacity tiers' variants: bf16 storage (bpr_epoch, rows_epoch in
+# both forms), CML's frozen partial sums, the grouped trainer epoch -------
+
+# bf16 storage: each output carries bf16 values, and all but a share
+# BF16_OUTLIERS of its elements (at least BF16_MIN_OUTLIERS of them) lie
+# within one bf16 ulp of the plain version's.  The two sum the row
+# gradients in another order (f32 atomics here), so a value near a
+# rounding boundary lands on the neighbouring bf16, and Adam's
+# normalisation carries a flipped moment into its parameter as a step of
+# up to ~lr; over more steps the two trajectories part at the bf16 scale
+# (tools/bf16_drift.py), so the epochs here are 2 steps, as
+# chip_smoke.py's BF16_HELD_STEPS.
+BF16_OUTLIERS, BF16_MIN_OUTLIERS = 2e-3, 2
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _hold_bf16(got, want, label):
+    rounded = got.to(torch.bfloat16).float()
+    assert torch.equal(got, rounded), f"{label}: not bf16"
+    far = (got - want).abs() > _bf16_ulp(torch.maximum(got.abs(),
+                                                       want.abs()))
+    assert int(far.sum()) <= max(BF16_MIN_OUTLIERS,
+                                 BF16_OUTLIERS * far.numel()), (
+        label, int(far.sum()), far.numel())
+
+
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0", [
+    (37, 53, 16, 2, 64, 7), (943, 1682, 128, 2, 6144, 65),
+    (29, 41, 30, 2, 37, 2), (29, 41, 1024, 2, 64, 1)])
+def test_bpr_epoch_bf16_matches_plain(cuda, u_n, i_n, d, steps, b, t0):
+    """bf16 storage in bpr_epoch (the half-warp, warp, scalar and
+    two-pass variants) against the plain version's."""
+    state, ids = _epoch_inputs(u_n, i_n, d, steps, b, t0)
+    got, want = _on_card(state, cuda), _on_card(state, cuda)
+    ids = _on_card(ids, cuda)
+    opts = dict(lr=0.01, reg=0.02, table_dtype=torch.bfloat16)
+    before = T.launches["bpr_epoch"]
+    loss = T.fused_bpr_epoch(*got, *ids, t0, **opts)
+    ref = T.fused_bpr_epoch_ref(*want, *ids, t0, **opts)
+    torch.cuda.synchronize()
+    assert T.launches["bpr_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for name, g, w in zip(("P", "Q", "mP", "vP", "mQ", "vQ"), got, want):
+        _hold_bf16(g, w, name)
+
+
+def _hold_rows_bf16(cuda, kernel, spec, state, planes, floats, t0):
+    got, want = _rows_state(spec, state, cuda), _rows_state(spec, state, cuda)
+    planes = [torch.as_tensor(x).to(cuda) for x in planes]
+    floats = [torch.as_tensor(x).to(cuda) for x in floats]
+    sides = [sd for _, sd in spec["planes"]]
+    opts = dict(sides=sides, lr=0.01, table_dtype=torch.bfloat16)
+    before = dict(T.launches)
+    loss = T.fused_rows_epoch(*got, planes, floats, t0, spec=spec, **opts)
+    ref = T.fused_rows_epoch_ref(*want, planes, floats, t0,
+                                 row_loss=spec["row_loss"], **opts)
+    torch.cuda.synchronize()
+    assert T.launches == {**before, kernel: before[kernel] + 1}
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for k, (g_side, w_side) in enumerate(zip(got, want)):
+        for n, (g, w) in enumerate(zip(g_side, w_side)):
+            _hold_bf16(g, w, f"part {k}, tensor {n}")
+
+
+@pytest.mark.parametrize("u_n,i_n,d,steps,b,t0,masked", [
+    (943, 1682, 128, 3, 6144, 81, 0.15), (29, 41, 18, 3, 64, 2, 0.3)])
+@pytest.mark.parametrize("name", ["SBPR", "TBPR", "CUNE_BPR"])
+def test_rows_epoch_bf16_matches_plain(cuda, name, u_n, i_n, d, steps, b, t0,
+                                       masked):
+    """bf16 storage in rows_epoch's chain (float4 and scalar rows; SBPR's
+    float column and CUNE_BPR's dense s) against the plain version's."""
+    spec, state, planes, floats = _rows_inputs(name, u_n, i_n, d, steps, b,
+                                               t0, masked)
+    # Floats that bf16 does not hold exactly.
+    floats = [f + 1.0 / 3.0 for f in floats]
+    _hold_rows_bf16(cuda, "rows_epoch", spec, state, planes, floats, t0)
+
+
+@pytest.mark.parametrize("u_n,i_n,d,mem,steps,b,t0,masked", [
+    (943, 1682, 128, 50, 3, 6144, 17, 0.1), (29, 41, 18, 7, 3, 64, 2, 0.3)])
+def test_rows_epoch_lrml_bf16_matches_plain(cuda, u_n, i_n, d, mem, steps, b,
+                                            t0, masked):
+    """bf16 storage in LRML's form against the plain version's."""
+    spec, state, planes = _lrml_inputs(u_n, i_n, d, mem, steps, b, t0,
+                                       masked)
+    _hold_rows_bf16(cuda, "rows_epoch_lrml", spec, state, planes, [], t0)
+
+
+@pytest.mark.parametrize("u_n,i_n,d,k,steps,b,t0,ur", [
+    (29, 41, 16, 4, 4, 64, 3, 20), (943, 1682, 128, 20, 3, 6144, 17, 900),
+    (29, 41, 18, 4, 3, 37, 2, 29), (29, 41, 3600, 4, 2, 37, 1, 11)])
+def test_cml_epoch_frozen_matches_plain(cuda, u_n, i_n, d, k, steps, b, t0,
+                                        ur):
+    """cml_epoch with the grouped launch's frozen partial sums against the
+    plain version's: the slice's rows from ur on (random, not the zero
+    fillers of a real launch, to show they stay out of the regulariser)
+    hold no ids; 300 frozen rows enter through their sums."""
+    state, ids = _cml_inputs(u_n, i_n, d, k, steps, b, t0)
+    u_pad = T.sentinel_dims(u_n, i_n)[0]
+    ids[0] = np.where(ids[0] == u_pad - 1, u_pad - 1, ids[0] % ur).astype(
+        np.int32)
+    rng = np.random.default_rng(9)
+    rows = torch.as_tensor(rng.normal(size=(300, d)).astype(np.float32) * 0.1)
+    a = rows.sum(dim=1)
+    frozen = (ur, 300, *(x.to(cuda) for x in (
+        a.sum(), (a * a).sum(), (rows * rows).sum(), rows.sum(dim=0))))
+    got, want = _on_card(state, cuda), _on_card(state, cuda)
+    ids = _on_card(ids, cuda)
+    opts = dict(lr=0.01, reg=10.0, margin=1.0, item_nums=i_n)
+    before = T.launches["cml_epoch"]
+    loss = T.fused_cml_epoch(*got, *ids, t0, **opts, frozen=frozen)
+    ref = T.fused_cml_epoch_ref(*want, *ids, t0, **opts, frozen=frozen)
+    torch.cuda.synchronize()
+    assert T.launches["cml_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
+GROUPED_MODELS = {
+    "BPR": {"is_pairwise": "True", "loss_func": "bpr"},
+    "GMF": {"is_pairwise": "False", "loss_func": "cross_entropy"},
+    "NeuMF": {"is_pairwise": "False", "loss_func": "cross_entropy",
+              "layers": "[32,16]", "reg1": "0.01", "reg2": "0.01"},
+    "CML": {"is_pairwise": "True", "loss_func": "hinge", "margin": "1.0",
+            "reg": "0.1"},
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPED_MODELS))
+def test_grouped_epoch_on_the_card_matches_plain(cuda, tmp_path, name):
+    """One grouped epoch (two user groups) of the trainer on the card,
+    through the kernels and through their plain versions
+    (``ops.train.PLAIN_EPOCH_FNS``) from one state and one draw: one
+    launch a group, the loss and every parameter and moment within the
+    epoch tolerances.  The tower's groups take 2 steps each (ReLU kinks
+    part trajectories over longer runs)."""
+    from cleverrec_tpu_torch.config import Config
+    from cleverrec_tpu_torch.data import load_ranking_data
+    from cleverrec_tpu_torch.models import make_model
+    from cleverrec_tpu_torch.models.base import DataMeta
+    from cleverrec_tpu_torch.train import Trainer
+    cfg = Config({"recommender": name, "topk": "[10]", "embed_size": "32",
+                  "batch_size": "256", "neg_ratio": "3", "lr": "0.01",
+                  "reg": "0.01", "optimizer": "Adam", "stddev": "0.1",
+                  "seed": "3", "train.fused_kernel": "True",
+                  "train.fused_groups": "2", "test.neg_samples": "20",
+                  **GROUPED_MODELS[name], **_ratings(tmp_path, 300, 200,
+                                                     6000)})
+    data = load_ranking_data(cfg)
+    model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                       device=cuda)
+    tr = Trainer(model, data, cfg, device=cuda)
+    assert tr._groups == 2
+    params, state = tr.init_state()
+    draw = tr.sample_epoch()
+    if name == "NeuMF":
+        draw = {"groups": [{k: v[:2] for k, v in g.items()}
+                           for g in draw["groups"]]}
+    before = ({n: p.detach().clone() for n, p in params.items()},
+              {n: m.clone() for n, m in state.mu.items()},
+              {n: v.clone() for n, v in state.nu.items()}, state.count)
+    kernel = {"NeuMF": "mlp_epoch", "GMF": "gmf_epoch",
+              "CML": "cml_epoch"}.get(name, "bpr_epoch")
+    launches = T.launches[kernel]
+    _, state, loss = tr._run_epoch(params, state, draw)
+    torch.cuda.synchronize()
+    assert T.launches[kernel] == launches + 2
+    got = ({n: p.detach().clone() for n, p in params.items()},
+           {n: m.clone() for n, m in state.mu.items()},
+           {n: v.clone() for n, v in state.nu.items()})
+    for t, saved in zip((params, state.mu, state.nu), before[:3]):
+        for n, x in saved.items():
+            t[n].detach().copy_(x)
+    state.count = before[3]
+    tr.epoch_fns = dict(T.PLAIN_EPOCH_FNS)
+    _, state, ref = tr._run_epoch(params, state, draw)
+    torch.cuda.synchronize()
+    assert T.launches[kernel] == launches + 2
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for t, want in zip(got, (params, state.mu, state.nu)):
+        for n, g in t.items():
+            np.testing.assert_allclose(g.cpu().numpy(),
+                                       want[n].detach().cpu().numpy(),
+                                       rtol=EPOCH_RTOL, atol=EPOCH_ATOL,
+                                       err_msg=n)

@@ -331,15 +331,33 @@ def test_fused_tier_eligibility(toy_dataset):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("train.fused_bf16", "True", "item 17"),
-    ("train.fused_groups", "4", "item 17"),
-    ("train.fused_grouped", "True", "item 17"),
     ("profile.dir", "trace", "item 4"),
 ])
 def test_unported_options_raise(toy_dataset, key, value, item):
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(model, data, cfg.with_overrides(**{key: value}), device="cpu")
+
+
+@pytest.mark.parametrize("key,value,groups,dtype", [
+    ("train.fused_bf16", "True", 0, torch.bfloat16),
+    ("train.fused_groups", "4", 4, torch.float32),
+    ("train.fused_grouped", "True", 0, torch.float32),
+])
+def test_capacity_options_select_their_tier(toy_dataset, key, value, groups,
+                                            dtype):
+    """The JAX trainer's capacity options, once refused, select the fused
+    tier's form: bf16 storage, the grouped epoch of that many user
+    groups, or (``train.fused_grouped``, which has no VMEM ceiling to
+    react to on the card) the resident f32 epoch as without it."""
+    (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
+    tr = Trainer(model, data, cfg.with_overrides(
+        **{key: value, "train.fused_kernel": "True"}), device="cpu")
+    assert tr.fused and tr._groups == groups and tr.table_dtype == dtype
+    assert (tr._group_plan is not None) == bool(groups)
+    params, state = tr.init_state()
+    params, state, losses = tr.train_epochs(params, state, 2)
+    assert losses[1] < losses[0] and state.count == 2 * tr.steps_per_epoch
 
 
 def test_popularity_negatives_are_ported(toy_dataset):
