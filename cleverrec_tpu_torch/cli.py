@@ -21,24 +21,37 @@ programs and ``meta.json``) after the run, on ``--device``.  With
 libFM files ``<data.root_dir>/<data.dataset>/<data.dataset><train>`` and
 ``...<test>``, and ``--resume`` and ``--export-serving`` are ignored, as
 the JAX CLI ignores them there.
+
+``--distributed`` initialises the default process group from a
+launcher's environment (``torchrun`` / ``python -m torch.distributed.run``:
+NCCL and ``cuda:LOCAL_RANK`` on the card, gloo with ``--device cpu``);
+``--mesh DxM`` builds a ``data x model`` mesh over that world
+(``parallel/mesh.py``; default with ``--distributed``: every rank on the
+data axis), and training, evaluation, ``--tune`` and ``--resume`` run on
+it, e.g.
+
+    torchrun --nproc-per-node 2 -m cleverrec_tpu_torch.cli --distributed
+             --mesh 2x1 --config CleverRec.properties
+
+Rank 0 alone logs, checkpoints and exports.  A world of another size, a
+model axis longer than 1 in training, ``parallel.exchange=explicit`` and
+a rating run under a mesh exit 2 (the last three: ROADMAP.md queue 1,
+item 16b).
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.utils.logging import get_logger
 
-# Flags of the JAX CLI that the port does not have yet, and where
-# ROADMAP.md queues them.
-_UNPORTED_FLAGS = {
-    "mesh": ("--mesh", "queue 1, item 16 (parallel)"),
-    "distributed": ("--distributed", "queue 1, item 16 (parallel)"),
-}
+ITEM_16B = "ROADMAP.md queue 1, item 16b"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,9 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     p.add_argument("--mesh", default=None, metavar="DxM",
-                   help="not ported yet")
+                   help="device mesh shape over the process group's ranks, "
+                        "e.g. 2x1 = 2-way data parallel (default: one "
+                        "device; with --distributed: every rank on the data "
+                        "axis); a model axis above 1 is not ported yet")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported yet")
+                   help="initialise torch.distributed from the launcher's "
+                        "environment (torchrun): NCCL on cuda:LOCAL_RANK, "
+                        "gloo with --device cpu")
     p.add_argument("--export-serving", default=None, metavar="DIR",
                    help="after training, write a serving bundle "
                         "(retrieval + rerank torch.export programs + "
@@ -74,31 +92,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _logger(cfg: Config, name: str, mesh=None):
+    """The run's logger (``utils.logging.get_logger``); on a rank other
+    than 0 of a mesh a silent one, so that rank 0 alone logs."""
+    if mesh is not None and mesh.rank != 0:
+        silent = logging.getLogger(f"cleverrec_tpu_torch.rank{mesh.rank}")
+        silent.disabled = True
+        return silent
+    return get_logger(cfg.get("log.dir"), name)
+
+
 def run_experiment(cfg: Config, device="cuda", logger=None,
-                   resume_from=None, export_serving=None):
+                   resume_from=None, export_serving=None, mesh=None):
     """Load data, build the model and trainer, run the full loop (from
     the checkpoint ``resume_from`` if given; a ``model_type=rating`` run
     always starts afresh), then write a serving bundle to
     ``export_serving`` if given (not for rating); returns the trainer's
-    best-epoch summary."""
+    best-epoch summary.  Under ``mesh`` (``parallel.Mesh``) the run is on
+    the mesh's device, and rank 0 alone logs and exports."""
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
     from cleverrec_tpu_torch.train import Trainer
 
-    logger = logger or get_logger(cfg.get("log.dir"), cfg.recommender)
+    if mesh is not None:
+        device = mesh.device
+    logger = logger or _logger(cfg, cfg.recommender, mesh)
     logger.info("=" * 80)
     logger.info("Current model: %s", cfg.recommender)
+    if mesh is not None:
+        logger.info("mesh: data=%d x model=%d", mesh.shape["data"],
+                    mesh.shape["model"])
     if cfg.model_type == "rating":
         from cleverrec_tpu_torch.rating import run_rating
-        return run_rating(cfg, logger, device=device)
+        return run_rating(cfg, logger, device=device, mesh=mesh)
     data = load_ranking_data(cfg, rng=np.random.default_rng(cfg.seed),
                              logger=logger)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
                        device=device)
-    trainer = Trainer(model, data, cfg, logger=logger, device=device)
+    trainer = Trainer(model, data, cfg, logger=logger, device=device,
+                      mesh=mesh)
     best = trainer.run(resume_from=resume_from)
-    if export_serving:
+    if export_serving and (mesh is None or mesh.rank == 0):
         from cleverrec_tpu_torch.serving import export_bundle
         manifest = export_bundle(
             model, trainer.aux, trainer.dd, export_serving,
@@ -126,30 +161,77 @@ def main(argv=None) -> int:
         k, v = kv.split("=", 1)
         overrides[k] = v
     cfg = Config.from_properties(args.config, args.conf_dir, overrides)
-    for attr, (flag, where) in _UNPORTED_FLAGS.items():
-        if getattr(args, attr):
-            print(f"{flag} is not ported yet (ROADMAP.md {where})",
-                  file=sys.stderr)
+    try:
+        try:
+            mesh = _mesh(args, cfg)
+        except (RuntimeError, ValueError) as e:
+            print(f"cleverrec-tpu-torch: {e}", file=sys.stderr)
             return 2
+        return _run(args, cfg, mesh)
+    finally:
+        if args.distributed and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh(args, cfg: Config):
+    """The run's mesh from --distributed and --mesh (None without
+    either).  What the port cannot run on a mesh yet, and a world of
+    another size than D * M, raise."""
+    from cleverrec_tpu_torch.parallel import init_distributed, make_mesh
+    from cleverrec_tpu_torch.parallel.mesh import world
+    if not (args.mesh or args.distributed):
+        return None
+    shape = (None, None)
+    if args.mesh:
+        try:
+            shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+            if len(shape) != 2:
+                raise ValueError
+        except ValueError:
+            raise ValueError(
+                f"--mesh {args.mesh!r}: want DxM, e.g. 2x1") from None
+        if shape[1] > 1:
+            raise ValueError(f"--mesh {args.mesh}: a model axis above 1 "
+                             "(row-sharded tables) is not ported yet "
+                             f"({ITEM_16B})")
+    if cfg.model_type == "rating":
+        raise ValueError(f"rating under a mesh is not ported yet "
+                         f"({ITEM_16B})")
+    if cfg.str("parallel.exchange", "gspmd") == "explicit":
+        raise ValueError(f"parallel.exchange=explicit is not ported yet "
+                         f"({ITEM_16B})")
+    device = init_distributed(args.device) if args.distributed \
+        else args.device
+    n = world()[0]
+    if args.mesh and shape[0] * shape[1] != n:
+        raise ValueError(
+            f"--mesh {args.mesh} needs {shape[0] * shape[1]} ranks, the "
+            f"world has {n} (launch with torchrun --nproc-per-node "
+            f"{shape[0] * shape[1]} ... --distributed)")
+    return make_mesh(*shape, device=device)
+
+
+def _run(args, cfg: Config, mesh) -> int:
+    device = args.device if mesh is None else mesh.device
     # --tune and a rating run ignore --resume and --export-serving, as the
     # JAX CLI does.
     if args.tune:
         from cleverrec_tpu_torch.tuning import run_grid
-        logger = get_logger(cfg.get("log.dir"), cfg.recommender + "_tune")
+        logger = _logger(cfg, cfg.recommender + "_tune", mesh)
         if args.resume or args.export_serving:
             logger.info("--resume/--export-serving are ignored with --tune")
-        run_grid(cfg, logger=logger, device=args.device)
+        run_grid(cfg, logger=logger, device=device, mesh=mesh)
         return 0
     if cfg.model_type == "rating":
         # The JAX CLI returns from a rating run before it reads these.
-        logger = get_logger(cfg.get("log.dir"), cfg.recommender)
+        logger = _logger(cfg, cfg.recommender, mesh)
         if args.resume or args.export_serving:
             logger.info("--resume/--export-serving are ignored with "
                         "model_type=rating")
-        run_experiment(cfg, device=args.device, logger=logger)
+        run_experiment(cfg, device=device, logger=logger, mesh=mesh)
         return 0
-    run_experiment(cfg, device=args.device, resume_from=args.resume,
-                   export_serving=args.export_serving)
+    run_experiment(cfg, device=device, resume_from=args.resume,
+                   export_serving=args.export_serving, mesh=mesh)
     return 0
 
 

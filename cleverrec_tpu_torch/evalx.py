@@ -13,7 +13,11 @@
   (``eval.stream_threshold``) unless ``eval.fused_kernel`` is set,
   always with ``eval.stream=true``, never with ``eval.stream=false``;
   chunks of ``eval.stream_chunk`` items (16384 past 262,144 items, else
-  4096).
+  4096); ``full_sharded``, under a mesh (``parallel/mesh.py``), ranks
+  each model rank's slice of the item axis and merges the ranks' top-k
+  over the mesh's ``model`` axis (``ranking.rank_sharded``): any mesh,
+  a ``1 x 1`` one too, sends full-catalog evaluation there, never to the
+  fused kernels or the stream, as the JAX evaluator does.
 
 The test set is stacked once into padded user batches on the device; a
 Python loop ranks each batch and reduces it to per-K metric sums (the
@@ -25,7 +29,7 @@ Evaluator while they fit ``eval.test_bitmap_budget_mb`` (default 512
 MiB), else each batch's, and ``full_stream`` each batch's;
 ``eval.device_bitmaps=false`` turns that off (``full_fused`` then falls
 back to ``full``, the stream masks with the rows), as in the JAX
-evaluator.  The sharded mode comes with the parallel layer.
+evaluator.
 """
 
 from __future__ import annotations
@@ -53,10 +57,12 @@ STREAM_THRESHOLD = 500_000
 
 class Evaluator:
     """Evaluates ``model`` on ``device`` (default ``cuda``; the model is
-    moved there)."""
+    moved there), over ``mesh``'s model axis if given."""
 
-    def __init__(self, model, device_data: DeviceData, cfg, device="cuda"):
+    def __init__(self, model, device_data: DeviceData, cfg, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device)
         self.dd = device_data
         self.cfg = cfg
@@ -69,7 +75,7 @@ class Evaluator:
         # built from the sorted rows unless eval.device_bitmaps is off.
         bitmaps = (device_data.seen.bits is not None
                    or cfg.bool("eval.device_bitmaps", True))
-        fused_ok = (not self.candidate_eval and bitmaps
+        fused_ok = (not self.candidate_eval and bitmaps and mesh is None
                     and hasattr(model, "dot_decomposition"))
         self._use_fused = fused_ok and cfg.bool(
             "eval.fused_kernel", self.device.type == "cuda")
@@ -77,7 +83,7 @@ class Evaluator:
         # an explicit eval.stream wins over everything.
         fused_forced = self._use_fused and "eval.fused_kernel" in cfg
         items = device_data.item_nums
-        stream = not self.candidate_eval and cfg.bool(
+        stream = not self.candidate_eval and mesh is None and cfg.bool(
             "eval.stream", items > cfg.int("eval.stream_threshold",
                                            STREAM_THRESHOLD)
             and not fused_forced)
@@ -90,6 +96,8 @@ class Evaluator:
         self._stream_bits = self.stream_chunk % 32 == 0 and bitmaps
         if self.candidate_eval:
             self.mode = "candidate"
+        elif mesh is not None:
+            self.mode = "full_sharded"
         elif stream:
             self.mode = "full_stream"
         elif self._use_fused:
@@ -110,6 +118,10 @@ class Evaluator:
     def _rank_full(self, aux, u, seen_rows):
         return _pad_masked(*ranking.rank_dense(self.model, aux, u, seen_rows,
                                                self.kmax))
+
+    def _rank_full_sharded(self, aux, u, seen_rows):
+        return _pad_masked(*ranking.rank_sharded(
+            self.model, aux, u, seen_rows, self.kmax, self.mesh))
 
     def _rank_full_fused(self, aux, u, seen_bits=None, seen_rows=None,
                          pre=None):
@@ -137,6 +149,8 @@ class Evaluator:
         if self.mode == "full_stream":
             return self._rank_full_stream(aux, b["u"], b.get("bits"),
                                           b.get("rows"))
+        if self.mode == "full_sharded":
+            return self._rank_full_sharded(aux, b["u"], b["rows"])
         return self._rank_full(aux, b["u"], b["rows"])
 
     # -- batches ------------------------------------------------------------

@@ -2,6 +2,9 @@
 ``cleverrec_tpu/ops/topk.py``): ``topk``, ``merge_topk``, the group-pruned
 ``grouped_topk`` and the chunked ``streaming_topk``.
 
+``sharded_topk_scores`` merges the local top-k of each rank's slice of
+the item axis over a mesh axis (``parallel/mesh.py``).
+
 ``lax.top_k`` breaks ties by the LOWEST index, and the JAX package relies
 on it (candidate eval puts the ground truth last).  ``torch.topk``
 promises no order among equal values, so every selection here orders by
@@ -117,3 +120,22 @@ def streaming_topk(score_chunk_fn: Callable[[torch.Tensor], torch.Tensor],
         best_v, best_i = merge_topk(torch.cat([best_v, scores], dim=1),
                                     torch.cat([best_i, cids], dim=1), k)
     return best_v, best_i
+
+
+def sharded_topk_scores(scores: torch.Tensor, k: int, mesh,
+                        axis: str = "model"):
+    """Global top-k of an item-axis-sharded score matrix
+    (cleverrec_tpu/ops/topk.py:151-173).
+
+    ``scores``: this rank's slice [B, I / n] of the [B, I] scores, the
+    ranks of ``mesh``'s ``axis`` group holding the slices in index order
+    (I padded to a multiple of n with -inf).  Each rank takes its slice's
+    top-k (ids offset to global ones), the group gathers the k * n
+    candidates in rank order, and one merge gives the exact global top-k
+    on every rank: ties go to the lowest item id, as each slice's top-k
+    and the gathered order both keep the lowest first."""
+    shard_i = scores.shape[1]
+    v, i = grouped_topk(scores, min(k, shard_i))
+    i = i + mesh.index(axis) * shard_i
+    return merge_topk(mesh.all_gather(v, axis, dim=1),
+                      mesh.all_gather(i, axis, dim=1), k)

@@ -9,8 +9,9 @@ inside each ranker, before masking (the fused path negates inside the
 dot, so the -3e38 seen mask stays the worst score).  Selection breaks
 ties by the lowest item id, as ``lax.top_k``.
 
-The dense and streaming rankers are plain PyTorch (plain XLA in the JAX
-package); the fused ranker runs the CUDA kernels of ops/scores.py on a
+The dense, sharded and streaming rankers are plain PyTorch (plain XLA in
+the JAX package); the sharded one gathers over a mesh's ``model`` axis
+(``parallel/mesh.py``); the fused ranker runs the CUDA kernels of ops/scores.py on a
 CUDA device and their plain versions on the CPU.
 """
 
@@ -21,7 +22,9 @@ import torch
 from cleverrec_tpu_torch.common import cdiv
 from cleverrec_tpu_torch.ops.scores import (COMB_I, NEG, dot_gmax,
                                             dot_scores)
-from cleverrec_tpu_torch.ops.topk import grouped_topk, streaming_topk, topk
+from cleverrec_tpu_torch.ops.topk import (grouped_topk, sharded_topk_scores,
+                                          streaming_topk, topk)
+from cleverrec_tpu_torch.parallel.sharding import pad_table_for_sharding
 
 # The JAX package's fused path pads the catalog to 4096-item tiles and
 # takes the group-max branch from two tiles up; the port keeps the same
@@ -55,6 +58,25 @@ def rank_dense(model, aux, u, rows, k: int, filter_seen: bool = True):
     """Dense [B, I] scoring + top-k (group-max pruned past 16k items)."""
     return grouped_topk(masked_full_scores(model, aux, u, rows,
                                            filter_seen), k)
+
+
+@torch.no_grad()
+def rank_sharded(model, aux, u, rows, k: int, mesh,
+                 filter_seen: bool = True):
+    """Item-axis-sharded ranking (cleverrec_tpu/ranking.py:52-66): the
+    masked scores' item axis padded with -inf to a multiple of the mesh's
+    model size M, each model rank's top-k of its slice, and the k * M
+    candidates gathered and merged (``ops.topk.sharded_topk_scores``);
+    every rank gets the whole answer, equal to ``rank_dense``'s.  The
+    tables are replicated on the data axis, so a rank computes the row of
+    scores and keeps its slice; a row-sharded item table (ROADMAP.md
+    queue 1, item 16b) would score the slice alone."""
+    scores = masked_full_scores(model, aux, u, rows, filter_seen)
+    n = mesh.shape["model"]
+    scores = pad_table_for_sharding(scores, n, dim=1, value=-torch.inf)
+    width = scores.shape[1] // n
+    lo = mesh.index("model") * width
+    return sharded_topk_scores(scores[:, lo:lo + width], k, mesh)
 
 
 def _seen_in_rows(rows, ids):

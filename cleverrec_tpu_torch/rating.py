@@ -135,10 +135,15 @@ _RATING_MODELS = {"FM": FM, "FFM": FFM}
 
 class FMTrainer:
     """Trains ``model`` on ``data`` on ``device`` (default ``cuda``; the
-    model is moved there)."""
+    model is moved there).  A ``mesh`` raises: FM's feature tables under
+    a mesh wait for the model axis (ROADMAP.md queue 1, item 16b)."""
 
     def __init__(self, model: FM, data: RatingData, cfg: Config, logger=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "rating under a mesh is not ported yet (ROADMAP.md queue 1, "
+                "item 16b)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.data = data
@@ -267,9 +272,11 @@ def make_rating_model(cfg: Config, data: RatingData) -> FM:
     return FM(cfg, data.feature_nums)
 
 
-def run_rating(cfg: Config, logger=None, device="cuda"):
+def run_rating(cfg: Config, logger=None, device="cuda", mesh=None):
     """Load the libFM files, train and test the configured model on
-    ``device``; returns the best epoch's {"rmse", "mae", "epoch"}."""
+    ``device``; returns the best epoch's {"rmse", "mae", "epoch"}.  A
+    ``mesh`` raises (``FMTrainer``)."""
     data = load_rating_data(cfg)
     model = make_rating_model(cfg, data)
-    return FMTrainer(model, data, cfg, logger=logger, device=device).run()
+    return FMTrainer(model, data, cfg, logger=logger, device=device,
+                     mesh=mesh).run()

@@ -7,7 +7,9 @@
   ``dense`` [B, I] scoring in plain PyTorch, ``fused`` (the
   masked-scoring CUDA kernels, for dot-decomposable models), and
   ``stream`` (item chunks with a carried running top-k, memory
-  O(B * chunk), for large catalogs).
+  O(B * chunk), for large catalogs), and ``sharded`` (under a mesh: each
+  model rank's slice of the item axis, the ranks' top-k merged over the
+  mesh's ``model`` axis, ``ranking.rank_sharded``).
 - ``build_rerank_fn``: ``rerank(user_ids, candidate_ids) -> (items,
   scores)`` over an externally retrieved candidate set.
 - ``export_retrieval`` / ``export_rerank`` / ``load_serialized`` /
@@ -19,10 +21,8 @@
   buffers.  A ``fused`` program keeps the scoring kernels as the custom
   ops ``cleverrec::dot_scores`` / ``cleverrec::dot_gmax`` (``ops/scores.py``),
   so it loads only where the port is importable, and a program exported
-  on the card runs only there.
-
-The sharded backend comes with the parallel layer (ROADMAP.md queue 1,
-item 16).
+  on the card runs only there.  The exports take no mesh, as the JAX
+  package's: ``auto`` resolves as without one, and ``sharded`` raises.
 """
 
 from __future__ import annotations
@@ -54,7 +54,10 @@ FUSED_MAX_ITEMS = 4096
 STREAM_THRESHOLD = 131072
 
 
-def _pick_backend(model, device: torch.device) -> str:
+def _pick_backend(model, device: torch.device, mesh=None) -> str:
+    if mesh is not None:
+        # The Evaluator's mesh routing (cleverrec_tpu/serving.py:40-44).
+        return "sharded"
     if (device.type == "cuda" and hasattr(model, "dot_decomposition")
             and model.meta.item_nums <= FUSED_MAX_ITEMS):
         return "fused"
@@ -70,13 +73,14 @@ def _pad_ids(v, items):
 def build_retrieval_fn(model, aux, device_data, k: int = 10,
                        filter_seen: bool = True, backend: str = "auto",
                        device="cuda", stream_chunk: int | None = None,
-                       approx: bool = False):
+                       approx: bool = False, mesh=None):
     """User -> top-k retrieval on ``device`` (default ``cuda``; the model
     is moved there).
 
     Returns retrieve(user_ids [B]) -> (items [B, k] int64, scores [B, k]).
     Filtered-out / past-catalog slots come back as item id -1 with -inf
-    score.  ``backend``: auto | dense | fused | stream; auto picks fused
+    score.  ``backend``: auto | dense | fused | stream | sharded; auto
+    picks sharded under a ``mesh`` (``sharded`` without one raises), fused
     on a CUDA device for dot-decomposable models up to
     ``FUSED_MAX_ITEMS`` items, stream past ``STREAM_THRESHOLD`` items,
     and dense between and on the CPU.  ``retrieve.backend`` names the
@@ -103,9 +107,11 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     if stream_chunk is None:
         stream_chunk = 16384 if item_nums > 262_144 else 4096
     if backend == "auto":
-        backend = _pick_backend(model, dev)
-    if backend not in ("dense", "fused", "stream"):
+        backend = _pick_backend(model, dev, mesh)
+    if backend not in ("dense", "fused", "stream", "sharded"):
         raise ValueError(f"unknown retrieval backend {backend!r}")
+    if backend == "sharded" and mesh is None:
+        raise ValueError("backend='sharded' needs a mesh")
     if backend == "fused" and not hasattr(model, "dot_decomposition"):
         raise ValueError(f"{model.name}: no dot decomposition — "
                          "fused retrieval unavailable")
@@ -124,7 +130,7 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     pre = (ranking.fused_precompute(model, aux, rescue_bf16=approx)
            if backend == "fused" else None)
     module = _Retrieval(model, aux, seen_tbl, pre, backend, k, filter_seen,
-                        bitmaps, use_bits, stream_chunk, approx)
+                        bitmaps, use_bits, stream_chunk, approx, mesh)
 
     @torch.no_grad()
     def retrieve(u):
@@ -140,10 +146,11 @@ class _Retrieval(torch.nn.Module):
     [B] int64) -> (items [B, k], scores [B, k]).  The model is a
     submodule; its aux, the seen table (``seen``: bitmaps or sorted rows,
     None unfiltered) and ``fused_precompute``'s output (``pre_table``,
-    ``pre_bias``, ``pre_rescue``) are buffers."""
+    ``pre_bias``, ``pre_rescue``) are buffers; ``mesh`` the sharded
+    backend's."""
 
     def __init__(self, model, aux, seen_tbl, pre, backend, k, filter_seen,
-                 bitmaps, use_bits, stream_chunk, approx):
+                 bitmaps, use_bits, stream_chunk, approx, mesh=None):
         super().__init__()
         self.model = model
         _register(self, aux)
@@ -155,6 +162,7 @@ class _Retrieval(torch.nn.Module):
         self.backend, self.k, self.filter_seen = backend, k, filter_seen
         self.bitmaps, self.use_bits = bitmaps, use_bits
         self.stream_chunk, self.approx = stream_chunk, approx
+        self.mesh = mesh
 
     def bits_of(self, u):
         if self.use_bits:
@@ -164,8 +172,11 @@ class _Retrieval(torch.nn.Module):
     def forward(self, u):
         model, k, aux = self.model, self.k, _aux(self)
         item_nums = model.meta.item_nums
-        if self.backend == "dense":
+        if self.backend in ("dense", "sharded"):
             rows = self.seen[u] if self.filter_seen else None
+            if self.backend == "sharded":
+                return _pad_ids(*ranking.rank_sharded(
+                    model, aux, u, rows, k, self.mesh, self.filter_seen))
             return _pad_ids(*ranking.rank_dense(model, aux, u, rows, k,
                                                 self.filter_seen))
         if self.backend == "stream":

@@ -114,6 +114,40 @@ warm start through the model's ``warm_start`` (NeuMF from
 ``fism_pretrain``).  A warm-start key that the model does not read, or
 one of its keys without the others, raises.
 
+Under a mesh (``parallel/mesh.py``; ``Trainer(mesh=...)``, each rank
+one process) every rank holds a full replica and owns a generator with
+the same seed, so every rank draws the same whole epoch; the JAX
+trainer's data-parallel tiers then split its steps
+(cleverrec_tpu/train/trainer.py:505-600, 800-865, 984-1022, 1466-1640):
+
+- the fused mesh-DP tier (the fused tier, ``train.fused_mesh_dp``, on by
+  default): the steps padded to a multiple of D * max(K, 1) (K =
+  ``train.dp_sync_every``, default 0: once an epoch), each rank's epoch
+  kernel on its steps/D chunk against its replica, Adam from the count
+  so far (and + round * K), and the ranks' deltas combined after each
+  K-step round (``train.dp_delta_combine``, default ``mean``); the raw
+  loss summed over the ranks before the sentinel correction, the Adam
+  count advanced by steps/D;
+- grouped under DP (``train.fused_groups``): each group's steps padded to
+  a multiple of D, each rank's chunk of every group in the
+  block-coordinate walk, ``n_sents / D`` sentinels a group off each
+  rank's loss, one combine after the walk;
+- the scan tier's local Adam (``train.dp_local_adam``): each rank's
+  steps/D chunk of whole batches through the scan tier, K defaulting to
+  2 and the combine to ``sum``, the loss the ranks' sum over the
+  unpadded step count.
+
+``_dp_delta_combine`` combines every float leaf of the state (parameters
+and optimizer moments; the integer count passes) through the pure rule
+``dp_combine_rule``, fed the ranks' summed deltas by one collective.
+Every other tier (the grouped pairwise, bucketed and dual tiers, and the
+scan tier without local Adam) runs the whole step on every rank, whose
+replicas so stay equal to the unmeshed run; the lazy row-Adam tier
+declines under a mesh.  A model axis longer than 1,
+``parallel.exchange=explicit`` and rating raise (ROADMAP.md queue 1,
+item 16b).  A ``1 x 1`` mesh runs the unmeshed program.  Only rank 0
+checkpoints; every rank evaluates (``full_sharded``) and can resume.
+
 Parameters live in the model (``params`` is ``dict(model.named_parameters())``)
 and are updated in place, so the evaluator always scores the current
 tables.  Loss accounting matches the reference: per-batch summed loss
@@ -122,6 +156,7 @@ averaged over the number of batches (RankingRecommender.py:61).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 import time
@@ -159,6 +194,83 @@ _UNPORTED = (
 GROUPED_PROTOCOLS = ("pairwise_bpr", "pointwise_bce", "pointwise_mlp",
                      "cml_hinge")
 BF16_PROTOCOLS = ("pairwise_bpr", "rows")
+# The data-parallel tiers' delta combines (cleverrec_tpu/train/trainer.py:
+# 36-75).
+DP_COMBINES = ("mean", "sum", "count")
+# Where the mesh's missing half is queued.
+ITEM_16B = "ROADMAP.md queue 1, item 16b"
+
+
+def _touched(d: torch.Tensor) -> torch.Tensor:
+    """The ``count`` combine's touch test of a delta d: 1.0 for each row
+    (of a 0-d or 1-d leaf: each element) with sum |d| > 0, else 0.0.  A
+    row whose update rounds to nothing on a rank counts as untouched
+    there."""
+    a = d.abs()
+    if d.ndim > 1:
+        a = a.sum(dim=tuple(range(1, d.ndim)))
+    return (a > 0).to(d.dtype)
+
+
+def dp_combine_rule(old, dsum, tsum, mode: str, n: int):
+    """A combined float leaf from its value before the round ``old``, the
+    sum of the n ranks' deltas ``dsum`` and, for ``count``, the sum of
+    their ``_touched`` vectors ``tsum``:
+
+    - ``mean``: old + dsum / n, parameter averaging;
+    - ``sum``: old + dsum, the first-order composition of the ranks'
+      walks;
+    - ``count``: old + dsum / max(tsum, 1) row by row, a row touched by c
+      ranks divided by c.
+
+    A pure function: the collectives only supply the sums."""
+    if mode == "mean":
+        return old + dsum / n
+    if mode == "sum":
+        return old + dsum
+    if mode != "count":
+        raise ValueError(f"train.dp_delta_combine={mode!r}: want one of "
+                         f"{', '.join(DP_COMBINES)}")
+    den = torch.clamp(tsum, min=1.0)
+    return old + dsum / den.reshape(tuple(den.shape)
+                                    + (1,) * (dsum.ndim - den.ndim))
+
+
+def _dp_delta_combine(mesh, mode: str, leaves, olds) -> None:
+    """Combine the ranks' float ``leaves`` (updated in place since
+    ``olds``) over the mesh's data axis, in place: one all-reduce of every
+    delta (and, for ``count``, every touch vector) joined flat, then
+    ``dp_combine_rule``.  Every rank ends with the same bits."""
+    deltas = [x - o for x, o in zip(leaves, olds)]
+    parts = [d.reshape(-1) for d in deltas]
+    if mode == "count":
+        parts += [_touched(d).reshape(-1) for d in deltas]
+    flat = mesh.all_reduce_sum(torch.cat(parts), "data")
+    sums, off = [], 0
+    for d in deltas:
+        sums.append(flat[off:off + d.numel()].view(d.shape))
+        off += d.numel()
+    tsums = [None] * len(deltas)
+    if mode == "count":
+        for k, d in enumerate(deltas):
+            n = d.shape[0] if d.ndim else 1
+            tsums[k] = flat[off:off + n].view(d.shape[:1])
+            off += n
+    n = mesh.shape["data"]
+    for x, o, ds, ts in zip(leaves, olds, sums, tsums):
+        x.copy_(dp_combine_rule(o, ds, ts, mode, n))
+
+
+def _state_leaves(params, opt_state) -> list[torch.Tensor]:
+    """The float leaves a combine covers: every parameter and every
+    tensor of the optimizer's state (Adam's moments, Adagrad's sums)."""
+    leaves = [p.detach() for p in params.values()]
+    if opt_state is not None:
+        for f in dataclasses.fields(opt_state):
+            value = getattr(opt_state, f.name)
+            if isinstance(value, dict):
+                leaves += list(value.values())
+    return [x for x in leaves if x.is_floating_point()]
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -216,15 +328,42 @@ def _p_stats(x):
     return (row_a.sum(), (row_a * row_a).sum(), (x * x).sum(), x.sum(dim=0))
 
 
+def _refuse_mesh(cfg: Config, mesh) -> None:
+    """The mesh's forms that wait for the model axis raise, by name."""
+    if mesh is None:
+        return
+    if mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"a mesh with a model axis of {mesh.shape['model']} (row-sharded "
+            f"tables) is not ported yet ({ITEM_16B}); train on a D x 1 mesh")
+    if cfg.str("parallel.exchange", "gspmd") == "explicit":
+        raise NotImplementedError(
+            f"parallel.exchange=explicit is not ported yet ({ITEM_16B})")
+
+
+def _mesh_device(device, mesh) -> torch.device:
+    """The device a trainer runs on: ``device`` (default ``cuda``), or
+    under a mesh the mesh's, which a given ``device`` must name."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None:
+        want = resolve_device(device)
+        if (want.type, want.index or 0) != (mesh.device.type,
+                                            mesh.device.index or 0):
+            raise ValueError(f"device {want} differs from the mesh's "
+                             f"{mesh.device}")
+    return mesh.device
+
+
 class Trainer:
     """Trains ``model`` on ``data`` on ``device`` (default ``cuda``; the
-    model is moved there) and evaluates it with the ``Evaluator``."""
+    model is moved there) and evaluates it with the ``Evaluator``; under
+    a ``mesh`` (``parallel.Mesh``) on the mesh's device, which ``device``
+    may name but not contradict."""
 
     def __init__(self, model: RecModel, data: RankingData, cfg: Config,
-                 logger=None, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes are not ported yet (ROADMAP.md queue 1, item 16)")
+                 logger=None, device=None, mesh=None):
+        _refuse_mesh(cfg, mesh)
         _refuse_unported(cfg)
         if (cfg.int("train.fused_groups", 0) > 1
                 and getattr(model, "fused_protocol", None) == "rows"):
@@ -234,7 +373,8 @@ class Trainer:
                 f"{', '.join(GROUPED_PROTOCOLS)} protocols); unset it")
         self.dd: DeviceData = build_device_data(data)
         pop_cdf = popularity_cdf(self.dd, cfg, model.sampler)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(device, mesh)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.logger = logger
@@ -245,6 +385,7 @@ class Trainer:
         # it runs before epoch_pairs.
         self.model_aux = model.build_aux(self.dd, data)
         pos_u, pos_i = model.epoch_pairs(self.dd)
+        self._pairs = (pos_u, pos_i)
         self.n_pairs = len(pos_u)
         self.batch_size = cfg.batch_size
         self.neg_ratio = cfg.neg_ratio
@@ -278,10 +419,16 @@ class Trainer:
         # The fused tier's epoch functions by protocol: the kernels'
         # wrappers (ops.train.PLAIN_EPOCH_FNS holds their plain versions).
         self.epoch_fns = dict(EPOCH_FNS)
+        # The data-parallel tiers' data ranks (1: none runs), K-step
+        # rounds (0: one a epoch) and combine (_setup_dp).
+        self._dp, self._sync_k, self._combine = 1, 0, None
+        self._real_steps = self.steps_per_epoch
         self.sparse_rows = self._sparse_rows_eligible()
         self.fused = not self.sparse_rows and self._fused_epoch_eligible()
         self._group_plan = (self._build_group_plan(pos_u, pos_i)
                             if self._groups else None)
+        self.tier = self._tier_name()
+        self._setup_dp()
         if not self.fused and logger and (
                 cfg.int("train.fused_groups", 0) > 1
                 or cfg.bool("train.fused_bf16", False)
@@ -291,7 +438,8 @@ class Trainer:
                         "which this run does not take")
         self._gen: torch.Generator | None = None
         self._dropout_gen: torch.Generator | None = None
-        self.evaluator = Evaluator(model, self.dd, cfg, device=self.device)
+        self.evaluator = Evaluator(model, self.dd, cfg, device=self.device,
+                                   mesh=mesh)
 
     def _rows_per_epoch(self) -> int:
         """Rows an epoch: a pairwise or social pair fills neg_ratio rows, a
@@ -453,28 +601,11 @@ class Trainer:
         from the union, so no bitmap and no seen table)."""
         aux, dd, sampler = self.model_aux, self.dd, self.model.sampler
         neg = aux.get("social_neg", dd.seen)
-        head = (pos_u, pos_i, neg.lens)
-        tail = (dd.item_nums, padded, self.neg_ratio)
         if (self._per_step or self._grid is not None or not layout
                 or sampler == "dual"):
             static = {}
-        elif sampler == "sbpr":
-            spu = aux["spu_csr"]
-            static = sampling.sbpr_epoch_static(
-                *head, sampling.csr_lens(spu), spu["off"], *tail)
-        elif sampler == "tbpr":
-            ts, tw = aux["ts_csr"], aux["tw_csr"]
-            static = sampling.tbpr_epoch_static(
-                *head, sampling.csr_lens(ts), ts["off"], sampling.csr_lens(tw),
-                tw["off"], *tail)
-        elif sampler == "pointwise":
-            static = sampling.pointwise_epoch_static(*head, *tail)
-        elif sampler == "cml":
-            # One row per pair, its negatives drawn per row: the pairwise
-            # layout at neg_ratio 1.
-            static = sampling.pairwise_epoch_static(*head, *tail[:2], 1)
         else:
-            static = sampling.pairwise_epoch_static(*head, *tail)
+            static = self._static_layout(pos_u, pos_i, padded)
 
         def put(a):
             return torch.as_tensor(a, device=self.device)
@@ -502,6 +633,30 @@ class Trainer:
             self._tables["social_neg"] = sampling.MemberTable(
                 self._neg_rows, self._neg_lens, None)
 
+    def _static_layout(self, pos_u, pos_i, padded: int) -> dict:
+        """The whole-epoch sampler's static layout (numpy) of ``padded``
+        rows."""
+        aux, sampler = self.model_aux, self.model.sampler
+        neg = aux.get("social_neg", self.dd.seen)
+        head = (pos_u, pos_i, neg.lens)
+        tail = (self.dd.item_nums, padded, self.neg_ratio)
+        if sampler == "sbpr":
+            spu = aux["spu_csr"]
+            return sampling.sbpr_epoch_static(
+                *head, sampling.csr_lens(spu), spu["off"], *tail)
+        if sampler == "tbpr":
+            ts, tw = aux["ts_csr"], aux["tw_csr"]
+            return sampling.tbpr_epoch_static(
+                *head, sampling.csr_lens(ts), ts["off"], sampling.csr_lens(tw),
+                tw["off"], *tail)
+        if sampler == "pointwise":
+            return sampling.pointwise_epoch_static(*head, *tail)
+        if sampler == "cml":
+            # One row per pair, its negatives drawn per row: the pairwise
+            # layout at neg_ratio 1.
+            return sampling.pairwise_epoch_static(*head, *tail[:2], 1)
+        return sampling.pairwise_epoch_static(*head, *tail)
+
     def _build_group_plan(self, pos_u, pos_i) -> dict:
         """The grouped epoch's plan, built once a run
         (cleverrec_tpu/train/trainer.py:905-1040): users sorted by pair
@@ -512,7 +667,8 @@ class Trainer:
         pairs in the permuted id space get their own static layout
         (``pairwise_epoch_static``; pointwise for GMF, MLP and NeuMF; CML
         the pairwise one at neg_ratio 1) padded to ``steps_eq`` steps, the
-        most any group needs; ``n_sents`` the padding rows of each group,
+        most any group needs (under a data mesh of D ranks rounded up to a
+        multiple of D); ``n_sents`` the padding rows of each group,
         ``grp_counts`` its real users, and ``seen`` the negatives' table
         with its rows permuted.  The ungrouped layout is dropped."""
         proto, g_n = self.model.fused_protocol, self._groups
@@ -544,6 +700,8 @@ class Trainer:
                                      self.neg_ratio)
         pairs = np.diff(bounds)
         steps_eq = max(1, max(cdiv(int(n) * per_pair, b) for n in pairs))
+        # Under the data mesh each rank runs steps_eq / D of every group.
+        steps_eq = cdiv(steps_eq, self._dp) * self._dp
         padded = steps_eq * b
         statics = [static_fn(pos_up[lo:hi], pos_ip[lo:hi], seen.lens,
                              item_nums, padded, static_neg)
@@ -607,6 +765,13 @@ class Trainer:
                 "model with a rows spec (BPR and the social-triple family) "
                 f"under Adam, not {self.model.name} under "
                 f"{self.cfg.optimizer}")
+        if self.mesh is not None and self.mesh.size > 1:
+            # The JAX trainer's lazy tier is unmeshed only.
+            if self.logger:
+                self.logger.info("train.sparse_rows_force: the lazy row-Adam "
+                                 "tier declines under a mesh, as in the JAX "
+                                 "trainer")
+            return False
         return True
 
     def _fused_epoch_eligible(self) -> bool:
@@ -627,6 +792,12 @@ class Trainer:
                 or not self.cfg.bool("train.fused_kernel",
                                      self.device.type == "cuda")):
             return False
+        dp = self.mesh.shape["data"] if self.mesh is not None else 1
+        if dp > 1 and not self.cfg.bool("train.fused_mesh_dp", True):
+            if self.logger:
+                self.logger.info("train.fused_mesh_dp=False: the data mesh "
+                                 "trains through the scan tier")
+            return False
         try:
             if proto == "pointwise_mlp":
                 spec = self.model.fused_mlp_spec()
@@ -641,6 +812,7 @@ class Trainer:
                 self.logger.info("fused epoch kernel skipped (%s); using the "
                                  "scan tier", e)
             return False
+        self._dp = dp
         self._fused_options(proto)
         return True
 
@@ -661,7 +833,9 @@ class Trainer:
           resident one overflows VMEM; the card's resident epoch never
           overflows, so it changes nothing;
         - ``train.fused_stream`` (rows): the same kernel here, the state
-          in device memory either way.
+          in device memory either way; under a data mesh it does not
+          apply (the JAX trainer streams only unmeshed), so bf16 storage
+          does not yield to it there.
 
         One log line says what runs."""
         cfg, notes = self.cfg, []
@@ -672,7 +846,12 @@ class Trainer:
                          "(train.fused_groups; block-coordinate Adam over "
                          "the user table, f32)")
         stream = proto == "rows" and cfg.bool("train.fused_stream", False)
-        if stream:
+        if stream and self._dp > 1:
+            # The JAX trainer streams only at mesh_dp == 1.
+            stream = False
+            notes.append("train.fused_stream does not apply under a data "
+                         "mesh (the JAX trainer streams only unmeshed)")
+        elif stream:
             notes.append("train.fused_stream: the streamed rows epoch is "
                          "the same kernel here (the state stays in device "
                          "memory)")
@@ -703,6 +882,106 @@ class Trainer:
                              extra={"fused_form": {
                                  "groups": self._groups,
                                  "storage": str(self.table_dtype)}})
+
+    def _tier_name(self) -> str:
+        """The tier ``_run_epoch`` takes."""
+        if self._grid is not None:
+            return "grouped_pairs"
+        if self._buckets is not None:
+            return "bucketed"
+        if self.sparse_rows:
+            return "sparse_rows"
+        if self._group_plan is not None:
+            return "fused_grouped"
+        if self.fused:
+            return "fused"
+        return "dual" if self.model.sampler == "dual" else "scan"
+
+    def _setup_dp(self) -> None:
+        """The data mesh's reading of the config
+        (cleverrec_tpu/train/trainer.py:213-230, 505-530, 1466-1480): the
+        fused tier trains mesh-DP (grouped too), the scan tier local Adam
+        with ``train.dp_local_adam``; their steps padded to a multiple of
+        D * max(K, 1) and the combine checked.  Any other tier runs the
+        whole step on every rank.  One log line says which, and names the
+        data-parallel options set that the run does not apply."""
+        cfg, mesh = self.cfg, self.mesh
+        dp = mesh.shape["data"] if mesh is not None else 1
+        local = (self.tier == "scan"
+                 and cfg.bool("train.dp_local_adam", False))
+        split = dp > 1 and (self.tier in ("fused", "fused_grouped") or local)
+        applied = {"train.dp_local_adam": local or not cfg.bool(
+                       "train.dp_local_adam", False),
+                   "train.dp_sync_every": split
+                   and self.tier != "fused_grouped",
+                   "train.dp_delta_combine": split,
+                   "train.fused_mesh_dp": dp > 1}
+        unused = [k for k, on in applied.items() if k in cfg and not on]
+        note = (f"; {', '.join(unused)} not applied (the JAX trainer "
+                "ignores them here too)" if unused else "")
+        if dp == 1:
+            if unused and self.logger:
+                self.logger.info("%s shape a data mesh of 2 or more ranks, "
+                                 "which this run does not have",
+                                 ", ".join(unused))
+            return
+        tag = f"mesh {dp}x1"
+        if split:
+            self._dp = dp
+            if self.tier == "fused_grouped":
+                # One combine after the block-coordinate walk.
+                self._sync_k = 0
+            else:
+                self._sync_k = cfg.int("train.dp_sync_every",
+                                       2 if local else 0)
+                self._pad_dp_steps(dp * max(self._sync_k, 1))
+            self._combine = cfg.str("train.dp_delta_combine",
+                                    "sum" if local else "mean")
+            if self._combine not in DP_COMBINES:
+                raise ValueError(
+                    f"train.dp_delta_combine={self._combine!r}: want one of "
+                    f"{', '.join(DP_COMBINES)}")
+            if local:
+                self.tier = "scan_local_adam"
+            if self.logger:
+                self.logger.info(
+                    "%s: the %s tier, each rank %d of %d steps, the deltas "
+                    "combined by %s %s%s", tag, self.tier,
+                    self.steps_per_epoch // dp, self.steps_per_epoch,
+                    self._combine,
+                    f"every {self._sync_k} steps" if self._sync_k
+                    else "once an epoch", note,
+                    extra={"mesh_tier": {"tier": self.tier, "data": dp,
+                                         "sync_every": self._sync_k,
+                                         "combine": self._combine}})
+            return
+        if self.logger:
+            why = (f"splitting the batch over 'data' is the JAX trainer's "
+                   f"GSPMD layout, which needs each model's loss in per-rank "
+                   f"parts ({ITEM_16B}); train.dp_local_adam=True splits the "
+                   "steps instead" if self.tier == "scan"
+                   else "as the JAX trainer adds no batch constraint to it")
+            self.logger.info("%s: the %s tier runs the whole step on every "
+                             "rank (replicated; %s)%s", tag, self.tier, why,
+                             note,
+                             extra={"mesh_tier": {"tier": self.tier,
+                                                  "data": dp}})
+
+    def _pad_dp_steps(self, quantum: int) -> None:
+        """Pad the epoch to a multiple of ``quantum`` steps: the static
+        layout rebuilt at the padded size (the JAX trainer's
+        ``_ensure_dp_static``), the padding rows sentinels."""
+        steps = cdiv(self.steps_per_epoch, quantum) * quantum
+        if steps == self.steps_per_epoch:
+            return
+        self.steps_per_epoch = steps
+        padded = steps * self.batch_size
+        self._n_sent = padded - self._epoch_rows
+        if self._static:
+            self._static = {
+                k: torch.as_tensor(v, device=self.device)
+                for k, v in self._static_layout(*self._pairs,
+                                                padded).items()}
 
     # -- one epoch ------------------------------------------------------
     def sample_epoch(self) -> dict:
@@ -858,12 +1137,36 @@ class Trainer:
                                              tensors["groups"])
         if self.fused:
             return self._fused_epoch(params, opt_state, tensors)
+        if self.tier == "scan_local_adam":
+            return self._local_adam_epoch(params, opt_state, tensors)
         return self._scan_epoch(params, opt_state, tensors)
+
+    def _dp_rounds(self, params, opt_state, tensors, run):
+        """This rank's chunk of the epoch's [steps, ...] ``tensors`` (the
+        steps/D from data index x steps/D), in rounds of K steps (the
+        whole chunk when K is 0): ``run(part, offset)`` trains one round's
+        steps ``part``, ``offset`` steps into the chunk, in place and
+        returns their summed loss; the ranks' state is combined after
+        each round.  Returns (steps/D, the loss summed over the rounds and
+        the ranks)."""
+        local = tensors["u"].shape[0] // self._dp
+        first = self.mesh.index("data") * local
+        width = self._sync_k or local
+        leaves = _state_leaves(params, opt_state)
+        raw = torch.zeros((), dtype=torch.float32, device=self.device)
+        for lo in range(0, local, width):
+            part = {k: v[first + lo:first + lo + width]
+                    for k, v in tensors.items()}
+            olds = [x.clone() for x in leaves]
+            raw = raw + run(part, lo)
+            _dp_delta_combine(self.mesh, self._combine, leaves, olds)
+        return local, self.mesh.all_reduce_sum(raw, "data")
 
     def _steps(self, params, opt_state, batches, loss_fn, aux=None):
         """One optimizer step a batch on ``loss_fn(batch, aux)`` (default
         aux: ``self.aux``), each batch with the trainer's
-        ``dropout_gen``; returns (params, opt_state, mean loss)."""
+        ``dropout_gen``; returns (params, opt_state, the batches' losses
+        [n])."""
         names = list(params)
         leaves = [params[k] for k in names]
         aux = self.aux if aux is None else aux
@@ -881,20 +1184,39 @@ class Trainer:
                                               opt_state)
             self.model.postprocess()
             losses[s] = loss.detach()
-        return params, opt_state, losses.mean()
+        return params, opt_state, losses
+
+    @staticmethod
+    def _batches(tensors):
+        return [{k: v[s] for k, v in tensors.items()}
+                for s in range(tensors["u"].shape[0])]
 
     def _scan_epoch(self, params, opt_state, tensors):
-        batches = [{k: v[s] for k, v in tensors.items()}
-                   for s in range(tensors["u"].shape[0])]
-        return self._steps(params, opt_state, batches, self.model.loss)
+        params, opt_state, losses = self._steps(
+            params, opt_state, self._batches(tensors), self.model.loss)
+        return params, opt_state, losses.mean()
+
+    def _local_adam_epoch(self, params, opt_state, tensors):
+        """The scan tier's local Adam under the data mesh
+        (cleverrec_tpu/train/trainer.py:1466-1640): this rank's steps/D
+        chunk of whole batches in K-step rounds (``_dp_rounds``); the
+        loss is the ranks' sum over the unpadded step count (padding
+        steps are all weight 0)."""
+        def run(part, _):
+            return self._steps(params, opt_state, self._batches(part),
+                               self.model.loss)[2].sum()
+
+        _, raw = self._dp_rounds(params, opt_state, tensors, run)
+        return params, opt_state, raw / self._real_steps
 
     def _grouped_epoch(self, params, opt_state, tensors):
         pg, j = self._pg, tensors["j"]
         batches = [{"gu": pg["pg_user"][sel], "gi": pg["pg_pos"][sel],
                     "gj": j[sel], "gw": pg["pg_w"][sel]}
                    for sel in tensors["perm"]]
-        return self._steps(params, opt_state, batches,
-                           self.model.loss_grouped_pairwise)
+        params, opt_state, losses = self._steps(
+            params, opt_state, batches, self.model.loss_grouped_pairwise)
+        return params, opt_state, losses.mean()
 
     def _bucketed_epoch(self, params, opt_state, draws):
         """Each bucket's steps on its draw, in plan order, over its own
@@ -912,9 +1234,9 @@ class Trainer:
                             "gy": dev["g_y"][sel], "gw": dev["g_w"][sel]}
                            for sel in draw["perm"]]
                 loss_fn = self.model.loss_grouped
-            params, opt_state, loss = self._steps(
+            params, opt_state, losses = self._steps(
                 params, opt_state, batches, loss_fn, bucket["aux"])
-            total = total + loss * bucket["steps"]
+            total = total + losses.mean() * bucket["steps"]
             steps += bucket["steps"]
         return params, opt_state, total / steps
 
@@ -967,6 +1289,40 @@ class Trainer:
         return params, opt_state, losses.mean()
 
     def _fused_epoch(self, params, opt_state, tensors):
+        """One fused epoch: the epoch kernel over every step, or under the
+        data mesh over this rank's chunk in K-step rounds with the ranks'
+        state combined after each (``_dp_rounds``); the Adam count
+        advances by the steps a rank ran (padded steps are Adam steps
+        too, as in the JAX trainer), the loss is the raw sum (over the
+        ranks) less the sentinel terms, over the steps."""
+        steps, count = tensors["u"].shape[0], opt_state.count
+        if self._dp == 1:
+            raw = self._fused_apply(params, opt_state, tensors, count)
+            ran = steps
+        else:
+            ran, raw = self._dp_rounds(
+                params, opt_state, tensors,
+                lambda part, lo: self._fused_apply(params, opt_state, part,
+                                                   count + lo))
+        opt_state.count = count + ran
+        return params, opt_state, self._fused_loss(raw, steps)
+
+    def _fused_loss(self, raw, steps: int):
+        """The epoch's mean loss from the raw sum over ``steps`` steps:
+        the BPR, GMF and CML epochs' sentinel slots' terms taken off
+        (``n_sent * LOG2``, CML's ``n_sent * cml_sentinel_bias``)."""
+        proto = self.model.fused_protocol
+        if proto in ("pairwise_bpr", "pointwise_bce"):
+            raw = raw - self._n_sent * LOG2
+        elif proto == "cml_hinge":
+            raw = raw - self._n_sent * cml_sentinel_bias(
+                self.model.margin, self.dd.item_nums, self.neg_ratio)
+        return raw / steps
+
+    def _fused_apply(self, params, opt_state, tensors, t0: int):
+        """The protocol's epoch function over ``tensors`` ([steps, B]
+        columns) from Adam step ``t0``, on the state in place; returns the
+        raw summed loss (sentinel slots' terms included)."""
         u_sent, i_sent = (n - 1 for n in sentinel_dims(self.dd.user_nums,
                                                        self.dd.item_nums))
         inval = tensors["w"] == 0
@@ -978,8 +1334,7 @@ class Trainer:
         def col(name):
             return tensors[name].to(torch.float32).contiguous()
 
-        steps = tensors["u"].shape[0]
-        proto, t0, lr = self.model.fused_protocol, opt_state.count, self.cfg.lr
+        proto, lr = self.model.fused_protocol, self.cfg.lr
 
         def with_moments(name):
             return (params[name].detach(), opt_state.mu[name],
@@ -991,14 +1346,12 @@ class Trainer:
                 p, q, mp, vp, mq, vq, ids("u", u_sent), ids("i", i_sent),
                 ids("j", i_sent), t0, lr=lr, reg=self.model.reg,
                 table_dtype=self.table_dtype)
-            loss = raw - self._n_sent * LOG2
         elif proto == "pointwise_bce":
             (p, mp, vp), (q, mq, vq), (h, mh, vh) = map(
                 with_moments, ("P", "Q", "h_gmf"))
             raw = self.epoch_fns["gmf"](
                 p, q, h, mp, vp, mq, vq, mh, vh, ids("u", u_sent),
                 ids("i", i_sent), col("y"), t0, lr=lr, reg=self.model.reg)
-            loss = raw - self._n_sent * LOG2
         elif proto == "cml_hinge":
             (p, mp, vp), (q, mq, vq) = map(with_moments, ("P", "Q"))
             negs = torch.where(inval[..., None], i_sent, tensors["negs"]).to(
@@ -1008,8 +1361,6 @@ class Trainer:
                 p, q, mp, vp, mq, vq, ids("u", u_sent), ids("i", i_sent),
                 negs, t0, lr=lr, reg=self.model.reg, margin=margin,
                 item_nums=item_nums)
-            loss = raw - self._n_sent * cml_sentinel_bias(
-                margin, item_nums, self.neg_ratio)
         elif proto == "rows":
             spec = self.model.fused_rows_spec()
             sides = [sd for _, sd in spec["planes"]]
@@ -1017,16 +1368,13 @@ class Trainer:
                       for name, sd in spec["planes"]]
             state = [x for t in (params, opt_state.mu, opt_state.nu)
                      for x in spec["pack"](t)]
-            loss = self.epoch_fns["rows"](
+            raw = self.epoch_fns["rows"](
                 *state, planes, [col(n) for n in spec["floats"]], t0,
                 sides=sides, spec=spec, lr=lr, table_dtype=self.table_dtype)
         else:
-            loss = self._fused_mlp(params, opt_state, ids("u", u_sent),
-                                   ids("i", i_sent), col("y"), col("w"))
-        # Adam's count advances by the padded step count, as in the JAX
-        # trainer: padded steps are Adam steps too.
-        opt_state.count += steps
-        return params, opt_state, loss / steps
+            raw = self._fused_mlp(params, opt_state, ids("u", u_sent),
+                                  ids("i", i_sent), col("y"), col("w"), t0)
+        return raw
 
     def _fused_grouped_epoch(self, params, opt_state, groups):
         """The grouped fused epoch (cleverrec_tpu/train/trainer.py:
@@ -1040,7 +1388,36 @@ class Trainer:
         every step); CML's launches carry the frozen rows' partial sums,
         kept as running totals across the groups.  Then the state goes
         back to the user order, the count advances by G * steps and the
-        loss is the groups' (sentinel terms off) over G * steps."""
+        loss is the groups' (sentinel terms off) over G * steps.
+
+        Under the data mesh (cleverrec_tpu/train/trainer.py:984-1022) each
+        rank walks the groups over its steps/D chunk of each group's draw,
+        group g's launch from count + g * steps/D, takes n_sents[g] / D
+        sentinels off its loss, and reports its part of the epoch's mean
+        (over the global G * steps); the parts are summed over the ranks,
+        the state combined once after the walk, and the count advances by
+        G * steps / D."""
+        if self._dp == 1:
+            return params, opt_state, self._grouped_walk(params, opt_state,
+                                                         groups)
+        steps = groups[0]["u"].shape[0]
+        local = steps // self._dp
+        first = self.mesh.index("data") * local
+        leaves = _state_leaves(params, opt_state)
+        olds = [x.clone() for x in leaves]
+        part = self._grouped_walk(
+            params, opt_state,
+            [{k: v[first:first + local] for k, v in draw.items()}
+             for draw in groups], steps)
+        _dp_delta_combine(self.mesh, self._combine, leaves, olds)
+        return params, opt_state, self.mesh.all_reduce_sum(part, "data")
+
+    def _grouped_walk(self, params, opt_state, groups, steps=None):
+        """The block-coordinate walk of ``_fused_grouped_epoch`` over the
+        groups' draws ``groups`` ([local, B] columns each), in place: the
+        count advances by G * local; returns the loss over G * ``steps``
+        (default local), n_sents[g] * local / steps sentinels of group g
+        taken off."""
         plan, proto = self._group_plan, self.model.fused_protocol
         rows, lr, reg = plan["rows"], self.cfg.lr, getattr(self.model,
                                                           "reg", 0.0)
@@ -1061,7 +1438,8 @@ class Trainer:
             dense = [[t[n].detach() for n in spec["dense"]] for t in trio]
         else:
             item = [t["Q"].detach() for t in trio]
-        steps = groups[0]["u"].shape[0]
+        local = groups[0]["u"].shape[0]
+        steps = local if steps is None else steps
         count = opt_state.count
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         if proto == "cml_hinge":
@@ -1076,8 +1454,8 @@ class Trainer:
             i = torch.where(inval, i_sent, draw["i"]).to(
                 torch.int32).contiguous()
             p, mp, vp = (x[g0:g0 + rows] for x in user)
-            t0 = count + g * steps
-            n_sent = plan["n_sents"][g]
+            t0 = count + g * local
+            n_sent = plan["n_sents"][g] / (steps // local)
             if proto == "pairwise_bpr":
                 j = torch.where(inval, i_sent, draw["j"]).to(
                     torch.int32).contiguous()
@@ -1122,10 +1500,10 @@ class Trainer:
         if mlp:
             for t, x in zip(trio, item):
                 _split_back(t, spec["i"], x)
-        opt_state.count = count + len(groups) * steps
-        return params, opt_state, total / (len(groups) * steps)
+        opt_state.count = count + len(groups) * local
+        return total / (len(groups) * steps)
 
-    def _fused_mlp(self, params, opt_state, u, i, y, w):
+    def _fused_mlp(self, params, opt_state, u, i, y, w, t0):
         """The tower epoch over the model's spec: each side's tables joined
         on the feature axis (NeuMF: [P_gmf | P_mlp]) for the epoch, then
         split back; the dense params are updated where they are.  Params
@@ -1135,8 +1513,8 @@ class Trainer:
         for t in (params, opt_state.mu, opt_state.nu):
             state += [_joined(t, spec["u"]), _joined(t, spec["i"]),
                       [t[n].detach() for n in spec["dense"]]]
-        raw = self.epoch_fns["mlp"](*state, u, i, y, w, opt_state.count,
-                                    spec=spec, lr=self.cfg.lr)
+        raw = self.epoch_fns["mlp"](*state, u, i, y, w, t0, spec=spec,
+                                    lr=self.cfg.lr)
         for k, t in enumerate((params, opt_state.mu, opt_state.nu)):
             _split_back(t, spec["u"], state[3 * k])
             _split_back(t, spec["i"], state[3 * k + 1])
@@ -1230,7 +1608,8 @@ class Trainer:
         checkpoint directory, restarts at its epoch + 1; with
         ``save.best=True`` each new best epoch's train state is saved to
         ``saved_dir/<model>`` (the reference's disabled save path,
-        RankingRecommender.py:432-433, made to work)."""
+        RankingRecommender.py:432-433, made to work), by rank 0 alone
+        under a mesh."""
 
         def log(msg, *args, **extra):
             if self.logger:
@@ -1243,7 +1622,9 @@ class Trainer:
             params, opt_state = self.init_state(seed)
             epoch = 0
         save_dir = None
-        if self.cfg.bool("save.best", False):
+        # Under a mesh rank 0 alone writes; every rank holds the replica.
+        if self.cfg.bool("save.best", False) and (
+                self.mesh is None or self.mesh.rank == 0):
             save_dir = os.path.join(self.cfg.str("saved_dir", "./saved_model"),
                                     self.model.name)
         topk = self.cfg.topk

@@ -34,11 +34,15 @@ def grid_from_config(cfg: Config) -> dict[str, list]:
 
 
 def run_grid(cfg: Config, grid: Mapping[str, Sequence[Any]] | None = None,
-             logger=None, device="cuda"):
+             logger=None, device="cuda", mesh=None):
     """Train every combination; returns (best, all_results), the best by
     NDCG@topk[0] for a ranking model (the reference's criterion) or by the
     lowest RMSE for a rating model (FM, FFM).  Each result is
-    ``{"params": {axis: value}, "best": the trainer's run() summary}``."""
+    ``{"params": {axis: value}, "best": the trainer's run() summary}``.
+    ``mesh`` goes to every trial's trainer (on the mesh's device: a
+    ``mesh`` overrides ``device``)."""
+    if mesh is not None:
+        device = mesh.device
     from cleverrec_tpu_torch.data import load_ranking_data
     from cleverrec_tpu_torch.models import make_model
     from cleverrec_tpu_torch.models.base import DataMeta
@@ -62,7 +66,7 @@ def run_grid(cfg: Config, grid: Mapping[str, Sequence[Any]] | None = None,
             log("== trial %s", overrides)
             model = make_rating_model(trial_cfg, data)
             best = FMTrainer(model, data, trial_cfg, logger=logger,
-                             device=device).run()
+                             device=device, mesh=mesh).run()
             results.append({"params": dict(zip(keys, combo)), "best": best})
         top = min(results, key=lambda r: r["best"]["rmse"])
         log("== best trial: %s -> RMSE=%.4f", top["params"],
@@ -80,7 +84,7 @@ def run_grid(cfg: Config, grid: Mapping[str, Sequence[Any]] | None = None,
         log("== trial %s", overrides)
         model = make_model(trial_cfg, meta, device=device)
         best = Trainer(model, data, trial_cfg, logger=logger,
-                       device=device).run()
+                       device=device, mesh=mesh).run()
         results.append({"params": dict(zip(keys, combo)), "best": best})
     top = max(results, key=lambda r: r["best"]["ndcg"])
     log("== best trial: %s -> NDCG=%.4f", top["params"], top["best"]["ndcg"])

@@ -303,6 +303,32 @@ def test_bpr_epoch_offset_tables_and_contended_ids(cuda, case):
     _hold_bpr(cuda, state, ids, 3, offset=case == "offset")
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_bpr_epoch_on_a_data_parallel_chunk(cuda, rank):
+    """A rank of a 2 x 1 mesh with dp_sync_every 2 (the trainer's
+    _dp_rounds): its second round, steps 2-3 of its 4-step chunk of an
+    8-step epoch at ml-100k's shape, launched on views of the epoch's id
+    planes (no copy) from Adam step t0 + 2, against the plain version over
+    the same steps."""
+    state, ids = _epoch_inputs(943, 1682, 128, 8, 6144, 65)
+    epoch = _on_card(ids, cuda)
+    lo = rank * 4 + 2
+    chunk = [x[lo:lo + 2] for x in epoch]
+    assert all(c.is_contiguous() and c.data_ptr() == x[lo:].data_ptr()
+               for c, x in zip(chunk, epoch))
+    got, want = _on_card(state, cuda), _on_card(state, cuda)
+    before = T.launches["bpr_epoch"]
+    loss = T.fused_bpr_epoch(*got, *chunk, 65 + 2, lr=0.01, reg=0.02)
+    ref = T.fused_bpr_epoch_ref(*want, *[c.clone() for c in chunk], 65 + 2,
+                                lr=0.01, reg=0.02)
+    torch.cuda.synchronize()
+    assert T.launches["bpr_epoch"] == before + 1
+    assert float(loss) == pytest.approx(float(ref), rel=EPOCH_LOSS_RTOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=EPOCH_RTOL, atol=EPOCH_ATOL)
+
+
 @pytest.mark.parametrize("u_n,i_n", [(943, 1682), (12000, 9000)])
 def test_bpr_epoch_one_step_is_deterministic(cuda, u_n, i_n):
     """The loss leaves each block through its slice, summed in block

@@ -46,7 +46,8 @@ def test_port_never_loads_jax_or_the_jax_package():
                  "ops.sparse_adam", "train.checkpoint", "tuning",
                  "models.itemsim", "models.gcn", "models.diffnet",
                  "models.extra", "rating", "data.libfm", "data.fm_convert",
-                 "data.fastcsv", "serving", "classic", "classic.mf"):
+                 "data.fastcsv", "serving", "classic", "classic.mf",
+                 "parallel", "parallel.mesh", "parallel.sharding"):
         assert f"cleverrec_tpu_torch.{name}" in report["imported"]
     # A prefix check that tells cleverrec_tpu_torch from cleverrec_tpu.
     bad = [m for m in report["loaded"]

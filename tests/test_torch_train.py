@@ -382,11 +382,16 @@ def test_popularity_negatives_are_ported(toy_dataset):
 
 
 def test_unported_runs_raise(toy_dataset, tmp_path):
-    """A mesh is not ported (item 16); resuming is, and a missing
-    checkpoint raises."""
+    """A mesh's model axis (row-sharded tables) and the explicit exchange
+    are not ported (item 16b); resuming is, and a missing checkpoint
+    raises."""
+    from cleverrec_tpu_torch.parallel import Mesh
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Trainer(model, data, cfg, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        Trainer(model, data, cfg, device="cpu", mesh=Mesh(1, 2, "cpu"))
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        Trainer(model, data, cfg.with_overrides(
+            **{"parallel.exchange": "explicit"}), mesh=Mesh(1, 1, "cpu"))
     with pytest.raises(FileNotFoundError):
         Trainer(model, data, cfg, device="cpu").run(
             resume_from=str(tmp_path / "ckpt"))
