@@ -59,7 +59,7 @@ width of ``conf/BPR.properties`` (embed_size 128):
   graph over the rebuilt ml-100k's users, generated from a seed
   (``write_trusts``), then the same CLI with ``--model SBPR`` and
   ``TBPR`` on it and ``CUNE_BPR`` (latent friends, no trust file) on
-  ml-100k alone, at the widths of their confs, 50 epochs each (the
+  ml-100k alone, at the widths of their confs, 25 epochs each (half the
   confs' count) through the fused tier: the kernel launches once per
   epoch, the loss falls, and the best HR@10 is at least the JAX
   package's on the same files less ``JAX_BAND``.  Then each model 3
@@ -69,8 +69,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
 - Phase G, the metric-learning family (kernels ``cml_epoch`` and
   ``rows_epoch_lrml``, LRML's form of the rows kernel): the same CLI
   with ``--model CML``, ``LRML`` and ``TransCF`` at the widths of their
-  confs and their epoch counts (30, 100, 100): CML and LRML through the
-  fused tier (each kernel launches once per epoch), TransCF, which has
+  confs and ``METRIC_EPOCHS`` epochs (30, 100, and TransCF 50 of its
+  100): CML and LRML through the fused tier (each kernel launches once
+  per epoch), TransCF, which has
   no fused tier, through the scan tier (no epoch kernel launches); the
   loss falls and the best HR@10 is at least the JAX package's on the
   same files less ``JAX_BAND``.  Then CML and LRML 3 epochs through the
@@ -82,8 +83,8 @@ width of ``conf/BPR.properties`` (embed_size 128):
 - Phase I, the rest of the social family and the trainer's features (no
   new kernel): on phase F's trust graph, the same CLI with ``--model
   SAMN`` on its conf (embed 64, mem 8, atten 16, Adagrad at lr 0.05,
-  batch 6144, neg_ratio 1), 100 epochs through the grouped pairwise
-  epoch: no epoch kernel launches, the loss falls and the best HR@10 is
+  batch 6144, neg_ratio 1), 50 epochs (half the conf's) through the
+  grouped pairwise epoch: no epoch kernel launches, the loss falls and the best HR@10 is
   at least the JAX package's on the same files less ``JAX_BAND``; then
   SAMN_single 10 epochs, and SAMN's grouped against its flat epoch
   (``train.grouped_pairs=False``), 30 epochs each (the flat one
@@ -224,6 +225,25 @@ width of ``conf/BPR.properties`` (embed_size 128):
   ``phase Q`` line gives each run's epoch ms a rank, one combine's ms,
   phase Q's seconds and the card: a check of the mesh, not a mesh's
   speed.
+- Phase R, the parallel layer's model axis (after Q; no kernel: the model
+  axis declines the fused tier): this script re-executed twice
+  (``--model-rank R PORT``) as the two ranks of a ``1 x 2`` mesh on cuda:0
+  over gloo, each holding its half of every table that divides over 2
+  (Q; ml-100k's 943-user P stays whole, as the JAX package's rule keeps
+  it).  R-parity: one epoch of BPR (phase C's recipe, the epoch kernel
+  asked for and declined) under each exchange, CML under the explicit
+  one, SoHRML (the dual epoch and ``pre_epoch``, phase L's files) and FM
+  (phase M's files), on a draw the ranks and this process share: the
+  ranks' gathered states equal each other and the unmeshed scan or dual
+  epoch here, bit for bit under gspmd and within phase D's ``EPOCH_*``
+  under explicit.  R-memory: each rank's bytes of P, Q and their moments
+  against the unmeshed run's.  R-quality: the CLI with ``--mesh 1x2
+  --distributed --device cuda:0`` under ``torch.distributed.run`` on BPR
+  30 epochs, its best HR@10 within ``JAX_BAND`` of ``JAX_R_HR10``.
+  R-trace: BPR's CLI two epochs with ``profile.dir`` in a fresh process,
+  its Chrome trace holding the fused epoch's kernel.  The ``phase R``
+  line gives each run's epoch ms a rank, the bytes, the seconds and the
+  card.
 - Kernel rows: each kernel against its plain PyTorch version at the
   shapes of its phase, timed beside the plain version, a library call
   where one computes the same function (yardstick only), and the least
@@ -281,6 +301,7 @@ import importlib.util
 import json
 import logging
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -301,7 +322,7 @@ from cleverrec_tpu_torch.models.base import DataMeta
 from cleverrec_tpu_torch.ops import build, scores
 from cleverrec_tpu_torch.ops import train as train_ops
 from cleverrec_tpu_torch.ops.topk import topk
-from cleverrec_tpu_torch.parallel import Mesh, make_mesh
+from cleverrec_tpu_torch.parallel import Mesh, make_mesh, sharding
 from cleverrec_tpu_torch.ranking import rank_dense, rank_sharded
 from cleverrec_tpu_torch.sampling import build_member_table, rows_to_bits
 from cleverrec_tpu_torch.serving import (build_rerank_fn, build_retrieval_fn,
@@ -379,26 +400,39 @@ DENSE_ATOL, DENSE_RTOL, MLP_LOSS_RTOL = 1e-4, 1e-3, 1e-4
 # percent of the states one epoch in (tools/mlp_states.py on the card).
 MLP_HELD_STEPS = 4
 SOCIAL = ("SBPR", "TBPR", "CUNE_BPR")
-SOCIAL_EPOCHS = 50    # the epoches of conf/{SBPR,TBPR,CUNE_BPR}.properties
+# Phases F and I train half their confs' epochs (SBPR, TBPR and CUNE_BPR
+# 25 of 50, SAMN 50 of 100), cut as phase J's were to keep the smoke
+# inside its limit on a slower host; the JAX references were re-taken.
+SOCIAL_EPOCHS = 25
 TRUST_SEED = 2026
+LIBFM_DATASET = "ml100k"   # write_ml100k_libfm's dataset under DATA
 # Phase F: the JAX package's best HR@10 on the same rebuilt ml-100k and the
-# trust graph of write_trusts(TRUST_SEED), each conf's recipe, 50 epochs
-# (the JAX CLI on the CPU; the command is in PERF.md).
-JAX_SOCIAL_HR10 = {"SBPR": 0.7391, "TBPR": 0.6819, "CUNE_BPR": 0.7635}
+# trust graph of write_trusts(TRUST_SEED), each conf's recipe, 25 epochs,
+# from the JAX CLI on the CPU:
+#   JAX_PLATFORMS=cpu python -m cleverrec_tpu.cli --config
+#     CleverRec.properties --conf-dir conf --set data.root_dir=build/data
+#     --set data.file_name=ratings.csv --set data.sep=, --model M
+#     --set epoches=25
+# with M SBPR, TBPR and CUNE_BPR.  (At the confs' 50: 0.7391, 0.6819,
+# 0.7635.)
+JAX_SOCIAL_HR10 = {"SBPR": 0.7402, "TBPR": 0.6872, "CUNE_BPR": 0.7529}
 METRIC = ("CML", "LRML", "TransCF")
-METRIC_EPOCHS = {"CML": 30, "LRML": 100, "TransCF": 100}   # the confs'
+# The confs' epochs but TransCF's, half its 100 (its JAX curve is flat
+# from epoch 15), cut as phase F's were.
+METRIC_EPOCHS = {"CML": 30, "LRML": 100, "TransCF": 50}
 METRIC_KERNEL = {"CML": "cml_epoch", "LRML": "rows_epoch_lrml",
                  "TransCF": None}
 # Phase G: the JAX package's best HR@10 on the same rebuilt ml-100k, each
-# conf's recipe and epoch count (the JAX CLI on the CPU; the command is in
-# PERF.md).
-JAX_METRIC_HR10 = {"CML": 0.8017, "LRML": 0.8271, "TransCF": 0.8314}
+# conf's recipe at the epoch counts above (the JAX CLI on the CPU: phase
+# F's command with --model M --set epoches=N).  (TransCF at 100: 0.8314.)
+JAX_METRIC_HR10 = {"CML": 0.8017, "LRML": 0.8271, "TransCF": 0.8324}
 TRAP_EPOCHS = 5       # CML's epochs before the distance-model trap
-SAMN_EPOCHS = 100     # the epoches of conf/SAMN.properties
+SAMN_EPOCHS = 50
 # Phase I: the JAX package's best HR@10 for SAMN on the same rebuilt
 # ml-100k and the trust graph of write_trusts(TRUST_SEED), the conf's
-# recipe, 100 epochs (the JAX CLI on the CPU; the command is in PERF.md).
-JAX_SAMN_HR10 = 0.8303
+# recipe, 50 epochs: phase F's command with --model SAMN --set
+# epoches=50.  (At the conf's 100: 0.8303.)
+JAX_SAMN_HR10 = 0.8187
 SAMN_SINGLE_EPOCHS = 10
 # SAMN's grouped against its flat epoch: they converge at different
 # rates.  On the same files the JAX CLI's flat epoch leads the grouped one
@@ -436,19 +470,22 @@ JAX_ITEM_GRAPH_HR10 = {"FISM": 0.7243, "LightGCN": 0.6946, "NGCF": 0.8155,
 JAX_NAIS_FIRST_LOSS = {"warm": 982.9916, "cold": 382.5351}
 WARM_GAP = 1.1
 # Phase K: half the counts that kept it near 150 s on a fast host
-# (LR_GCCF and WMF 50 of their confs' 100, DMF 15, the others 25), for the
-# reason phase J's were cut.
-K_EPOCHS = {"DiffNet": 25, "DiffNetPlusPlus": 25, "LR_GCCF": 50,
-            "WMF": 50, "DMF": 15, "SML": 25, "EATNN": 25}
+# (LR_GCCF and WMF 50 of their confs' 100, DMF 15, DiffNet 25), for the
+# reason phase J's were cut; DiffNet++, SML and EATNN halved again to 12,
+# where the JAX CLI's curves flatten (DiffNet stays at 25: its curve
+# leaves a plateau at epochs 10-12).
+K_EPOCHS = {"DiffNet": 25, "DiffNetPlusPlus": 12, "LR_GCCF": 50,
+            "WMF": 50, "DMF": 15, "SML": 12, "EATNN": 12}
 # Phase K: the JAX package's best HR@10 on the same files (the rebuilt
 # ml-100k and, for DiffNet, DiffNet++ and EATNN, the trust graph of
 # write_trusts(TRUST_SEED)), each conf's recipe at the epoch counts
 # above, from the JAX CLI on the CPU: phase J's command with --model M
-# and --set epoches=N (the three confs name trusts.csv).  (At the earlier
-# counts: 0.7699, 0.8388, 0.8218, 0.8197, 0.7773, 0.7709, 0.8303.)
-JAX_K_HR10 = {"DiffNet": 0.7222, "DiffNetPlusPlus": 0.8250,
+# and --set epoches=N (the three confs name trusts.csv).  (At the confs'
+# counts: 0.7699, 0.8388, 0.8218, 0.8197, 0.7773, 0.7709, 0.8303; at 25:
+# DiffNet++ 0.8250, SML 0.7709, EATNN 0.8282.)
+JAX_K_HR10 = {"DiffNet": 0.7222, "DiffNetPlusPlus": 0.8112,
               "LR_GCCF": 0.7975, "WMF": 0.8197, "DMF": 0.7741,
-              "SML": 0.7709, "EATNN": 0.8282}
+              "SML": 0.7709, "EATNN": 0.8144}
 # The models whose decomposition phase K ranks with dot_scores, and what
 # ``auto`` serving picks for each of the seven on ml-100k.
 K_RANKED = ("LR_GCCF", "SML")
@@ -456,19 +493,21 @@ K_BACKEND = {"DiffNet": "dense", "DiffNetPlusPlus": "dense",
              "LR_GCCF": "fused", "WMF": "fused", "DMF": "dense",
              "SML": "fused", "EATNN": "fused"}
 # Phase L: the dual-domain models on phase F's files, each conf at its full
-# width, its 200 epochs cut to what keeps phase L near 60 s on a fast
-# host (RML_DGATs, ~1.5 s an epoch on an H100, to 15: the JAX CLI's
-# best epoch on these files is 15 and stays so to 40; SoHRML, ~0.8 s, to
-# 20), for the reason phase J's were cut; BPR's conf with popularity
-# negatives at its 30 epochs, on the fused and the scan tier.
-L_EPOCHS = {"RML_DGATs": 15, "SoHRML": 20}
+# width, its 200 epochs cut to what keeps phase L near 40 s on a fast
+# host (RML_DGATs, ~1.5-3 s an epoch on an H100, to 8: the JAX CLI's
+# best HR@10 on these files over 8 epochs is 0.013 under its best, at 15;
+# SoHRML, ~0.8-1.8 s, to 10), for the reason phase J's were cut; BPR's
+# conf with popularity negatives at its 30 epochs, on the fused and the
+# scan tier.
+L_EPOCHS = {"RML_DGATs": 8, "SoHRML": 10}
 POP = {"neg_sampling": "popularity"}
 # Phase L: the JAX package's best HR@10 on the same files at the epochs
 # above, from the JAX CLI on the CPU: phase J's command with --model M and
 # --set epoches=N (both confs read trusts.csv), and with --model BPR --set
 # neg_sampling=popularity (30 epochs, the conf's); the first N epochs of a
-# longer run are the same run.  (SoHRML at its earlier 40: 0.8261.)
-JAX_L_HR10 = {"RML_DGATs": 0.8261, "SoHRML": 0.8112, "BPR_pop": 0.7423}
+# longer run are the same run.  (At the earlier 15 and 20: 0.8261,
+# 0.8112; SoHRML at 40: 0.8261.)
+JAX_L_HR10 = {"RML_DGATs": 0.8134, "SoHRML": 0.8081, "BPR_pop": 0.7423}
 # Phase M: the rating confs' 30 epochs, and the JAX package's best test
 # RMSE (and MAE) on the repo's ml-100k libFM files, each conf's recipe at
 # seed 2026 (the JAX CLI on the CPU: JAX_PLATFORMS=cpu python -m
@@ -567,6 +606,41 @@ Q_SYNC = {"train.dp_sync_every": "2", "train.dp_delta_combine": "sum"}
 Q_USERS = 256          # Q-eval: the test users rank_sharded ranks
 Q_TIMEOUT = 600        # seconds the two ranks may take together
 Q_DIR = os.path.join(ROOT, "build", "phase_q")
+# Phase R: the parallel layer's model axis, two ranks of a 1 x 2 mesh on
+# cuda:0 over gloo, each holding half the rows of every row-shardable
+# table.  R-parity: one epoch of each case (tag, model, overrides, the
+# tier it must take, whether it is held bit for bit) on one draw that the
+# ranks and this process's unmeshed run share: the ranks' gathered states
+# equal bit for bit, and the unmeshed epoch's bit for bit under the gspmd
+# exchange, within phase D's EPOCH_* under the explicit one (a row's
+# duplicates summed through embedding's backward, not indexing's) and for
+# SoHRML (its edge sums are index_add's atomics, which round in a
+# run-dependent order on the card); BPR at phase C's recipe with the
+# epoch kernel asked for (the model axis declines it), CML under the
+# explicit exchange (its covariance over the whole tables), SoHRML (the
+# dual epoch and pre_epoch, on phase L's files) and FM (phase M's files).
+R_CASES = (("BPR_gspmd", "BPR", {"train.fused_kernel": "True"}, "scan",
+            True),
+           ("BPR_explicit", "BPR", {"train.fused_kernel": "True",
+                                    "parallel.exchange": "explicit"}, "scan",
+            False),
+           ("CML_explicit", "CML", {"train.fused_kernel": "True",
+                                    "parallel.exchange": "explicit"}, "scan",
+            False),
+           ("SoHRML", "SoHRML", {}, "dual", False),
+           ("FM", "FM", {}, "rating", True))
+# R-quality: the CLI with --mesh 1x2 --distributed under
+# torch.distributed.run on BPR at phase C's recipe, 30 epochs, held within
+# JAX_BAND of the JAX CLI's best HR@10 for the same recipe and mesh on the
+# CPU:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2
+#     python -m cleverrec_tpu.cli --config CleverRec.properties --conf-dir
+#     conf --set data.root_dir=build/data --set data.file_name=ratings.csv
+#     --set data.sep=, --model BPR --mesh 1x2
+JAX_R_HR10 = 0.8441
+R_TIMEOUT = 300        # seconds the two ranks may take together
+R_CARD = "cuda:0"      # the card both ranks share
+R_DIR = os.path.join(ROOT, "build", "phase_r")
 
 
 class SmokeError(Exception):
@@ -1459,7 +1533,7 @@ def social_stats(edges):
 
 
 def phase_f():
-    """The social-triple family at its confs' widths, 50 epochs each
+    """The social-triple family at its confs' widths, SOCIAL_EPOCHS each
     through the fused tier; then 3 epochs of each through the fused tier,
     the scan tier and the streamed option, on identical draws."""
     stats = social_stats(write_trusts())
@@ -2329,13 +2403,15 @@ def phase_l(profiles):
 def write_ml100k_libfm() -> str:
     """The repo's ml-100k libFM files in build/data/ml100k/, the layout
     ``<root>/<dataset>/<dataset>.{train,test}.libfm`` the rating loader
-    reads; returns the dataset's name."""
-    path = os.path.join(DATA, "ml100k")
+    reads, each replaced whole; returns the dataset's name."""
+    path = os.path.join(DATA, LIBFM_DATASET)
     os.makedirs(path, exist_ok=True)
     for part in ("train", "test"):
-        shutil.copy(os.path.join(ROOT, "benchmarks", "UIRT",
-                                 f"ml100k.{part}.libfm"), path)
-    return "ml100k"
+        name = f"{LIBFM_DATASET}.{part}.libfm"
+        tmp = os.path.join(path, f"{name}.{os.getpid()}.tmp")
+        shutil.copy(os.path.join(ROOT, "benchmarks", "UIRT", name), tmp)
+        os.replace(tmp, os.path.join(path, name))   # no reader sees half
+    return LIBFM_DATASET
 
 
 def drive_rating(tag, model, epochs=M_EPOCHS, flags=(), trials=1,
@@ -3467,26 +3543,28 @@ def q_eval_hold():
                                             for k, v in want.items()}}
 
 
-def phase_q(card: str):
-    """The parallel layer's data axis: two ranks of this script on cuda:0
-    (``--rank``), then Q-parity, Q-eval and Q-quality held here.  Two
-    ranks on one card over gloo say whether the mesh is right, not how
-    fast a mesh is."""
-    t0 = time.perf_counter()
-    shutil.rmtree(Q_DIR, ignore_errors=True)
-    os.makedirs(Q_DIR)
+def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    logs = [os.path.join(Q_DIR, f"rank{r}.log") for r in range(2)]
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(flag: str, out_dir: str, timeout: float, tag: str):
+    """This script re-executed as the two ranks of a mesh on cuda:0
+    (``flag R PORT``), ``out_dir`` emptied first; every process is
+    stopped by the deadline.  Returns each rank's rank<R>.json."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    port = free_port()
+    logs = [os.path.join(out_dir, f"rank{r}.log") for r in range(2)]
     procs = []
     for r, log in enumerate(logs):
         with open(log, "w") as f:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                [sys.executable, os.path.abspath(__file__), flag, str(r),
                  str(port)], stdout=f, stderr=subprocess.STDOUT))
     try:
-        deadline = time.monotonic() + Q_TIMEOUT
+        deadline = time.monotonic() + timeout
         for p in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     except subprocess.TimeoutExpired:
@@ -3498,12 +3576,22 @@ def phase_q(card: str):
                 p.wait()
     for r, p in enumerate(procs):
         with open(logs[r]) as f:
-            check(p.returncode == 0, f"Q: rank {r} exited {p.returncode}:\n"
-                  f"{f.read()[-4000:]}")
+            check(p.returncode == 0, f"{tag}: rank {r} exited "
+                  f"{p.returncode}:\n{f.read()[-4000:]}")
     ranks = []
     for r in range(2):
-        with open(os.path.join(Q_DIR, f"rank{r}.json")) as f:
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
+    return ranks
+
+
+def phase_q(card: str):
+    """The parallel layer's data axis: two ranks of this script on cuda:0
+    (``--rank``), then Q-parity, Q-eval and Q-quality held here.  Two
+    ranks on one card over gloo say whether the mesh is right, not how
+    fast a mesh is."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("--rank", Q_DIR, Q_TIMEOUT, "Q")
     ranks_s = time.perf_counter() - t0
     out = {"card": card, "ranks": "2 on cuda:0, gloo: a check of the "
            "mesh, not a mesh's speed", "devices": [r["device"]
@@ -3529,6 +3617,226 @@ def phase_q(card: str):
             for k, v in run["launches"].items():
                 launches[k] = launches.get(k, 0) + v
     out["launches"] = {k: v for k, v in launches.items() if v}
+    out["ranks_s"] = ranks_s
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+# -- phase R: the parallel layer's model axis --------------------------------
+
+def r_run(name, overrides, mesh):
+    """One epoch of an R case on ``mesh`` (None: unmeshed, on cuda:0)
+    from the seed's state and draw.  Returns the state whole (the row
+    blocks gathered: a collective on a mesh), the loss, the draw's digest,
+    the epoch's ms, the tier, the launches and the bytes of P, Q and their
+    moments this process holds."""
+    device = mesh.device if mesh is not None else torch.device(R_CARD)
+    if name == "FM":
+        from cleverrec_tpu_torch.data.libfm import load_rating_data
+        from cleverrec_tpu_torch.rating import FMTrainer, make_rating_model
+        # The files are written before the ranks start (phase_r): a rank
+        # that rewrote them could cut them short under the other's read.
+        cfg = config(LIBFM_DATASET, recommender=name, **overrides)
+        data = load_rating_data(cfg)
+        trainer = FMTrainer(make_rating_model(cfg, data), data, cfg,
+                            device=device, mesh=mesh)
+        params, state = trainer.init_state()
+        order, w = trainer.epoch_order()
+        digest = q_digest({"order": order, "w": w})
+
+        def run():
+            return trainer.train_epoch(params, state, order, w)[:3]
+        model, tier = trainer.model, "rating"
+    else:
+        cfg = config("ml-100k", recommender=name, **overrides)
+        data = load_ranking_data(cfg)
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
+                           device=device)
+        trainer = Trainer(model, data, cfg, device=device, mesh=mesh)
+        params, state = trainer.init_state()
+        draw = trainer.sample_epoch()
+        digest = q_digest(draw)
+        trainer.sample_epoch = lambda: draw
+
+        def run():
+            return trainer.train_epoch(params, state)
+        tier = trainer.tier
+    scores.reset_launches()
+    train_ops.reset_launches()
+    (params, state, loss), sec = sync_s(run)
+    launched = {k: v for k, v in {**scores.launches,
+                                  **train_ops.launches}.items() if v}
+    held = {f"{part}_{n}": t[n].numel() * t[n].element_size()
+            for part, t in (("p", params), ("mu", state.mu),
+                            ("nu", state.nu)) for n in ("P", "Q") if n in t}
+    shards = sharding.shards_of(model)
+    whole = {part: {n: x.detach().cpu() for n, x in
+                    (sharding.full_tensors(t, shards, mesh) if mesh
+                     else t).items()}
+             for part, t in (("p", params), ("mu", state.mu),
+                             ("nu", state.nu))}
+    return {"state": whole, "loss": float(loss), "digest": digest,
+            "epoch_ms": sec * 1e3, "tier": tier, "launches": launched,
+            "held": held, "shards": sorted(shards)}
+
+
+def r_rank(rank: int, port: int) -> int:
+    """``--model-rank R PORT``: one of phase R's two ranks of a 1 x 2 mesh
+    on cuda:0 with gloo.  R-parity: one epoch of each ``R_CASES`` case on
+    the seed's draw, the gathered state saved under build/phase_r/.
+    Writes build/phase_r/rank<R>.json."""
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    mesh = make_mesh(1, 2, R_CARD)
+    out = {"device": str(mesh.device), "runs": {}}
+    for tag, name, overrides, *_ in R_CASES:
+        res = r_run(name, overrides, mesh)
+        torch.save({"state": res.pop("state"), "loss": res["loss"]},
+                   os.path.join(R_DIR, f"{tag}_rank{rank}.pt"))
+        out["runs"][tag] = res
+    with open(os.path.join(R_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def r_hold(tag, name, overrides, tier, exact, ranks):
+    """R-parity of one case: the ranks' draws equal this process's, their
+    gathered states equal each other bit for bit, and the unmeshed scan
+    (or dual) epoch here bit for bit (``exact``) or within phase D's
+    EPOCH_*."""
+    want = r_run(name, {**overrides, "train.fused_kernel": "False"}, None)
+    got = [torch.load(os.path.join(R_DIR, f"{tag}_rank{r}.pt"))
+           for r in range(2)]
+    runs = [r["runs"][tag] for r in ranks]
+    check(all(r["digest"] == want["digest"] for r in runs),
+          f"R {tag}: the ranks' draws differ from this process's")
+    check(all(r["tier"] == tier for r in runs) and want["tier"] == tier,
+          f"R {tag}: tiers {[r['tier'] for r in runs]}, unmeshed "
+          f"{want['tier']}")
+    check(not any(r["launches"] for r in runs),
+          f"R {tag}: launches {[r['launches'] for r in runs]}")
+    errors = {}
+    for part, tensors in want["state"].items():
+        for n, x in tensors.items():
+            a, b = got[0]["state"][part][n], got[1]["state"][part][n]
+            check(torch.equal(a, b), f"R {tag}: the ranks' {part} {n} differ")
+            if exact:
+                check(torch.equal(a, x), f"R {tag}: {part} {n} differs from "
+                      "the unmeshed epoch")
+                errors[f"{part}_{n}"] = 0.0
+            else:
+                errors.update(hold(f"R {tag}", [(f"{part}_{n}", a.cuda(),
+                                                 x.cuda())],
+                                   EPOCH_ATOL, EPOCH_RTOL))
+    loss_rel = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+    check(got[0]["loss"] == got[1]["loss"]
+          and loss_rel <= (0.0 if exact else EPOCH_LOSS_RTOL),
+          f"R {tag}: losses {got[0]['loss']}, {got[1]['loss']}, unmeshed "
+          f"{want['loss']}")
+    return {"max_abs_err": max(errors.values()), "loss_rel_err": loss_rel,
+            "exact": exact, "epoch_ms": [r["epoch_ms"] for r in runs],
+            "unmeshed_epoch_ms": want["epoch_ms"],
+            "shards": runs[0]["shards"], "held": [r["held"] for r in runs],
+            "unmeshed_held": want["held"]}
+
+
+def r_cli(tag, argv, timeout=300):
+    """A port CLI run in a fresh process from the checkout; its output."""
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    run = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    check(run.returncode == 0, f"{tag}: exit code {run.returncode}:\n"
+          f"{(run.stdout + run.stderr)[-4000:]}")
+    return run
+
+
+def r_quality():
+    """R-quality: python -m torch.distributed.run --nproc-per-node 2 ...
+    --distributed --mesh 1x2 --device cuda:0 on BPR at phase C's recipe
+    (two gloo ranks on the one card); rank 0's log gives the tier, the
+    epochs' seconds and the best HR@10."""
+    log_dir = os.path.join(R_DIR, "quality")
+    argv = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+            "--nproc-per-node", "2", "--master-addr", "localhost",
+            "--master-port", str(free_port()), "-m",
+            "cleverrec_tpu_torch.cli", "--distributed", "--mesh", "1x2",
+            "--device", R_CARD,
+            *cli_argv("BPR", (), cli_values(EPOCHS, **{"log.dir": log_dir}))]
+    _, wall = sync_s(lambda: r_cli("R quality", argv))
+    with open(os.path.join(log_dir, "BPR.log")) as f:
+        text = f.read()
+    check(text.count("mesh 1x2: the scan tier; Q row-sharded over 2 model "
+                     "ranks") == 1, "R quality: no model-axis line")
+    tail = text[text.rindex("best_epoch: "):]
+    best = {f"{m}@{k}": float(v) for k, hr, mrr, nd in re.findall(
+        r"\(k=(\d+)\) HR=([0-9.]+), MRR=([0-9.]+), NDCG=([0-9.]+)", tail)
+        for m, v in zip(("HR", "MRR", "NDCG"), (hr, mrr, nd))}
+    secs = [float(x) for x in re.findall(
+        r"Training loss: [-0-9.]+, time: ([0-9.]+)s", text)]
+    check(len(secs) == EPOCHS, f"R quality: {len(secs)} epochs logged")
+    check(abs(best["HR@10"] - JAX_R_HR10) <= JAX_BAND,
+          f"R quality: best HR@10 {best['HR@10']} against the JAX CLI's "
+          f"{JAX_R_HR10}")
+    return {"wall_s": wall, "best": best, "jax_hr10": JAX_R_HR10,
+            "epoch_s_median": statistics.median(secs),
+            "best_epoch": int(re.search(r"best_epoch: (\d+)", tail)[1])}
+
+
+def r_trace():
+    """R-trace: BPR's CLI two blocks (2 epochs, the fused tier) with
+    profile.dir in a fresh process: its one Chrome trace holds the second
+    block's bpr_epoch kernel (``bpr_persist``) on the card."""
+    out = os.path.join(R_DIR, "trace")
+    argv = [sys.executable, "-m", "cleverrec_tpu_torch.cli",
+            *cli_argv("BPR", (), cli_values(
+                2, **{"log.dir": os.path.join(R_DIR, "trace_logs"),
+                      "profile.dir": out}))]
+    _, wall = sync_s(lambda: r_cli("R trace", argv))
+    check(os.listdir(out) == ["BPR_rank0.json"], f"R trace: {os.listdir(out)}")
+    with open(os.path.join(out, "BPR_rank0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "bpr_persist" in e.get("name", "")]
+    check(len(kernels) >= 1, "R trace: no bpr_epoch kernel in the trace")
+    return {"wall_s": wall, "events": len(events),
+            "bpr_kernels": len(kernels),
+            "bpr_kernel_us": sum(e.get("dur", 0) for e in kernels)}
+
+
+def phase_r(card: str):
+    """The parallel layer's model axis: two ranks of this script on
+    cuda:0 (``--model-rank``), R-parity and R-memory held here, then
+    R-quality and R-trace, each in fresh processes.  Two ranks on one
+    card over gloo say whether the model axis is right, not how fast it
+    is."""
+    t0 = time.perf_counter()
+    write_ml100k_libfm()
+    ranks = spawn_ranks("--model-rank", R_DIR, R_TIMEOUT, "R")
+    ranks_s = time.perf_counter() - t0
+    out = {"card": card, "ranks": "2 on cuda:0, gloo: a check of the "
+           "model axis, not its speed",
+           "devices": [r["device"] for r in ranks]}
+    out["parity"] = {case[0]: r_hold(*case, ranks) for case in R_CASES}
+    # R-memory: Q (1,682 rows) and its moments split in half; P (943
+    # users, odd) stays whole on each rank, as the JAX package's rule
+    # keeps a table that does not divide over the model axis.
+    bpr = out["parity"]["BPR_gspmd"]
+    check(bpr["shards"] == ["Q"], f"R memory: shards {bpr['shards']}")
+    for held in bpr["held"]:
+        for k, v in bpr["unmeshed_held"].items():
+            check(held[k] * (2 if k.endswith("_Q") else 1) == v,
+                  f"R memory: {k} {held[k]} of {v} bytes")
+    out["memory"] = {"rank_bytes": bpr["held"][0],
+                     "unmeshed_bytes": bpr["unmeshed_held"]}
+    out["parity_s"] = time.perf_counter() - t0
+    out["quality"] = r_quality()
+    out["trace"] = r_trace()
     out["ranks_s"] = ranks_s
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -3691,6 +3999,8 @@ def main() -> int:
                                     if k != "scale"}), flush=True)
     train["Q"] = phase_q(smi[0])
     print("phase Q: " + json.dumps(train["Q"]), flush=True)
+    train["R"] = phase_r(smi[0])
+    print("phase R: " + json.dumps(train["R"]), flush=True)
     # bpr_epoch's launches: phase C's and phase L's popularity run's.
     bpr = next(row for row in rows if row["name"] == "bpr_epoch")
     bpr["launches_by_phase"] = {"C": bpr["launches"],
@@ -3781,6 +4091,8 @@ if __name__ == "__main__":
             sys.exit(trace_main(sys.argv[2]))
         if len(sys.argv) == 4 and sys.argv[1] == "--rank":
             sys.exit(q_rank(int(sys.argv[2]), int(sys.argv[3])))
+        if len(sys.argv) == 4 and sys.argv[1] == "--model-rank":
+            sys.exit(r_rank(int(sys.argv[2]), int(sys.argv[3])))
         sys.exit(main())
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -24,19 +24,20 @@ the JAX CLI ignores them there.
 
 ``--distributed`` initialises the default process group from a
 launcher's environment (``torchrun`` / ``python -m torch.distributed.run``:
-NCCL and ``cuda:LOCAL_RANK`` on the card, gloo with ``--device cpu``);
+NCCL and ``cuda:LOCAL_RANK`` with ``--device cuda``, gloo and every rank
+on that one card with ``--device cuda:N``, gloo with ``--device cpu``);
 ``--mesh DxM`` builds a ``data x model`` mesh over that world
 (``parallel/mesh.py``; default with ``--distributed``: every rank on the
-data axis), and training, evaluation, ``--tune`` and ``--resume`` run on
-it, e.g.
+data axis), and training (ranking or rating, either
+``parallel.exchange``), evaluation, ``--tune`` and ``--resume`` run on it:
+a model axis M > 1 row-shards the tables over M ranks, e.g.
 
     torchrun --nproc-per-node 2 -m cleverrec_tpu_torch.cli --distributed
-             --mesh 2x1 --config CleverRec.properties
+             --mesh 1x2 --config CleverRec.properties
 
-Rank 0 alone logs, checkpoints and exports.  A world of another size, a
-model axis longer than 1 in training, ``parallel.exchange=explicit`` and
-a rating run under a mesh exit 2 (the last three: ROADMAP.md queue 1,
-item 16b).
+Rank 0 alone logs, checkpoints and exports (the row-sharded tables are
+gathered on every rank first).  A world of another size than D * M exits
+2.
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ import torch.distributed as dist
 
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.utils.logging import get_logger
-
-ITEM_16B = "ROADMAP.md queue 1, item 16b"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,13 +70,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on (default: cuda)")
     p.add_argument("--mesh", default=None, metavar="DxM",
                    help="device mesh shape over the process group's ranks, "
-                        "e.g. 2x1 = 2-way data parallel (default: one "
-                        "device; with --distributed: every rank on the data "
-                        "axis); a model axis above 1 is not ported yet")
+                        "e.g. 2x1 = 2-way data parallel, 1x2 = tables "
+                        "row-sharded over 2 ranks (default: one device; "
+                        "with --distributed: every rank on the data axis)")
     p.add_argument("--distributed", action="store_true",
                    help="initialise torch.distributed from the launcher's "
                         "environment (torchrun): NCCL on cuda:LOCAL_RANK, "
-                        "gloo with --device cpu")
+                        "gloo on one card with --device cuda:N, gloo with "
+                        "--device cpu")
     p.add_argument("--export-serving", default=None, metavar="DIR",
                    help="after training, write a serving bundle "
                         "(retrieval + rerank torch.export programs + "
@@ -133,6 +133,11 @@ def run_experiment(cfg: Config, device="cuda", logger=None,
     trainer = Trainer(model, data, cfg, logger=logger, device=device,
                       mesh=mesh)
     best = trainer.run(resume_from=resume_from)
+    if export_serving and mesh is not None:
+        # Every rank joins the gather of the row blocks; rank 0 exports
+        # the whole model.
+        from cleverrec_tpu_torch.parallel.sharding import unshard_model
+        unshard_model(model, mesh)
     if export_serving and (mesh is None or mesh.rank == 0):
         from cleverrec_tpu_torch.serving import export_bundle
         manifest = export_bundle(
@@ -175,8 +180,7 @@ def main(argv=None) -> int:
 
 def _mesh(args, cfg: Config):
     """The run's mesh from --distributed and --mesh (None without
-    either).  What the port cannot run on a mesh yet, and a world of
-    another size than D * M, raise."""
+    either).  A world of another size than D * M raises."""
     from cleverrec_tpu_torch.parallel import init_distributed, make_mesh
     from cleverrec_tpu_torch.parallel.mesh import world
     if not (args.mesh or args.distributed):
@@ -190,16 +194,6 @@ def _mesh(args, cfg: Config):
         except ValueError:
             raise ValueError(
                 f"--mesh {args.mesh!r}: want DxM, e.g. 2x1") from None
-        if shape[1] > 1:
-            raise ValueError(f"--mesh {args.mesh}: a model axis above 1 "
-                             "(row-sharded tables) is not ported yet "
-                             f"({ITEM_16B})")
-    if cfg.model_type == "rating":
-        raise ValueError(f"rating under a mesh is not ported yet "
-                         f"({ITEM_16B})")
-    if cfg.str("parallel.exchange", "gspmd") == "explicit":
-        raise ValueError(f"parallel.exchange=explicit is not ported yet "
-                         f"({ITEM_16B})")
     device = init_distributed(args.device) if args.distributed \
         else args.device
     n = world()[0]

@@ -79,6 +79,11 @@ def sigmoid_xent_loss(labels, logits, weight=None):
     return _weighted_sum(sigmoid_xent(logits, labels), weight)
 
 
+def square_loss(labels, logits, weight=None):
+    """sum((y - y_pre)^2); reference 'square' (utils/tools.py:75-76)."""
+    return _weighted_sum(torch.square(labels - logits), weight)
+
+
 def hinge_loss(diff, margin: float, weight=None):
     """sum(max(diff + margin, 0)); reference 'hinge' (utils/tools.py:73-74)."""
     return _weighted_sum(torch.clamp(diff + margin, min=0.0), weight)

@@ -34,6 +34,17 @@ def _native():
     return lib
 
 
+def available() -> bool:
+    """Whether the native parser loads (``csrc/fastcsv.cpp``, built with
+    ``g++`` on first use); ``read_columns`` raises where it is needed and
+    does not."""
+    try:
+        _native()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 def _numeric_first_line(path: str, sep: str, n_cols: int,
                         skip_header: bool) -> bool:
     """The JAX package's probe: are the first ``n_cols`` fields of the

@@ -19,6 +19,13 @@
   a ``1 x 1`` one too, sends full-catalog evaluation there, never to the
   fused kernels or the stream, as the JAX evaluator does.
 
+Under a model axis whose tables are row-sharded (``model.row_shards``)
+each evaluation reads them through the exchange's views
+(``sharding.table_views``, ``serve``), set up once an evaluation: a
+candidate list's rows come through the row-sharded gather, a
+dot-decomposable model scores its own item rows, and any other model's
+full-table reads see tables all-gathered once an evaluation.
+
 The test set is stacked once into padded user batches on the device; a
 Python loop ranks each batch and reduces it to per-K metric sums (the
 reference's HR/MRR/NDCG formulas, utils/metrics.py:9-19), so the host
@@ -42,6 +49,7 @@ from cleverrec_tpu_torch.common import cdiv, resolve_device
 from cleverrec_tpu_torch.data.arrays import DeviceData
 from cleverrec_tpu_torch.metrics import PAD_ITEM, ranking_metrics_topks
 from cleverrec_tpu_torch.ops.topk import topk
+from cleverrec_tpu_torch.parallel.sharding import table_views
 from cleverrec_tpu_torch.sampling import rows_to_bits
 
 
@@ -246,8 +254,9 @@ class Evaluator:
         """Top-K item lists for all test users, in test-user order."""
         aux = self._aux(aux)
         pre = self._pre(aux)
-        outs = [self._rank_batch(aux, self._batch(i), pre).cpu().numpy()
-                for i in range(self._batches["u"].shape[0])]
+        with table_views(self.model, self.mesh, "serve"):
+            outs = [self._rank_batch(aux, self._batch(i), pre).cpu().numpy()
+                    for i in range(self._batches["u"].shape[0])]
         return np.concatenate(outs, axis=0)[:len(self.dd.test_users)]
 
     def evaluate_host(self, aux=None):
@@ -268,10 +277,11 @@ class Evaluator:
         aux = self._aux(aux)
         pre = self._pre(aux)
         sums = torch.zeros((len(self.topk), 3), device=self.device)
-        for i in range(self._batches["u"].shape[0]):
-            b = self._batch(i)
-            rec = self._rank_batch(aux, b, pre)
-            sums += self._metric_sums(rec, b["real"], b["row_w"])
+        with table_views(self.model, self.mesh, "serve"):
+            for i in range(self._batches["u"].shape[0]):
+                b = self._batch(i)
+                rec = self._rank_batch(aux, b, pre)
+                sums += self._metric_sums(rec, b["real"], b["row_w"])
         sums = sums.cpu().numpy()
         t = len(self.dd.test_users)
         return {k: tuple(float(x) / t for x in sums[idx])

@@ -83,6 +83,21 @@ def _metrics_at(rank: np.ndarray, valid: np.ndarray, n_real: np.ndarray,
     return hr, mrr, ndcg
 
 
+def ranking_metrics(real: np.ndarray, rec: np.ndarray, k: int,
+                    standard_mrr: bool = False):
+    """Vectorized HR/MRR/NDCG at cutoff ``k``.
+
+    Args:
+      real: [B, T] ground-truth item ids, PAD_ITEM-padded.
+      rec:  [B, R] recommended item ids in rank order (R >= k),
+            PAD_ITEM-padded; only the first ``k`` columns are considered.
+    Returns:
+      (hr, mrr, ndcg): three float64 arrays of shape [B].
+    """
+    rank, valid, n_real = _real_ranks(real, rec, k)
+    return _metrics_at(rank, valid, n_real, k, standard_mrr)
+
+
 def ranking_metrics_topks(real: np.ndarray, rec: np.ndarray, topks,
                           standard_mrr: bool = False):
     """Metrics at several cutoffs: returns {k: (hr, mrr, ndcg)}.

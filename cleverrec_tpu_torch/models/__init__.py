@@ -25,10 +25,21 @@ from cleverrec_tpu_torch.models.ncf import GMF, MLP, NeuMF
 from cleverrec_tpu_torch.models.social import (CUNE_BPR, SAMN, SBPR, TBPR,
                                                SAMNSingle)
 
-_REGISTRY: dict[str, type] = {m.name: m for m in (
-    BPR, GMF, MLP, NeuMF, SBPR, TBPR, CUNE_BPR, SAMN, SAMNSingle, CML, LRML,
-    TransCF, FISM, NAIS, NAISSingle, LightGCN, NGCF, DiffNet,
-    DiffNetPlusPlus, LR_GCCF, WMF, DMF, SML, EATNN, RML_DGATs, SoHRML)}
+_REGISTRY: dict[str, type] = {}
+
+
+def register(cls):
+    """Add a model class to the registry under its ``name`` (a class
+    decorator, as the JAX package's); returns the class."""
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+for _cls in (BPR, GMF, MLP, NeuMF, SBPR, TBPR, CUNE_BPR, SAMN, SAMNSingle,
+             CML, LRML, TransCF, FISM, NAIS, NAISSingle, LightGCN, NGCF,
+             DiffNet, DiffNetPlusPlus, LR_GCCF, WMF, DMF, SML, EATNN,
+             RML_DGATs, SoHRML):
+    register(_cls)
 
 
 def available_models() -> list[str]:

@@ -1,9 +1,9 @@
 """The device mesh (as ``cleverrec_tpu/parallel/mesh.py``).
 
 A mesh has the JAX package's two axes, ``data`` (each rank a full
-replica, its share of the epoch's steps) and ``model`` (the item axis of
-sharded ranking; row-sharded tables are ROADMAP.md queue 1, item 16b),
-over a world of ``D * M`` ranks.  Each rank is one process on one
+replica, its share of the epoch's steps) and ``model`` (the rows of each
+row-shardable table, ``parallel/sharding.py``, and the item axis of
+sharded ranking), over a world of ``D * M`` ranks.  Each rank is one process on one
 explicit device; rank ``r`` sits at data index ``r // M`` and model
 index ``r % M``, the layout of ``mesh_utils.create_device_mesh((D, M))``
 over the device list.
@@ -136,6 +136,20 @@ def make_mesh(n_data: int | None = None, n_model: int | None = None,
     return Mesh(n_data, n_model, device, rank, groups)
 
 
+def mesh_device(device, mesh) -> torch.device:
+    """The device an entry point runs on: ``device`` (default ``cuda``),
+    or under a ``mesh`` the mesh's, which a given ``device`` must name."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    if device is not None:
+        want = resolve_device(device)
+        if (want.type, want.index or 0) != (mesh.device.type,
+                                            mesh.device.index or 0):
+            raise ValueError(f"device {want} differs from the mesh's "
+                             f"{mesh.device}")
+    return mesh.device
+
+
 def single_device_mesh(device="cuda") -> Mesh:
     """The ``1 x 1`` mesh on ``device``: no process group."""
     return Mesh(1, 1, device)
@@ -148,25 +162,29 @@ LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 def init_distributed(device="cuda") -> torch.device:
     """Initialise the default process group from a launcher's environment
     (``torchrun`` / ``python -m torch.distributed.run``) and return this
-    rank's device: NCCL and ``cuda:LOCAL_RANK`` for a CUDA ``device``,
-    gloo and the CPU for ``cpu``.  A missing variable, or a local rank
-    without its card, raises."""
+    rank's device: NCCL and ``cuda:LOCAL_RANK`` for ``cuda``; gloo and
+    that one card for every rank for ``cuda:N`` (NCCL takes one rank a
+    device, so ranks that share a card talk over gloo); gloo and the CPU
+    for ``cpu``.  A missing variable, or a rank without its card,
+    raises."""
     missing = [k for k in LAUNCHER_ENV if k not in os.environ]
     if missing:
         raise RuntimeError(
             f"--distributed needs a launcher's environment; {', '.join(missing)}"
             " not set (launch with torchrun --nproc-per-node N or python -m "
             "torch.distributed.run)")
-    kind = torch.device(device).type
+    want = torch.device(device)
+    kind = want.type
     if kind == "cuda":
-        local = int(os.environ["LOCAL_RANK"])
+        pinned = want.index is not None
+        local = want.index if pinned else int(os.environ["LOCAL_RANK"])
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if local >= n:
             raise RuntimeError(f"rank {os.environ['RANK']}: its device "
                                f"cuda:{local} is missing ({n} CUDA devices)")
         dev = torch.device("cuda", local)
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend = "gloo" if pinned else "nccl"
     elif kind == "cpu":
         dev, backend = torch.device("cpu"), "gloo"
     else:

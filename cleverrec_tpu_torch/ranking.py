@@ -24,7 +24,9 @@ from cleverrec_tpu_torch.ops.scores import (COMB_I, NEG, dot_gmax,
                                             dot_scores)
 from cleverrec_tpu_torch.ops.topk import (grouped_topk, sharded_topk_scores,
                                           streaming_topk, topk)
-from cleverrec_tpu_torch.parallel.sharding import pad_table_for_sharding
+from cleverrec_tpu_torch.parallel.sharding import (ExchangeTable,
+                                                   pad_table_for_sharding,
+                                                   shards_of, table_views)
 
 # The JAX package's fused path pads the catalog to 4096-item tiles and
 # takes the group-max branch from two tiles up; the port keeps the same
@@ -67,16 +69,67 @@ def rank_sharded(model, aux, u, rows, k: int, mesh,
     masked scores' item axis padded with -inf to a multiple of the mesh's
     model size M, each model rank's top-k of its slice, and the k * M
     candidates gathered and merged (``ops.topk.sharded_topk_scores``);
-    every rank gets the whole answer, equal to ``rank_dense``'s.  The
-    tables are replicated on the data axis, so a rank computes the row of
-    scores and keeps its slice; a row-sharded item table (ROADMAP.md
-    queue 1, item 16b) would score the slice alone."""
+    every rank gets the whole answer, equal to ``rank_dense``'s.  With
+    replicated tables a rank computes the row of scores and keeps its
+    slice; a model whose tables are row-sharded over ``model``
+    (``model.row_shards``) is read through the exchange's views
+    (``sharding.table_views``, ``serve``): a dot-decomposable one scores
+    its slice alone (``_slice_scores``), any other the row from the
+    views' all-gathered tables."""
+    if shards_of(model):
+        with table_views(model, mesh, "serve"):
+            return _rank_row_sharded(model, aux, u, rows, k, mesh,
+                                     filter_seen)
     scores = masked_full_scores(model, aux, u, rows, filter_seen)
     n = mesh.shape["model"]
     scores = pad_table_for_sharding(scores, n, dim=1, value=-torch.inf)
     width = scores.shape[1] // n
     lo = mesh.index("model") * width
     return sharded_topk_scores(scores[:, lo:lo + width], k, mesh)
+
+
+def _rank_row_sharded(model, aux, u, rows, k, mesh, filter_seen):
+    """``rank_sharded`` inside the views: this rank's item slice of the
+    masked scores (``_slice_scores``, or the row of ``score_all`` cut),
+    its top-k merged over ``model``."""
+    n, m = mesh.shape["model"], mesh.index("model")
+    item_nums = model.meta.item_nums
+    width = cdiv(item_nums, n)
+    lo = m * width
+    if hasattr(model, "dot_decomposition"):
+        scores = _slice_scores(model, aux, u, n, lo, width)
+    else:
+        scores = model.score_all(u, aux)
+        if model.cml_like:
+            scores = -scores
+        scores = pad_table_for_sharding(scores, n, dim=1,
+                                        value=-torch.inf)[:, lo:lo + width]
+    ids = torch.arange(lo, lo + width, device=scores.device)
+    scores = scores.masked_fill((ids >= item_nums)[None, :], -torch.inf)
+    if filter_seen:
+        seen = torch.zeros((u.shape[0], n * width + 1), dtype=torch.bool,
+                           device=scores.device)
+        seen.scatter_(1, rows.long(), True)
+        scores = scores.masked_fill(seen[:, lo:lo + width], -torch.inf)
+    return sharded_topk_scores(scores, k, mesh)
+
+
+def _slice_scores(model, aux, u, n, lo, width):
+    """[B, width] scores of items [lo, lo + width) from the model's
+    ``dot_decomposition``: the user vectors (their rows through the
+    exchange), this rank's rows of the item table (an ``ExchangeTable``'s
+    own block, else a slice of the padded table) and of the item bias.  A
+    distance model's scores leave out the per-user |u|^2 and GMF's its
+    sigmoid, as the fused ranker's do: the rankings agree."""
+    uv, table, bias = model.dot_decomposition(u, aux)
+    if isinstance(table, ExchangeTable):
+        block = table.local()
+    else:
+        block = pad_table_for_sharding(table, n)[lo:lo + width]
+    scores = uv @ block.T
+    if bias is not None:
+        scores = scores + pad_table_for_sharding(bias, n)[lo:lo + width]
+    return -scores if model.cml_like else scores
 
 
 def _seen_in_rows(rows, ids):

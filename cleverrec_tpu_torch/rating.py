@@ -16,6 +16,17 @@ d] or, for FFM, [rows, n_fields, d], rows = feature_nums + 1 rounded up to
 a multiple of 8), so ``weights.load_params`` carries JAX's parameters
 across unchanged.  No kernel is on this path: the JAX package's FM sums
 are XLA einsums, here plain PyTorch.
+
+Under a mesh (cleverrec_tpu/rating.py:151-158, :193-203) every leaf with
+a leading dim that divides the ``model`` size M is row-sharded over
+``model`` once drawn (``wi``, ``vif``; JAX's rule for FM, not the ranking
+trainer's: 1-D and 3-D leaves too) and ``w0`` is replicated; each step's
+loss and each test read the tables all-gathered
+(``sharding.table_views``, ``gspmd``), and every data rank runs the
+whole step (the JAX trainer splits the batch over ``data``: ROADMAP.md
+queue 1, item 16c), so every rank's numbers are the unmeshed run's; the
+ranks of a model group take one gradient of ``w0``
+(``sharding.agree_grads``).
 """
 
 from __future__ import annotations
@@ -27,11 +38,12 @@ import torch
 from torch import nn
 
 from cleverrec_tpu_torch.common import (cdiv, init_param, l2_loss,
-                                        make_initializer, make_optimizer,
-                                        resolve_device)
+                                        make_initializer, make_optimizer)
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.data.libfm import RatingData, load_rating_data
 from cleverrec_tpu_torch.metrics import rmse_mae
+from cleverrec_tpu_torch.parallel import sharding
+from cleverrec_tpu_torch.parallel.mesh import mesh_device
 
 
 class FM(nn.Module):
@@ -133,19 +145,27 @@ class FFM(FM):
 _RATING_MODELS = {"FM": FM, "FFM": FFM}
 
 
+def fm_row_sharded(model: FM, mesh) -> list[str]:
+    """The leaves JAX's FMTrainer places on ``model``: every leaf with
+    ndim >= 1 whose leading dim divides the model axis (none at M 1)."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return []
+    sharding.unshard_model(model)
+    return [n for n, p in model.named_parameters()
+            if p.ndim >= 1 and p.shape[0] % mesh.shape["model"] == 0]
+
+
 class FMTrainer:
     """Trains ``model`` on ``data`` on ``device`` (default ``cuda``; the
-    model is moved there).  A ``mesh`` raises: FM's feature tables under
-    a mesh wait for the model axis (ROADMAP.md queue 1, item 16b)."""
+    model is moved there), or on ``mesh``'s device, which ``device`` may
+    name but not contradict."""
 
     def __init__(self, model: FM, data: RatingData, cfg: Config, logger=None,
-                 device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "rating under a mesh is not ported yet (ROADMAP.md queue 1, "
-                "item 16b)")
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh_device(device, mesh)
         self.model = model.to(self.device)
+        self._row_names = fm_row_sharded(model, mesh)
         self.data = data
         self.cfg = cfg
         self.logger = logger
@@ -164,11 +184,17 @@ class FMTrainer:
         the epoch permutations' device generator seeded from it."""
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
+        sharding.unshard_model(self.model)
         self.model.init(gen)
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(torch.randint(2 ** 62, (1,), generator=gen)))
+        if self._row_names:
+            sharding.shard_model(self.model, self.mesh, self._row_names)
         params = dict(self.model.named_parameters())
         return params, self.optimizer.init(params)
+
+    def _views(self):
+        return sharding.table_views(self.model, self.mesh, "gspmd")
 
     def epoch_order(self):
         """(order, w), each [steps, batch_size]: a permutation of
@@ -192,10 +218,15 @@ class FMTrainer:
         names, leaves = list(params), list(params.values())
         losses, y_pres = [], []
         for rows, wt in zip(order, w):
-            loss, y_pre = self.model.loss(self._xi[rows], self._xv[rows],
-                                          self._y[rows], wt)
-            grads = torch.autograd.grad(loss, leaves)
-            self.optimizer.update(params, dict(zip(names, grads)), opt_state)
+            with self._views():
+                loss, y_pre = self.model.loss(self._xi[rows], self._xv[rows],
+                                              self._y[rows], wt)
+            grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+            if self.mesh is not None and self.mesh.shape["model"] > 1:
+                grads = sharding.agree_grads(
+                    grads, sharding.shards_of(self.model),
+                    self.mesh)
+            self.optimizer.update(params, grads, opt_state)
             losses.append(loss.detach())
             y_pres.append(y_pre.detach())
         return (params, opt_state, torch.stack(losses).mean(), order, w,
@@ -255,7 +286,8 @@ class FMTrainer:
                                  device=self.device).long()
             xv = torch.as_tensor(self.data.x_val_t[s: s + bt],
                                  device=self.device)
-            preds.append(self.model.predict(xi, xv).cpu().numpy())
+            with self._views():
+                preds.append(self.model.predict(xi, xv).cpu().numpy())
         y_pre = np.concatenate(preds) if preds else np.zeros(0)
         return rmse_mae(self.data.y_t, y_pre)
 
@@ -272,10 +304,10 @@ def make_rating_model(cfg: Config, data: RatingData) -> FM:
     return FM(cfg, data.feature_nums)
 
 
-def run_rating(cfg: Config, logger=None, device="cuda", mesh=None):
+def run_rating(cfg: Config, logger=None, device=None, mesh=None):
     """Load the libFM files, train and test the configured model on
-    ``device``; returns the best epoch's {"rmse", "mae", "epoch"}.  A
-    ``mesh`` raises (``FMTrainer``)."""
+    ``device`` (default ``cuda``) or over ``mesh``; returns the best
+    epoch's {"rmse", "mae", "epoch"}."""
     data = load_rating_data(cfg)
     model = make_rating_model(cfg, data)
     return FMTrainer(model, data, cfg, logger=logger, device=device,

@@ -37,6 +37,7 @@ import torch
 from cleverrec_tpu_torch import ranking
 from cleverrec_tpu_torch.common import resolve_device
 from cleverrec_tpu_torch.ops.topk import topk
+from cleverrec_tpu_torch.parallel.sharding import shards_of
 from cleverrec_tpu_torch.sampling import rows_to_bits
 
 
@@ -83,7 +84,11 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
     picks sharded under a ``mesh`` (``sharded`` without one raises), fused
     on a CUDA device for dot-decomposable models up to
     ``FUSED_MAX_ITEMS`` items, stream past ``STREAM_THRESHOLD`` items,
-    and dense between and on the CPU.  ``retrieve.backend`` names the
+    and dense between and on the CPU; a model whose tables are
+    row-sharded over the mesh's ``model`` axis (``model.row_shards``)
+    serves through ``sharded`` alone, which ranks from the row blocks as
+    the Evaluator does (``ranking.rank_sharded``).  ``retrieve.backend``
+    names the
     backend in use, ``retrieve.module`` the module it calls (what
     ``export_retrieval`` exports).  ``stream_chunk``: items per chunk of
     the stream backend (default 16384 past 262,144 items, else 4096).
@@ -112,6 +117,11 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
         raise ValueError(f"unknown retrieval backend {backend!r}")
     if backend == "sharded" and mesh is None:
         raise ValueError("backend='sharded' needs a mesh")
+    if shards_of(model) and backend != "sharded":
+        raise ValueError(
+            f"{model.name} holds row-sharded tables: serve it through the "
+            "'sharded' backend on its mesh, or gather it first "
+            "(parallel.sharding.unshard_model(model, mesh))")
     if backend == "fused" and not hasattr(model, "dot_decomposition"):
         raise ValueError(f"{model.name}: no dot decomposition — "
                          "fused retrieval unavailable")
@@ -202,6 +212,10 @@ def build_rerank_fn(model, aux, k: int = 10, device="cuda"):
     candidate list (no seen filtering — the retriever already did it).
     Negative candidate ids are treated as padding and never surface."""
     dev = resolve_device(device)
+    if shards_of(model):
+        raise ValueError(f"{model.name} holds row-sharded tables: gather it "
+                         "first (parallel.sharding.unshard_model(model, "
+                         "mesh))")
     model.to(dev)
     module = _Rerank(model, _on(dev, aux), k)
 

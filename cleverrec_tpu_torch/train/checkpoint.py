@@ -47,6 +47,27 @@ def optimizer_state_dict(state) -> dict | None:
     raise TypeError(f"unknown optimizer state {type(state).__name__}")
 
 
+def map_optimizer_state(state, fn):
+    """A new optimizer state whose tensor dicts are ``fn`` of ``state``'s
+    (Adam's moments, Adagrad's sums; the count as it is)."""
+    if state is None:
+        return None
+    if isinstance(state, AdamState):
+        return AdamState(state.count, fn(state.mu), fn(state.nu))
+    if isinstance(state, AdagradState):
+        return AdagradState(fn(state.sum_of_squares))
+    raise TypeError(f"unknown optimizer state {type(state).__name__}")
+
+
+def map_saved_state(saved: dict | None, fn) -> dict | None:
+    """``optimizer_state_dict``'s form with its tensor dicts mapped by
+    ``fn``."""
+    if saved is None:
+        return None
+    return {k: fn(v) if k in ("mu", "nu", "sum_of_squares") else v
+            for k, v in saved.items()}
+
+
 def copy_into(own: dict, saved: dict, what: str) -> None:
     """Copy each of ``saved``'s tensors into ``own``'s of the same name;
     the names and every shape must match."""

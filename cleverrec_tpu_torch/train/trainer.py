@@ -132,21 +132,48 @@ trainer's data-parallel tiers then split its steps
   a multiple of D, each rank's chunk of every group in the
   block-coordinate walk, ``n_sents / D`` sentinels a group off each
   rank's loss, one combine after the walk;
-- the scan tier's local Adam (``train.dp_local_adam``): each rank's
-  steps/D chunk of whole batches through the scan tier, K defaulting to
-  2 and the combine to ``sum``, the loss the ranks' sum over the
-  unpadded step count.
+- the scan tier's local Adam (``train.dp_local_adam``, at a model axis
+  of 1 under the gspmd exchange): each rank's steps/D chunk of whole
+  batches through the scan tier, K defaulting to 2 and the combine to
+  ``sum``, the loss the ranks' sum over the unpadded step count.
 
 ``_dp_delta_combine`` combines every float leaf of the state (parameters
 and optimizer moments; the integer count passes) through the pure rule
 ``dp_combine_rule``, fed the ranks' summed deltas by one collective.
 Every other tier (the grouped pairwise, bucketed and dual tiers, and the
 scan tier without local Adam) runs the whole step on every rank, whose
-replicas so stay equal to the unmeshed run; the lazy row-Adam tier
-declines under a mesh.  A model axis longer than 1,
-``parallel.exchange=explicit`` and rating raise (ROADMAP.md queue 1,
-item 16b).  A ``1 x 1`` mesh runs the unmeshed program.  Only rank 0
-checkpoints; every rank evaluates (``full_sharded``) and can resume.
+replicas so stay equal to the unmeshed run (the JAX trainer's GSPMD tier
+splits the scan tier's batch over ``data`` instead: ROADMAP.md queue 1,
+item 16c); the lazy row-Adam tier declines under a mesh.
+
+A model axis M > 1 (cleverrec_tpu/train/trainer.py:290-300, 1340-1342,
+1478-1512, 2016-2018): ``init_state`` draws the whole tables, then keeps
+this rank's rows of each row-shardable table (``parallel/sharding.py``:
+2-D, an entity cardinality high, the height a multiple of M), so the
+model's parameters, and Adam's moments, are row blocks; other leaves are
+replicated.  The fused tier declines (so does it under
+``parallel.exchange=explicit`` on any mesh of two or more ranks), and so
+does local Adam; every other tier runs through ``_steps``, whose loss
+reads full-height views of the tables (``sharding.table_views``): under
+``parallel.exchange=gspmd`` (the default) each row-sharded table
+all-gathered once a step, under ``explicit`` every embedding table an
+``ExchangeTable`` (row lookups through the row-sharded gather, any other
+use the all-gathered table).  Gradients and the optimizer act on the
+blocks; ``pre_epoch`` reads all-gathered tables.  A replicated leaf
+takes model rank 0's gradient (``sharding.agree_grads``), so that
+kernels that sum in a run-dependent order (``index_add`` on a card)
+leave no two replicas of a model group apart.  ``save`` gathers the
+blocks and their moments on every rank and rank 0 writes the unmeshed
+format; ``resume`` and warm starts load whole tables and keep this rank's
+rows.  Every rank evaluates (``full_sharded``: a dot-decomposable model
+scores its own item rows) and can resume.  A ``1 x 1`` mesh runs the
+unmeshed program.
+
+``profile.dir``: ``run`` traces the second block of epochs (the first
+pays the kernels' builds) once with ``torch.profiler`` (CPU activity,
+and CUDA on a card) and writes a Chrome trace
+``<profile.dir>/<model>_rank<R>.json`` (R 0 without a mesh), as the JAX
+trainer traces its second block.
 
 Parameters live in the model (``params`` is ``dict(model.named_parameters())``)
 and are updated in place, so the evaluator always scores the current
@@ -156,6 +183,7 @@ averaged over the number of batches (RankingRecommender.py:61).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -165,7 +193,7 @@ import numpy as np
 import torch
 
 from cleverrec_tpu_torch import sampling
-from cleverrec_tpu_torch.common import cdiv, make_optimizer, resolve_device
+from cleverrec_tpu_torch.common import cdiv, make_optimizer
 from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.data.arrays import DeviceData, build_device_data
 from cleverrec_tpu_torch.data.dataset import RankingData
@@ -177,18 +205,13 @@ from cleverrec_tpu_torch.ops.train import (EPOCH_FNS, LOG2, _cols, _side,
                                            bf16_fits, cml_sentinel_bias,
                                            grouped_rows, mlp_epoch_plan,
                                            rows_epoch_plan, sentinel_dims)
+from cleverrec_tpu_torch.parallel import sharding
+from cleverrec_tpu_torch.parallel.mesh import mesh_device
 from cleverrec_tpu_torch.train import checkpoint
 
 # History widths of the bucketed tier's buckets below h_max
 # (cleverrec_tpu/train/trainer.py:1702-1704); h_max is the last.
 HISTORY_WIDTHS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
-# Options of the JAX trainer that the port does not have yet, each with
-# the test that it is set and where ROADMAP.md queues it.  A set option
-# raises rather than be ignored.
-_UNPORTED = (
-    ("profile.dir", lambda c, k: bool(c.get(k)),
-     "queue 1, item 4 (the port's benchmark and traces)"),
-)
 # The protocols whose fused epoch has a grouped form
 # (cleverrec_tpu/train/trainer.py:867-1319), and those with bf16 storage.
 GROUPED_PROTOCOLS = ("pairwise_bpr", "pointwise_bce", "pointwise_mlp",
@@ -197,8 +220,8 @@ BF16_PROTOCOLS = ("pairwise_bpr", "rows")
 # The data-parallel tiers' delta combines (cleverrec_tpu/train/trainer.py:
 # 36-75).
 DP_COMBINES = ("mean", "sum", "count")
-# Where the mesh's missing half is queued.
-ITEM_16B = "ROADMAP.md queue 1, item 16b"
+# Where the scan tier's batch split over 'data' is queued.
+ITEM_16C = "ROADMAP.md queue 1, item 16c"
 
 
 def _touched(d: torch.Tensor) -> torch.Tensor:
@@ -273,13 +296,6 @@ def _state_leaves(params, opt_state) -> list[torch.Tensor]:
     return [x for x in leaves if x.is_floating_point()]
 
 
-def _refuse_unported(cfg: Config) -> None:
-    for key, is_set, where in _UNPORTED:
-        if is_set(cfg, key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP.md {where})")
-
-
 def popularity_cdf(dd: DeviceData, cfg: Config, sampler: str):
     """The items' cumulative train popularity [I] (float32, numpy) under
     ``neg_sampling=popularity``, else None: float64 degrees over every
@@ -328,31 +344,21 @@ def _p_stats(x):
     return (row_a.sum(), (row_a * row_a).sum(), (x * x).sum(), x.sum(dim=0))
 
 
-def _refuse_mesh(cfg: Config, mesh) -> None:
-    """The mesh's forms that wait for the model axis raise, by name."""
-    if mesh is None:
-        return
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"a mesh with a model axis of {mesh.shape['model']} (row-sharded "
-            f"tables) is not ported yet ({ITEM_16B}); train on a D x 1 mesh")
-    if cfg.str("parallel.exchange", "gspmd") == "explicit":
-        raise NotImplementedError(
-            f"parallel.exchange=explicit is not ported yet ({ITEM_16B})")
+def _full_shapes(model) -> dict:
+    """{name: shape} of the model's parameters at full height (a row
+    block's name in ``model.row_shards`` at its table's height)."""
+    shards = sharding.shards_of(model)
+    return {n: (shards[n],) + tuple(p.shape[1:]) if n in shards
+            else tuple(p.shape) for n, p in model.named_parameters()}
 
 
-def _mesh_device(device, mesh) -> torch.device:
-    """The device a trainer runs on: ``device`` (default ``cuda``), or
-    under a mesh the mesh's, which a given ``device`` must name."""
-    if mesh is None:
-        return resolve_device("cuda" if device is None else device)
-    if device is not None:
-        want = resolve_device(device)
-        if (want.type, want.index or 0) != (mesh.device.type,
-                                            mesh.device.index or 0):
-            raise ValueError(f"device {want} differs from the mesh's "
-                             f"{mesh.device}")
-    return mesh.device
+def _row_sharded_names(model, mesh) -> list[str]:
+    """The parameters a mesh with a model axis above 1 splits by rows."""
+    if mesh is None or mesh.shape["model"] == 1:
+        return []
+    return [n for n, shape in _full_shapes(model).items()
+            if sharding._rowshardable(torch.empty(shape, device="meta"),
+                                      model.meta, mesh)]
 
 
 class Trainer:
@@ -363,8 +369,10 @@ class Trainer:
 
     def __init__(self, model: RecModel, data: RankingData, cfg: Config,
                  logger=None, device=None, mesh=None):
-        _refuse_mesh(cfg, mesh)
-        _refuse_unported(cfg)
+        self.exchange = cfg.str("parallel.exchange", "gspmd")
+        if self.exchange not in sharding.EXCHANGES:
+            raise ValueError(f"parallel.exchange={self.exchange!r}: want one "
+                             f"of {', '.join(sharding.EXCHANGES)}")
         if (cfg.int("train.fused_groups", 0) > 1
                 and getattr(model, "fused_protocol", None) == "rows"):
             raise ValueError(
@@ -374,8 +382,13 @@ class Trainer:
         self.dd: DeviceData = build_device_data(data)
         pop_cdf = popularity_cdf(self.dd, cfg, model.sampler)
         self.mesh = mesh
-        self.device = _mesh_device(device, mesh)
+        self.device = mesh_device(device, mesh)
         self.model = model.to(self.device)
+        # The row-sharded tables under a model axis above 1, and whether
+        # the loss reads views of the tables (any mesh, explicit too).
+        self._row_names = _row_sharded_names(model, mesh)
+        self._viewed = mesh is not None and bool(
+            self._row_names or self.exchange == "explicit")
         self.cfg = cfg
         self.logger = logger
         self._warm = self._warm_start_keys()
@@ -429,6 +442,9 @@ class Trainer:
                             if self._groups else None)
         self.tier = self._tier_name()
         self._setup_dp()
+        # Under a model axis the ranks of a group agree on each replicated
+        # leaf's gradient (_steps).
+        self._agree = mesh is not None and mesh.shape["model"] > 1
         if not self.fused and logger and (
                 cfg.int("train.fused_groups", 0) > 1
                 or cfg.bool("train.fused_bf16", False)
@@ -793,6 +809,17 @@ class Trainer:
                                      self.device.type == "cuda")):
             return False
         dp = self.mesh.shape["data"] if self.mesh is not None else 1
+        if self.mesh is not None and self.mesh.size > 1 and (
+                self.mesh.shape["model"] > 1 or self.exchange == "explicit"):
+            # cleverrec_tpu/train/trainer.py:293-297: row-sharded tables
+            # and the explicit exchange take the scan path.
+            if self.logger:
+                self.logger.info(
+                    "the fused epoch kernel declines under a %s (the JAX "
+                    "trainer's rule); the scan tier trains",
+                    "model axis above 1" if self.mesh.shape["model"] > 1
+                    else "parallel.exchange=explicit")
+            return False
         if dp > 1 and not self.cfg.bool("train.fused_mesh_dp", True):
             if self.logger:
                 self.logger.info("train.fused_mesh_dp=False: the data mesh "
@@ -907,7 +934,11 @@ class Trainer:
         data-parallel options set that the run does not apply."""
         cfg, mesh = self.cfg, self.mesh
         dp = mesh.shape["data"] if mesh is not None else 1
-        local = (self.tier == "scan"
+        n_model = mesh.shape["model"] if mesh is not None else 1
+        # Local Adam at a model axis of 1 under gspmd alone
+        # (cleverrec_tpu/train/trainer.py:1478-1483).
+        local = (self.tier == "scan" and n_model == 1
+                 and self.exchange != "explicit"
                  and cfg.bool("train.dp_local_adam", False))
         split = dp > 1 and (self.tier in ("fused", "fused_grouped") or local)
         applied = {"train.dp_local_adam": local or not cfg.bool(
@@ -919,13 +950,28 @@ class Trainer:
         unused = [k for k, on in applied.items() if k in cfg and not on]
         note = (f"; {', '.join(unused)} not applied (the JAX trainer "
                 "ignores them here too)" if unused else "")
+        tables = ""
+        if n_model > 1:
+            tables = (f"; {', '.join(self._row_names) or 'no table'} "
+                      f"row-sharded over {n_model} model ranks, the loss "
+                      f"on full views ({self.exchange}: "
+                      + ("one all-gather a table a step)"
+                         if self.exchange == "gspmd" else
+                         "row lookups through the row-sharded gather)"))
         if dp == 1:
             if unused and self.logger:
                 self.logger.info("%s shape a data mesh of 2 or more ranks, "
                                  "which this run does not have",
                                  ", ".join(unused))
+            if n_model > 1 and self.logger:
+                self.logger.info(
+                    "mesh 1x%d: the %s tier%s", n_model, self.tier, tables,
+                    extra={"mesh_tier": {"tier": self.tier, "data": 1,
+                                         "model": n_model,
+                                         "tables": self._row_names,
+                                         "exchange": self.exchange}})
             return
-        tag = f"mesh {dp}x1"
+        tag = f"mesh {dp}x{n_model}"
         if split:
             self._dp = dp
             if self.tier == "fused_grouped":
@@ -958,14 +1004,17 @@ class Trainer:
         if self.logger:
             why = (f"splitting the batch over 'data' is the JAX trainer's "
                    f"GSPMD layout, which needs each model's loss in per-rank "
-                   f"parts ({ITEM_16B}); train.dp_local_adam=True splits the "
-                   "steps instead" if self.tier == "scan"
+                   f"parts ({ITEM_16C})"
+                   + ("; train.dp_local_adam=True splits the steps instead"
+                      if n_model == 1 and self.exchange != "explicit"
+                      else "") if self.tier == "scan"
                    else "as the JAX trainer adds no batch constraint to it")
             self.logger.info("%s: the %s tier runs the whole step on every "
-                             "rank (replicated; %s)%s", tag, self.tier, why,
-                             note,
+                             "data rank (replicated; %s)%s%s", tag, self.tier,
+                             why, tables, note,
                              extra={"mesh_tier": {"tier": self.tier,
-                                                  "data": dp}})
+                                                  "data": dp,
+                                                  "model": n_model}})
 
     def _pad_dp_steps(self, quantum: int) -> None:
         """Pad the epoch to a multiple of ``quantum`` steps: the static
@@ -1162,26 +1211,44 @@ class Trainer:
             _dp_delta_combine(self.mesh, self._combine, leaves, olds)
         return local, self.mesh.all_reduce_sum(raw, "data")
 
+    def _views(self, exchange=None):
+        """The tables' full-height views for a loss or a read under the
+        mesh (``sharding.table_views``; ``exchange`` default the run's),
+        or nothing to do."""
+        if not self._viewed:
+            return contextlib.nullcontext()
+        return sharding.table_views(self.model, self.mesh,
+                                    exchange or self.exchange)
+
     def _steps(self, params, opt_state, batches, loss_fn, aux=None):
         """One optimizer step a batch on ``loss_fn(batch, aux)`` (default
         aux: ``self.aux``), each batch with the trainer's
         ``dropout_gen``; returns (params, opt_state, the batches' losses
-        [n])."""
+        [n]).  Under a model axis the loss reads the tables through
+        ``_views``, the gradients reach the row blocks, and the ranks of a
+        model group take one gradient of each replicated leaf
+        (``sharding.agree_grads``)."""
         names = list(params)
         leaves = [params[k] for k in names]
         aux = self.aux if aux is None else aux
         losses = torch.zeros(len(batches), dtype=torch.float32,
                              device=self.device)
         for s, batch in enumerate(batches):
-            loss = loss_fn({**batch, "dropout_gen": self._dropout_gen}, aux)
+            with self._views():
+                loss = loss_fn({**batch, "dropout_gen": self._dropout_gen},
+                               aux)
             # A parameter outside the loss (NeuMF's h_gmf and h_mlp, kept
             # for the warm start) gets a zero gradient, as under JAX:
             # Adam then leaves it and its moments as they were.
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(leaves, torch.autograd.grad(
-                         loss, leaves, allow_unused=True))]
-            opt_state = self.optimizer.update(params, dict(zip(names, grads)),
-                                              opt_state)
+            grads = dict(zip(names, [
+                torch.zeros_like(p) if g is None else g
+                for p, g in zip(leaves, torch.autograd.grad(
+                    loss, leaves, allow_unused=True))]))
+            if self._agree:
+                grads = sharding.agree_grads(
+                    grads, sharding.shards_of(self.model),
+                    self.mesh)
+            opt_state = self.optimizer.update(params, grads, opt_state)
             self.model.postprocess()
             losses[s] = loss.detach()
         return params, opt_state, losses
@@ -1529,6 +1596,9 @@ class Trainer:
         same stream."""
         gen = torch.Generator().manual_seed(
             self.cfg.seed if seed is None else seed)
+        # A model that holds row blocks (an earlier init_state) gets its
+        # full-height tables back first: the draw is the unmeshed run's.
+        sharding.unshard_model(self.model)
         self.model.init(gen)
         self._gen, self._dropout_gen = (
             torch.Generator(device=self.device).manual_seed(
@@ -1543,6 +1613,11 @@ class Trainer:
                 self.logger.info("warm start: %s from %s", self.model.name,
                                  ", ".join(self.cfg.str(k)
                                            for k in self._warm))
+        if self._row_names:
+            # cleverrec_tpu/train/trainer.py:2016-2018: placed after the
+            # model's own init and the warm start.
+            sharding.shard_model(self.model, self.mesh, self._row_names)
+            params = dict(self.model.named_parameters())
         return params, self.optimizer.init(params)
 
     def rng_state(self) -> dict[str, torch.Tensor]:
@@ -1555,16 +1630,35 @@ class Trainer:
             state["cuda"] = torch.cuda.get_rng_state(self.device)
         return state
 
-    def save(self, path: str, params, opt_state, epoch: int) -> str:
-        """A train-state checkpoint of this run after ``epoch`` epochs."""
+    def save(self, path: str, params, opt_state, epoch: int) -> str | None:
+        """A train-state checkpoint of this run after ``epoch`` epochs, in
+        the unmeshed format; returns its path.  Under a mesh every rank
+        calls it (the row blocks and their moments are gathered over
+        ``model``) and rank 0 alone writes (the others return None)."""
+        shards = sharding.shards_of(self.model)
+        if shards:
+            params = sharding.full_tensors(params, shards, self.mesh)
+            opt_state = checkpoint.map_optimizer_state(
+                opt_state, lambda t: sharding.full_tensors(t, shards,
+                                                           self.mesh))
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         return checkpoint.save_checkpoint(path, params, opt_state, epoch,
                                           self.rng_state())
 
     def resume(self, path: str):
         """(params, opt_state, epoch) of the run that ``save`` wrote to
-        ``path``, the model's parameters and the generators set to it."""
+        ``path``, the model's parameters and the generators set to it
+        (under a model axis this rank's rows of each row-sharded leaf)."""
         params, opt_state = self.init_state(warm_start=False)
         state = checkpoint.load_checkpoint(path)
+        shards = sharding.shards_of(self.model)
+        if shards:
+            state["params"] = sharding.local_tensors(state["params"], shards,
+                                                     self.mesh)
+            state["opt_state"] = checkpoint.map_saved_state(
+                state["opt_state"], lambda t: sharding.local_tensors(
+                    t, shards, self.mesh))
         checkpoint.copy_into({k: p.detach() for k, p in params.items()},
                               state["params"], "parameter")
         opt_state = checkpoint.load_optimizer_state(state["opt_state"],
@@ -1582,7 +1676,7 @@ class Trainer:
         if hasattr(self.model, "pre_epoch"):
             # The epoch's constants from the parameters that enter it
             # (SoHRML's edge attention), which evaluate then reads too.
-            with torch.no_grad():
+            with torch.no_grad(), self._views("gspmd"):
                 self.aux.update(self.model.pre_epoch(self.aux))
         params, opt_state, loss = self._run_epoch(params, opt_state,
                                                   self.sample_epoch())
@@ -1600,6 +1694,26 @@ class Trainer:
         """{K: (HR, MRR, NDCG)} of the model's current parameters."""
         return self.evaluator.evaluate(self.aux)
 
+    @contextlib.contextmanager
+    def _profile(self, out_dir: str):
+        """Trace the block inside with ``torch.profiler`` (CPU activity,
+        and CUDA on a card) and write its Chrome trace
+        ``<out_dir>/<model>_rank<R>.json``."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        rank = self.mesh.rank if self.mesh is not None else 0
+        path = os.path.join(str(out_dir), f"{self.model.name}_rank{rank}.json")
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(str(out_dir), exist_ok=True)
+        prof.export_chrome_trace(path)
+        if self.logger:
+            self.logger.info("  profile trace written to %s", path,
+                             extra={"profile": path})
+
     def run(self, seed: int | None = None, resume_from: str | None = None):
         """Full train/eval loop with best-NDCG@topk[0] tracking
         (RankingRecommender.py:400-440).  Each epoch line carries its
@@ -1609,7 +1723,8 @@ class Trainer:
         ``save.best=True`` each new best epoch's train state is saved to
         ``saved_dir/<model>`` (the reference's disabled save path,
         RankingRecommender.py:432-433, made to work), by rank 0 alone
-        under a mesh."""
+        under a mesh.  With ``profile.dir`` the second block of epochs is
+        traced once (``_profiled``)."""
 
         def log(msg, *args, **extra):
             if self.logger:
@@ -1622,11 +1737,13 @@ class Trainer:
             params, opt_state = self.init_state(seed)
             epoch = 0
         save_dir = None
-        # Under a mesh rank 0 alone writes; every rank holds the replica.
-        if self.cfg.bool("save.best", False) and (
-                self.mesh is None or self.mesh.rank == 0):
+        # Under a mesh every rank calls save (the row blocks are gathered)
+        # and rank 0 alone writes.
+        if self.cfg.bool("save.best", False):
             save_dir = os.path.join(self.cfg.str("saved_dir", "./saved_model"),
                                     self.model.name)
+        profile_dir = self.cfg.get("profile.dir")
+        traced = False
         topk = self.cfg.topk
         best = {"epoch": 0, "ndcg": 0.0, "metrics": {}}
         interval = self.cfg.test_interval
@@ -1634,9 +1751,16 @@ class Trainer:
             next_eval = min(((epoch // interval) + 1) * interval,
                             self.cfg.epoches)
             block = next_eval - epoch
+            # The second block, as the JAX trainer traces it
+            # (cleverrec_tpu/train/trainer.py:2164-2175): the first pays
+            # the builds.
+            trace = bool(profile_dir) and epoch > 0 and not traced
             t1 = time.perf_counter()
-            params, opt_state, losses = self.train_epochs(params, opt_state,
-                                                          block)
+            with (self._profile(profile_dir) if trace
+                  else contextlib.nullcontext()):
+                params, opt_state, losses = self.train_epochs(
+                    params, opt_state, block)
+            traced = traced or trace
             train_s = time.perf_counter() - t1
             epoch = next_eval
             log(" epoch %d\n  Training loss: %.4f, time: %.2fs (%d epochs)",
@@ -1655,8 +1779,8 @@ class Trainer:
             if results[topk[0]][2] > best["ndcg"]:
                 best = {"epoch": epoch, "ndcg": results[topk[0]][2],
                         "metrics": results}
-                if save_dir:
-                    self.save(save_dir, params, opt_state, epoch)
+                if save_dir and self.save(save_dir, params, opt_state,
+                                          epoch):
                     log("  saved to %s", save_dir)
         log("best_epoch: %d", best["epoch"], best=best)
         for k in topk:

@@ -36,7 +36,6 @@ from cleverrec_tpu_torch.models.base import DataMeta
 from cleverrec_tpu_torch.parallel import (Mesh, pad_table_for_sharding,
                                           single_device_mesh)
 from cleverrec_tpu_torch.parallel.sharding import _is_embedding_table
-from cleverrec_tpu_torch.rating import FMTrainer
 from cleverrec_tpu_torch.train import Trainer
 from cleverrec_tpu_torch.train.trainer import (_state_leaves, _touched,
                                                dp_combine_rule)
@@ -117,11 +116,15 @@ def _port(jcfg, d, **extra):
     return model, Trainer(model, data, cfg, device="cpu", mesh=mesh)
 
 
-def _jax_trainer(jcfg, d):
+def _jax_trainer_args(jcfg):
     jdata = j_load_ranking_data(jcfg)
     jmodel = j_make_model(jcfg, JMeta(jdata.user_nums, jdata.item_nums))
+    return jmodel, jdata, jcfg
+
+
+def _jax_trainer(jcfg, d):
     mesh = j_make_mesh(d, 1, devices=jax.devices()[:d]) if d else None
-    return JTrainer(jmodel, jdata, jcfg, mesh=mesh)
+    return JTrainer(*_jax_trainer_args(jcfg), mesh=mesh)
 
 
 def _host(tree):
@@ -413,23 +416,43 @@ def test_tier_under_a_mesh_is_the_jax_tier(toys, name, extra, tier):
     """The tier a config takes under a 2 x 1 mesh is the JAX trainer's;
     the data-parallel tiers split the steps, the others run the whole step
     on every rank and say so in one log line, the scan tier naming item
-    16b; the lazy row-Adam tier declines."""
+    16c; the lazy row-Adam tier declines."""
+    _tier_case(toys, name, extra, tier, (2, 1))
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("name,extra,tier", TIERS)
+def test_tier_under_a_model_axis_is_the_jax_tier(toys, name, extra, tier,
+                                                 shape):
+    """The same under a 1 x 2 and a 2 x 2 mesh (``tier`` is the 2 x 1
+    one; under a model axis the fused tier and local Adam decline, as in
+    the JAX trainer): the log line also names the row-sharded tables."""
+    _tier_case(toys, name, extra, tier, shape)
+
+
+def _tier_case(toys, name, extra, tier, shape):
+    d, m = shape
     jcfg = _jcfg(toys, name, **extra)
-    assert _jax_tier(_jax_trainer(jcfg, 2)) == tier
+    want = _jax_tier(JTrainer(
+        *_jax_trainer_args(jcfg),
+        mesh=j_make_mesh(d, m, devices=jax.devices()[:d * m])))
+    if shape == (2, 1):
+        assert want == tier
     cfg = Config(jcfg.to_dict())
     data = load_ranking_data(cfg)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
                        device="cpu")
-    logger, records = _logged(f"{name}.{tier}")
+    logger, records = _logged(f"{name}.{tier}.{d}x{m}")
     trainer = Trainer(model, data, cfg, device="cpu", logger=logger,
-                      mesh=Mesh(2, 1, "cpu"))
-    assert trainer.tier == tier
-    split = tier in ("fused", "fused_grouped", "scan_local_adam")
-    assert trainer._dp == (2 if split else 1)
-    lines = [r for r in records if r.startswith("mesh 2x1: ")]
+                      mesh=Mesh(d, m, "cpu"))
+    assert trainer.tier == want
+    split = want in ("fused", "fused_grouped", "scan_local_adam")
+    assert trainer._dp == (d if split else 1)
+    lines = [r for r in records if r.startswith(f"mesh {d}x{m}: ")]
     assert len(lines) == 1
     assert ("each rank" in lines[0]) == split
-    assert ("item 16b" in lines[0]) == (tier == "scan")
+    assert ("item 16c" in lines[0]) == (want == "scan" and d > 1)
+    assert ("row-sharded over" in lines[0]) == (m > 1)
     if "train.sparse_rows_force" in extra:
         assert any("declines under a mesh" in r for r in records)
 
@@ -502,17 +525,10 @@ def test_checkpoints_cross_the_mesh(toys, tmp_path):
 
 
 def test_what_waits_for_the_model_axis_raises(toys):
-    """A model axis above 1, the explicit exchange and a rating run under
-    a mesh raise, naming item 16b; a combine outside mean, sum and count
-    raises; a device that contradicts the mesh's raises."""
+    """A combine outside mean, sum and count raises; a device that
+    contradicts the mesh's raises (what waited for the model axis, now
+    ported, is tests/test_torch_model_axis.py's)."""
     jcfg = _jcfg(toys, "BPR")
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        Trainer(*_trainer_args(jcfg), mesh=Mesh(1, 2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        Trainer(*_trainer_args(jcfg, **{"parallel.exchange": "explicit"}),
-                mesh=Mesh(2, 1, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        FMTrainer(None, None, None, mesh=Mesh(1, 1, "cpu"))
     with pytest.raises(ValueError, match="dp_delta_combine"):
         Trainer(*_trainer_args(jcfg, **{"train.dp_delta_combine": "max"}),
                 mesh=Mesh(2, 1, "cpu"))

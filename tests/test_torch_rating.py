@@ -405,7 +405,7 @@ def _drop_handlers(name):
 def test_cli_runs_rating_and_ignores_resume(root, tmp_path):
     """``model_type=rating`` trains and tests through the CLI on the CPU;
     --resume and --export-serving are ignored with a log line, as the JAX
-    CLI ignores them; --mesh is still refused."""
+    CLI ignores them; --mesh 2x1 in a world of one rank exits 2."""
     argv = ["--config", os.path.join(REPO, "CleverRec.properties"),
             "--conf-dir", os.path.join(REPO, "conf"), "--model", "FM",
             "--device", "cpu", "--set", "model_type=rating",

@@ -4,6 +4,8 @@ optimizers against optax, the pairwise sampler's exact rank draw and its
 invariants, BPR's loss, and one epoch of each trainer tier from the same
 parameters, Adam state and sampled tensors."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -333,10 +335,21 @@ def test_fused_tier_eligibility(toy_dataset):
 @pytest.mark.parametrize("key,value,item", [
     ("profile.dir", "trace", "item 4"),
 ])
-def test_unported_options_raise(toy_dataset, key, value, item):
+def test_unported_options_raise(toy_dataset, tmp_path, key, value, item):
+    """The options once refused (``item``: where ROADMAP.md queued them)
+    are ported: ``profile.dir`` traces the second block of a run (the
+    first is not traced) into one Chrome trace, ``BPR_rank0.json``, that
+    names the block's ops."""
+    import json
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(model, data, cfg.with_overrides(**{key: value}), device="cpu")
+    out = tmp_path / value
+    tr = Trainer(model, data, cfg.with_overrides(
+        **{key: str(out), "epoches": "3"}), device="cpu")
+    tr.run()
+    assert sorted(os.listdir(out)) == ["BPR_rank0.json"], item
+    with open(out / "BPR_rank0.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert "aten::index" in names             # BPR's row gathers
 
 
 @pytest.mark.parametrize("key,value,groups,dtype", [
@@ -382,16 +395,31 @@ def test_popularity_negatives_are_ported(toy_dataset):
 
 
 def test_unported_runs_raise(toy_dataset, tmp_path):
-    """A mesh's model axis (row-sharded tables) and the explicit exchange
-    are not ported (item 16b); resuming is, and a missing checkpoint
-    raises."""
+    """A mesh's model axis and the explicit exchange, once refused, are
+    ported: on a 1 x 2 mesh the trainer takes the scan tier and holds
+    rank 0's rows of P and Q; the explicit exchange on a 1 x 1 mesh trains
+    an epoch equal to the unmeshed one within 1e-6 (rows summed through
+    embedding's backward); a missing checkpoint raises."""
     from cleverrec_tpu_torch.parallel import Mesh
     (_, _, _), (cfg, data, model) = _both_models(toy_dataset)
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        Trainer(model, data, cfg, device="cpu", mesh=Mesh(1, 2, "cpu"))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        Trainer(model, data, cfg.with_overrides(
-            **{"parallel.exchange": "explicit"}), mesh=Mesh(1, 1, "cpu"))
+    tr = Trainer(model, data, cfg, device="cpu", mesh=Mesh(1, 2, "cpu"))
+    assert tr.tier == "scan" and tr._row_names == ["P", "Q"]
+    params, _ = tr.init_state()
+    assert params["P"].shape[0] * 2 == data.user_nums
+    assert params["Q"].shape[0] * 2 == data.item_nums
+    runs = []
+    for mesh, extra in ((None, {}), (Mesh(1, 1, "cpu"),
+                                     {"parallel.exchange": "explicit"})):
+        tr = Trainer(model, data, cfg.with_overrides(**extra), device="cpu",
+                     mesh=mesh)
+        params, state = tr.init_state()
+        params, state, loss = tr.train_epoch(params, state)
+        runs.append((loss, {k: p.detach().clone()
+                            for k, p in params.items()}))
+    assert runs[1][0] == pytest.approx(runs[0][0], rel=1e-6)
+    for k, p in runs[0][1].items():
+        np.testing.assert_allclose(runs[1][1][k].numpy(), p.numpy(),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
     with pytest.raises(FileNotFoundError):
         Trainer(model, data, cfg, device="cpu").run(
             resume_from=str(tmp_path / "ckpt"))
