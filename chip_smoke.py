@@ -65,7 +65,9 @@ width of ``conf/BPR.properties`` (embed_size 128):
   package's on the same files less ``JAX_BAND``.  Then each model 3
   epochs through the fused tier, the scan tier and the fused tier with
   ``train.fused_stream=True`` (the same kernel), held to each other as
-  phase D holds BPR's.
+  phase D holds BPR's; CUNE_BPR's latent friends are built once, by its
+  25-epoch run, and its three 3-epoch runs take them
+  (``cune_friends_once``).
 - Phase G, the metric-learning family (kernels ``cml_epoch`` and
   ``rows_epoch_lrml``, LRML's form of the rows kernel): the same CLI
   with ``--model CML``, ``LRML`` and ``TransCF`` at the widths of their
@@ -221,9 +223,23 @@ width of ``conf/BPR.properties`` (embed_size 128):
   the unmeshed ``full`` evaluator, and ``rank_sharded`` over a ``1 x 2``
   mesh equals ``rank_dense``.  Q-quality: the CLI with ``--mesh 2x1``,
   ``train.dp_sync_every=2`` and ``dp_delta_combine=sum`` on BPR 30
-  epochs, its best HR@10 within ``JAX_BAND`` of ``JAX_Q_HR10``.  The
-  ``phase Q`` line gives each run's epoch ms a rank, one combine's ms,
-  phase Q's seconds and the card: a check of the mesh, not a mesh's
+  epochs, its best HR@10 within ``JAX_BAND`` of ``JAX_Q_HR10``.
+  Q-split: the scan tier's batch split over ``data``, one epoch on each
+  rank of LightGCN (its conf's widths, the full-catalog eval after the
+  epoch: ``full_sharded`` on the mesh), EATNN, SAMN (its flat scan tier)
+  and FM (phase M's files) from the seed's state and draw, under
+  ``fixed_sums``: the ranks' states and losses equal bit for bit, and the
+  unmeshed epoch here within ``Q_SPLIT_*`` (twice them for the hard models); rank 0's
+  LightGCN state evaluated here through ``full_fused`` (kernel
+  ``dot_scores``) gives the ranks' ``full_sharded`` metrics.  Q-agree:
+  one epoch of SoHRML (``dual``) and NAIS (``bucketed``), whole steps on
+  every rank taking data rank 0's gradients, the atomics left as they
+  are: the ranks' states and losses equal bit for bit.  Q-split quality: the CLI with ``--mesh 2x1`` on
+  LightGCN's conf, ``Q_LIGHTGCN_EPOCHS`` epochs with the full-catalog
+  eval, its best HR@10 within ``JAX_BAND`` of the unmeshed run of the
+  same recipe here (whose ``full_fused`` eval launches ``dot_scores``).
+  The ``phase Q`` line gives each run's epoch ms a rank, one combine's
+  ms, phase Q's seconds and the card: a check of the mesh, not a mesh's
   speed.
 - Phase R, the parallel layer's model axis (after Q; no kernel: the model
   axis declines the fused tier): this script re-executed twice
@@ -233,10 +249,12 @@ width of ``conf/BPR.properties`` (embed_size 128):
   it).  R-parity: one epoch of BPR (phase C's recipe, the epoch kernel
   asked for and declined) under each exchange, CML under the explicit
   one, SoHRML (the dual epoch and ``pre_epoch``, phase L's files) and FM
-  (phase M's files), on a draw the ranks and this process share: the
-  ranks' gathered states equal each other and the unmeshed scan or dual
-  epoch here, bit for bit under gspmd and within phase D's ``EPOCH_*``
-  under explicit.  R-memory: each rank's bytes of P, Q and their moments
+  (phase M's files), on a draw the ranks and this process share, with
+  torch's deterministic algorithms on (``fixed_sums``: an unmeshed
+  SoHRML epoch run twice with ``index_add``'s atomics parts from itself):
+  the ranks' gathered states equal each other and the unmeshed scan or
+  dual epoch here, bit for bit under gspmd and within phase D's
+  ``EPOCH_*`` under explicit.  R-memory: each rank's bytes of P, Q and their moments
   against the unmeshed run's.  R-quality: the CLI with ``--mesh 1x2
   --distributed --device cuda:0`` under ``torch.distributed.run`` on BPR
   30 epochs, its best HR@10 within ``JAX_BAND`` of ``JAX_R_HR10``.
@@ -286,8 +304,9 @@ must read 0) (``dot_scores``' row counts A, B, H, J, K and N,
 ``dot_gmax``'s B and N; ``bpr_epoch``'s C, L and P's grouped runs,
 ``gmf_epoch``'s and ``mlp_epoch``'s E and P's, and each of the five
 epoch kernels' Q: the two ranks' launches, each rank counting from 0
-before each run it drives).  Exits non-zero, with no
-result line, on any failure or without a CUDA device.  The last line of
+before each run it drives; ``dot_scores``' Q: Q-split's ``full_fused``
+eval of LightGCN and the unmeshed LightGCN quality run's).  Exits
+non-zero, with no result line, on any failure or without a CUDA device.  The last line of
 stdout is ``{"ok": true, "device": {...}}``; the line before it lists
 the kernels.
 """
@@ -309,6 +328,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -603,6 +623,26 @@ Q_KERNEL = {"BPR": "bpr_epoch", "GMF": "gmf_epoch", "NeuMF": "mlp_epoch",
 #     --set train.dp_sync_every=2 --set train.dp_delta_combine=sum
 JAX_Q_HR10 = 0.8293
 Q_SYNC = {"train.dp_sync_every": "2", "train.dp_delta_combine": "sum"}
+# Q-split: the scan tier's batch split over 'data' on the 2 x 1 mesh, one
+# epoch of each case (tag, model, overrides, its tolerances' scale: 2 for
+# tests/test_parallel.py's hard models) from the seed's state and draw,
+# held to the unmeshed epoch here at tests/test_parallel.py's tolerances,
+# both under fixed_sums.
+# LightGCN at its conf's widths evaluates the full catalog (a random
+# split: loo always ranks candidates) after its epoch.
+Q_FULL = {"test.neg_samples": "0", "data.split_way": "rs"}
+Q_SPLIT = (("LightGCN", "LightGCN", Q_FULL, 2),
+           ("EATNN", "EATNN", {}, 2),
+           ("SAMN", "SAMN", {"train.grouped_pairs": "False"}, 2),
+           ("FM", "FM", {}, 1))
+Q_SPLIT_RTOL, Q_SPLIT_ATOL, Q_SPLIT_LOSS_RTOL = 1e-4, 1e-5, 1e-4
+# Q-agree: the whole-step tiers (tag, model, overrides, tier), data rank
+# 0's gradients taken: the ranks equal bit for bit after an epoch.
+Q_AGREE = (("SoHRML", "SoHRML", {}, "dual"),
+           ("NAIS", "NAIS", {}, "bucketed"))
+# Q-split quality: LightGCN's conf with the full-catalog eval, these
+# epochs on the 2 x 1 mesh and unmeshed.
+Q_LIGHTGCN_EPOCHS = 10
 Q_USERS = 256          # Q-eval: the test users rank_sharded ranks
 Q_TIMEOUT = 600        # seconds the two ranks may take together
 Q_DIR = os.path.join(ROOT, "build", "phase_q")
@@ -610,12 +650,11 @@ Q_DIR = os.path.join(ROOT, "build", "phase_q")
 # cuda:0 over gloo, each holding half the rows of every row-shardable
 # table.  R-parity: one epoch of each case (tag, model, overrides, the
 # tier it must take, whether it is held bit for bit) on one draw that the
-# ranks and this process's unmeshed run share: the ranks' gathered states
-# equal bit for bit, and the unmeshed epoch's bit for bit under the gspmd
-# exchange, within phase D's EPOCH_* under the explicit one (a row's
-# duplicates summed through embedding's backward, not indexing's) and for
-# SoHRML (its edge sums are index_add's atomics, which round in a
-# run-dependent order on the card); BPR at phase C's recipe with the
+# ranks and this process's unmeshed run share, every run under
+# fixed_sums: the ranks' gathered states equal bit for bit, and the
+# unmeshed epoch's bit for bit under the gspmd exchange, within phase D's
+# EPOCH_* under the explicit one (a row's duplicates summed through
+# embedding's backward, not indexing's); BPR at phase C's recipe with the
 # epoch kernel asked for (the model axis declines it), CML under the
 # explicit exchange (its covariance over the whole tables), SoHRML (the
 # dual epoch and pre_epoch, on phase L's files) and FM (phase M's files).
@@ -627,7 +666,7 @@ R_CASES = (("BPR_gspmd", "BPR", {"train.fused_kernel": "True"}, "scan",
            ("CML_explicit", "CML", {"train.fused_kernel": "True",
                                     "parallel.exchange": "explicit"}, "scan",
             False),
-           ("SoHRML", "SoHRML", {}, "dual", False),
+           ("SoHRML", "SoHRML", {}, "dual", True),
            ("FM", "FM", {}, "rating", True))
 # R-quality: the CLI with --mesh 1x2 --distributed under
 # torch.distributed.run on BPR at phase C's recipe, 30 epochs, held within
@@ -650,6 +689,28 @@ class SmokeError(Exception):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeError(what)
+
+
+@contextlib.contextmanager
+def fixed_sums(notes: list):
+    """Torch's deterministic algorithms for a run that is held to another
+    at a tolerance: ``index_add``'s, ``scatter_add``'s and indexing's
+    backward sums taken in a fixed order instead of by atomics, whose
+    run-dependent rounding Adam carries through an epoch (SoHRML's edge
+    sums parted a model-axis run from the unmeshed one by up to 2e-3).
+    The message of each op that has no deterministic form goes to
+    ``notes``."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    notes.extend(sorted({str(w.message)[:200] for w in caught
+                         if "determinis" in str(w.message)}))
 
 
 def sync_s(fn):
@@ -1535,44 +1596,70 @@ def social_stats(edges):
 def phase_f():
     """The social-triple family at its confs' widths, SOCIAL_EPOCHS each
     through the fused tier; then 3 epochs of each through the fused tier,
-    the scan tier and the streamed option, on identical draws."""
+    the scan tier and the streamed option, on identical draws (CUNE_BPR's
+    on its conf run's latent friends)."""
     stats = social_stats(write_trusts())
     print("phase F trust graph: " + json.dumps(stats), flush=True)
     runs, tiers = {}, {}
-    for name in SOCIAL:
-        res = runs[name] = drive_cli(f"F_{name}", model=name,
-                                     epochs=SOCIAL_EPOCHS)
-        check(res["launches"]["rows_epoch"] == SOCIAL_EPOCHS
-              and sum(res["launches"].values()) == SOCIAL_EPOCHS,
-              f"F {name}: launches {res['launches']}")
-        check(res["loss_last"] < res["loss_first"],
-              f"F {name}: loss {res['loss_first']} -> {res['loss_last']}")
-        floor = JAX_SOCIAL_HR10[name] - JAX_BAND
-        check(res["best"]["HR@10"] >= floor,
-              f"F {name}: best HR@10 {res['best']['HR@10']} < {floor}")
-        trio = {"fused": drive_cli(f"F_{name}_fused", model=name,
-                                   epochs=TIER_EPOCHS),
-                "scan": drive_cli(f"F_{name}_scan", model=name,
-                                  epochs=TIER_EPOCHS,
-                                  **{"train.fused_kernel": "False"}),
-                "stream": drive_cli(f"F_{name}_stream", model=name,
-                                    epochs=TIER_EPOCHS,
-                                    **{"train.fused_stream": "True"})}
-        got = {t: r["launches"]["rows_epoch"] for t, r in trio.items()}
-        check(got == {"fused": TIER_EPOCHS, "scan": 0, "stream": TIER_EPOCHS}
-              and sum(trio["scan"]["launches"].values()) == 0,
-              f"F {name}: tier launches {got}")
-        for other in ("scan", "stream"):
-            for key, band in TIER_BAND.items():
-                a, b = trio["fused"]["best"][key], trio[other]["best"][key]
-                check(abs(a - b) <= band,
-                      f"F {name}: {key} fused {a} vs {other} {b}")
-        tiers[name] = trio
+    with cune_friends_once():
+        for name in SOCIAL:
+            res = runs[name] = drive_cli(f"F_{name}", model=name,
+                                         epochs=SOCIAL_EPOCHS)
+            check(res["launches"]["rows_epoch"] == SOCIAL_EPOCHS
+                  and sum(res["launches"].values()) == SOCIAL_EPOCHS,
+                  f"F {name}: launches {res['launches']}")
+            check(res["loss_last"] < res["loss_first"],
+                  f"F {name}: loss {res['loss_first']} -> "
+                  f"{res['loss_last']}")
+            floor = JAX_SOCIAL_HR10[name] - JAX_BAND
+            check(res["best"]["HR@10"] >= floor,
+                  f"F {name}: best HR@10 {res['best']['HR@10']} < {floor}")
+            trio = {"fused": drive_cli(f"F_{name}_fused", model=name,
+                                       epochs=TIER_EPOCHS),
+                    "scan": drive_cli(f"F_{name}_scan", model=name,
+                                      epochs=TIER_EPOCHS,
+                                      **{"train.fused_kernel": "False"}),
+                    "stream": drive_cli(f"F_{name}_stream", model=name,
+                                        epochs=TIER_EPOCHS,
+                                        **{"train.fused_stream": "True"})}
+            got = {t: r["launches"]["rows_epoch"] for t, r in trio.items()}
+            check(got == {"fused": TIER_EPOCHS, "scan": 0,
+                          "stream": TIER_EPOCHS}
+                  and sum(trio["scan"]["launches"].values()) == 0,
+                  f"F {name}: tier launches {got}")
+            for other in ("scan", "stream"):
+                for key, band in TIER_BAND.items():
+                    a, b = trio["fused"]["best"][key], trio[other]["best"][key]
+                    check(abs(a - b) <= band,
+                          f"F {name}: {key} fused {a} vs {other} {b}")
+            tiers[name] = trio
     launches = sum(r["launches"]["rows_epoch"] for r in runs.values())
     check(launches == len(SOCIAL) * SOCIAL_EPOCHS,
           f"F: rows_epoch launched {launches} times in the conf runs")
     return {"trust_graph": stats, "runs": runs, "tiers": tiers,
             "launches": {"rows_epoch": launches}}
+
+
+@contextlib.contextmanager
+def cune_friends_once():
+    """A context in which CUNE_BPR's latent friends (``build_cune_friends``:
+    the random walks, the skip-gram and the top-K, ~13 s a run on the
+    card) are built by the first run and handed as they are to each later
+    run on the same arguments and ``ui_train``, which would rebuild them
+    from the same seed."""
+    from cleverrec_tpu_torch.data import social
+    build, memo = social.build_cune_friends, {}
+
+    def once(ui_train, *args, **kwargs):
+        key = repr((args, sorted(kwargs.items())))
+        if key not in memo or memo[key][0] != ui_train:
+            memo[key] = (ui_train, build(ui_train, *args, **kwargs))
+        return memo[key][1]
+    social.build_cune_friends = once
+    try:
+        yield
+    finally:
+        social.build_cune_friends = build
 
 
 def one_epoch_in(name, **overrides):
@@ -3341,9 +3428,10 @@ def q_draw(trainer, held):
 
 
 def q_digest(draw) -> str:
-    """sha256 of every tensor of a draw (the grouped epoch's per group)."""
+    """sha256 of every tensor of a draw (the grouped epoch's per group,
+    the bucketed tier's per bucket)."""
     h = hashlib.sha256()
-    for part in draw.get("groups", [draw]):
+    for part in draw.get("groups", draw.get("buckets", [draw])):
         for name in sorted(part):
             h.update(name.encode())
             h.update(part[name].cpu().numpy().tobytes())
@@ -3370,8 +3458,10 @@ def q_rank(rank: int, port: int) -> int:
     Q-parity: one data-parallel epoch of each ``Q_CASES`` case on its own
     draw (its digest, the epoch's ms, the launches, the state saved under
     build/phase_q/), then one combine timed; Q-eval: full_sharded on
-    BPR's replica and rank_sharded on a 1 x 2 mesh; Q-quality: the CLI
-    with --mesh 2x1.  Writes build/phase_q/rank<R>.json."""
+    BPR's replica and rank_sharded on a 1 x 2 mesh; Q-split and Q-agree:
+    one epoch of each ``Q_SPLIT`` and ``Q_AGREE`` case (``r_run``), the
+    state saved; Q-quality: the CLI with --mesh 2x1 on BPR, then on
+    LightGCN.  Writes build/phase_q/rank<R>.json."""
     import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3435,22 +3525,43 @@ def q_rank(rank: int, port: int) -> int:
                       for n, p in model.named_parameters()}},
                os.path.join(Q_DIR, f"eval_rank{rank}.pt"))
     out["eval_ms"] = sec * 1e3
-    # Q-quality through the CLI on the 2 x 1 mesh; rank 0 logs.
+    # Q-split and Q-agree: one epoch of each case on the seed's draw;
+    # Q-split's sums fixed, as the unmeshed epoch's that it is held to,
+    # Q-agree's left to the atomics that the agreement must overcome.
+    out["split"] = {}
+    for cases, fixed in ((Q_SPLIT, True), (Q_AGREE, False)):
+        for tag, name, overrides, _ in cases:
+            res = r_run(name, overrides, mesh, evaluate=tag == "LightGCN",
+                        fixed=fixed)
+            torch.save({"state": res.pop("state"), "loss": res["loss"]},
+                       os.path.join(Q_DIR, f"split_{tag}_rank{rank}.pt"))
+            out["split"][tag] = res
+    # Q-quality through the CLI on the 2 x 1 mesh, BPR then LightGCN;
+    # rank 0 logs.
+    for tag, model, epochs, over in (
+            ("quality", "BPR", EPOCHS, Q_SYNC),
+            ("split_quality", "LightGCN", Q_LIGHTGCN_EPOCHS, Q_FULL)):
+        if rank == 0:
+            res = drive_cli(f"Q_{tag}", model=model, epochs=epochs,
+                            flags=("--mesh", "2x1"), **over)
+            out[tag] = {k: res[k] for k in (
+                "wall_s", "launches", "epoch_ms_median", "loss_first",
+                "loss_last", "best_epoch", "best", "mesh_tier")}
+        else:
+            scores.reset_launches()
+            train_ops.reset_launches()
+            rc, wall = sync_s(lambda: cli.main(cli_argv(
+                model, ("--mesh", "2x1"), cli_values(epochs, **over))))
+            check(rc == 0, f"Q {tag}: rank 1's cli exit code {rc}")
+            out[tag] = {"wall_s": wall, "launches": {
+                **scores.launches, **train_ops.launches}}
     if rank == 0:
-        res = drive_cli("Q_quality", flags=("--mesh", "2x1"), **Q_SYNC)
-        check(res["mesh_tier"] == {"tier": "fused", "data": 2,
-                                   "sync_every": 2, "combine": "sum"},
-              f"Q quality: the trainer ran {res['mesh_tier']}")
-        out["quality"] = {k: res[k] for k in (
-            "wall_s", "launches", "epoch_ms_median", "loss_first",
-            "loss_last", "best_epoch", "best")}
-    else:
-        train_ops.reset_launches()
-        rc, wall = sync_s(lambda: cli.main(cli_argv(
-            "BPR", ("--mesh", "2x1"), cli_values(EPOCHS, **Q_SYNC))))
-        check(rc == 0, f"Q quality: rank 1's cli exit code {rc}")
-        out["quality"] = {"wall_s": wall,
-                          "launches": dict(train_ops.launches)}
+        check(out["quality"]["mesh_tier"] == {
+            "tier": "fused", "data": 2, "sync_every": 2, "combine": "sum"},
+              f"Q quality: the trainer ran {out['quality']['mesh_tier']}")
+        tier = out["split_quality"]["mesh_tier"]
+        check(tier["tier"] == "scan" and tier.get("split") == "batch",
+              f"Q split quality: the trainer ran {tier}")
     with open(os.path.join(Q_DIR, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3543,6 +3654,71 @@ def q_eval_hold():
                                             for k, v in want.items()}}
 
 
+def q_split_hold(tag, name, overrides, scale, ranks):
+    """Q-split or Q-agree (``scale`` None) of one case: the ranks' draws
+    equal this process's, their states and losses equal each other bit
+    for bit, and a split case's the unmeshed epoch here within
+    ``Q_SPLIT_*`` times ``scale``.  LightGCN's rank-0 state is evaluated
+    here through ``full_fused`` (``dot_scores``), which must give the
+    ranks' ``full_sharded`` metrics."""
+    runs = [r["split"][tag] for r in ranks]
+    got = [torch.load(os.path.join(Q_DIR, f"split_{tag}_rank{r}.pt"))
+           for r in range(2)]
+    mode = "agree" if scale is None else "split"
+    check(all(r["data_mode"] == mode for r in runs) or name == "FM",
+          f"Q {tag}: data modes {[r['data_mode'] for r in runs]}")
+    for part, tensors in got[0]["state"].items():
+        for n, x in tensors.items():
+            check(torch.equal(x, got[1]["state"][part][n]),
+                  f"Q {tag}: the ranks' {part} {n} differ")
+    check(got[0]["loss"] == got[1]["loss"],
+          f"Q {tag}: losses {got[0]['loss']}, {got[1]['loss']}")
+    out = {"epoch_ms": [r["epoch_ms"] for r in runs], "tier": runs[0]["tier"],
+           "loss": got[0]["loss"]}
+    if scale is None:
+        return out
+    want = r_run(name, overrides, None, fixed=True)
+    check(all(r["digest"] == want["digest"] for r in runs),
+          f"Q {tag}: the ranks' draws differ from this process's")
+    errors = {}
+    for part, tensors in want["state"].items():
+        for n, x in tensors.items():
+            errors.update(hold(f"Q {tag}", [(f"{part}_{n}",
+                                             got[0]["state"][part][n].cuda(),
+                                             x.cuda())],
+                               Q_SPLIT_ATOL * scale, Q_SPLIT_RTOL * scale))
+    loss_rel = abs(got[0]["loss"] - want["loss"]) / abs(want["loss"])
+    check(loss_rel <= Q_SPLIT_LOSS_RTOL * scale,
+          f"Q {tag} loss: rel error {loss_rel} against the unmeshed epoch")
+    unfixed = sorted({*want["unfixed"],
+                      *(n for r in runs for n in r["unfixed"])})
+    check(not unfixed, f"Q {tag}: ops without a fixed order {unfixed}")
+    out.update(max_abs_err=max(errors.values()),
+               max_err_at=max(errors, key=errors.get), loss_rel_err=loss_rel,
+               unmeshed_epoch_ms=want["epoch_ms"])
+    if runs[0]["metrics"] is not None:
+        cfg = config("ml-100k", recommender=name, **overrides)
+        data = load_ranking_data(cfg)
+        dd = build_device_data(data)
+        model = make_model(cfg, DataMeta(data.user_nums, data.item_nums))
+        copy_into({n: p.detach() for n, p in model.named_parameters()},
+                  got[0]["state"]["p"], "parameter")
+        aux = {k: torch.as_tensor(v, device="cuda")
+               for k, v in model.build_aux(dd, data).items()}
+        ev = Evaluator(model, dd, cfg)
+        check(ev.mode == "full_fused", f"Q {tag}: eval mode {ev.mode}")
+        scores.reset_launches()
+        fused, _ = evaluate(f"Q {tag} full_fused", ev, aux)
+        out["dot_scores"] = scores.launches["dot_scores"]
+        check(out["dot_scores"] > 0, f"Q {tag}: no dot_scores launch")
+        gap = max(abs(a - b) for k, vals in fused.items()
+                  for r in runs for a, b in zip(r["metrics"][str(k)], vals))
+        check(gap <= METRIC_TOL, f"Q {tag}: full_fused against the ranks' "
+              f"full_sharded {gap}")
+        out["metrics_gap"] = gap
+    return out
+
+
 def free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -3591,6 +3767,8 @@ def phase_q(card: str):
     ranks on one card over gloo say whether the mesh is right, not how
     fast a mesh is."""
     t0 = time.perf_counter()
+    # FM's files, written before the ranks start (r_run).
+    write_ml100k_libfm()
     ranks = spawn_ranks("--rank", Q_DIR, Q_TIMEOUT, "Q")
     ranks_s = time.perf_counter() - t0
     out = {"card": card, "ranks": "2 on cuda:0, gloo: a check of the "
@@ -3611,9 +3789,36 @@ def phase_q(card: str):
                       "rank1_wall_s": ranks[1]["quality"]["wall_s"]}
     out["combine_ms"] = [r["combine_ms"] for r in ranks]
     out["combine_bytes"] = ranks[0]["combine_bytes"]
-    launches = {}
+    t1 = time.perf_counter()
+    out["split"] = {tag: q_split_hold(tag, name, over, scale, ranks)
+                    for tag, name, over, scale in Q_SPLIT}
+    out["agree"] = {tag: q_split_hold(tag, name, over, None, ranks)
+                    for tag, name, over, _ in Q_AGREE}
+    for tag, _, _, tier in Q_AGREE:
+        check(out["agree"][tag]["tier"] == tier,
+              f"Q {tag}: tier {out['agree'][tag]['tier']}")
+    split_q = ranks[0]["split_quality"]
+    flat = drive_cli("Q_split_quality_flat", model="LightGCN",
+                     epochs=Q_LIGHTGCN_EPOCHS, **Q_FULL)
+    check(flat["launches"]["dot_scores"] > 0,
+          f"Q split quality: the unmeshed run launched {flat['launches']}")
+    check(abs(split_q["best"]["HR@10"] - flat["best"]["HR@10"]) <= JAX_BAND,
+          f"Q split quality: best HR@10 {split_q['best']['HR@10']} on 2 x 1 "
+          f"against {flat['best']['HR@10']} unmeshed")
+    out["split_quality"] = {
+        "mesh": {k: split_q[k] for k in ("best", "best_epoch",
+                                         "epoch_ms_median", "loss_first",
+                                         "loss_last", "wall_s")},
+        "unmeshed": {k: flat[k] for k in ("best", "best_epoch",
+                                          "epoch_ms_median", "loss_first",
+                                          "loss_last", "wall_s")},
+        "rank1_wall_s": ranks[1]["split_quality"]["wall_s"]}
+    out["split_s"] = time.perf_counter() - t1
+    launches = {"dot_scores": out["split"]["LightGCN"]["dot_scores"]
+                + flat["launches"]["dot_scores"]}
     for r in ranks:
-        for run in [*r["runs"].values(), r["quality"]]:
+        for run in [*r["runs"].values(), *r["split"].values(), r["quality"],
+                    r["split_quality"]]:
             for k, v in run["launches"].items():
                 launches[k] = launches.get(k, 0) + v
     out["launches"] = {k: v for k, v in launches.items() if v}
@@ -3623,12 +3828,30 @@ def phase_q(card: str):
 
 # -- phase R: the parallel layer's model axis --------------------------------
 
-def r_run(name, overrides, mesh):
-    """One epoch of an R case on ``mesh`` (None: unmeshed, on cuda:0)
-    from the seed's state and draw.  Returns the state whole (the row
-    blocks gathered: a collective on a mesh), the loss, the draw's digest,
-    the epoch's ms, the tier, the launches and the bytes of P, Q and their
-    moments this process holds."""
+def moment_parts(state) -> dict:
+    """{part: {name: tensor}} of an optimizer state's moments."""
+    if hasattr(state, "sum_of_squares"):
+        return {"acc": state.sum_of_squares}
+    return {"mu": state.mu, "nu": state.nu}
+
+
+def r_run(name, overrides, mesh, evaluate=False, fixed=False):
+    """One epoch of an R (or Q-split, Q-agree) case on ``mesh`` (None:
+    unmeshed, on cuda:0) from the seed's state and draw, under
+    ``fixed_sums`` if ``fixed``.  Returns the state whole (the row blocks
+    gathered: a collective on a mesh), the loss, the draw's digest, the
+    epoch's ms, the tier, what the data ranks did with each step, the
+    launches, the bytes of P, Q and their moments this process holds,
+    with ``evaluate`` the evaluation after the epoch, and ``unfixed``:
+    ``fixed_sums``' notes."""
+    notes = []
+    with fixed_sums(notes) if fixed else contextlib.nullcontext():
+        res = r_epoch(name, overrides, mesh, evaluate)
+    return {**res, "unfixed": notes}
+
+
+def r_epoch(name, overrides, mesh, evaluate):
+    """``r_run``'s epoch."""
     device = mesh.device if mesh is not None else torch.device(R_CARD)
     if name == "FM":
         from cleverrec_tpu_torch.data.libfm import load_rating_data
@@ -3663,20 +3886,23 @@ def r_run(name, overrides, mesh):
     scores.reset_launches()
     train_ops.reset_launches()
     (params, state, loss), sec = sync_s(run)
+    metrics = ({str(k): v for k, v in trainer.evaluate().items()}
+               if evaluate else None)
     launched = {k: v for k, v in {**scores.launches,
                                   **train_ops.launches}.items() if v}
+    parts = (("p", params), *moment_parts(state).items())
     held = {f"{part}_{n}": t[n].numel() * t[n].element_size()
-            for part, t in (("p", params), ("mu", state.mu),
-                            ("nu", state.nu)) for n in ("P", "Q") if n in t}
+            for part, t in parts for n in ("P", "Q") if n in t}
     shards = sharding.shards_of(model)
     whole = {part: {n: x.detach().cpu() for n, x in
                     (sharding.full_tensors(t, shards, mesh) if mesh
                      else t).items()}
-             for part, t in (("p", params), ("mu", state.mu),
-                             ("nu", state.nu))}
+             for part, t in parts}
     return {"state": whole, "loss": float(loss), "digest": digest,
-            "epoch_ms": sec * 1e3, "tier": tier, "launches": launched,
-            "held": held, "shards": sorted(shards)}
+            "epoch_ms": sec * 1e3, "tier": tier,
+            "data_mode": getattr(trainer, "_data_mode", None),
+            "launches": launched, "held": held, "shards": sorted(shards),
+            "metrics": metrics}
 
 
 def r_rank(rank: int, port: int) -> int:
@@ -3694,7 +3920,7 @@ def r_rank(rank: int, port: int) -> int:
     mesh = make_mesh(1, 2, R_CARD)
     out = {"device": str(mesh.device), "runs": {}}
     for tag, name, overrides, *_ in R_CASES:
-        res = r_run(name, overrides, mesh)
+        res = r_run(name, overrides, mesh, fixed=True)
         torch.save({"state": res.pop("state"), "loss": res["loss"]},
                    os.path.join(R_DIR, f"{tag}_rank{rank}.pt"))
         out["runs"][tag] = res
@@ -3710,7 +3936,8 @@ def r_hold(tag, name, overrides, tier, exact, ranks):
     gathered states equal each other bit for bit, and the unmeshed scan
     (or dual) epoch here bit for bit (``exact``) or within phase D's
     EPOCH_*."""
-    want = r_run(name, {**overrides, "train.fused_kernel": "False"}, None)
+    want = r_run(name, {**overrides, "train.fused_kernel": "False"}, None,
+                 fixed=True)
     got = [torch.load(os.path.join(R_DIR, f"{tag}_rank{r}.pt"))
            for r in range(2)]
     runs = [r["runs"][tag] for r in ranks]
@@ -3739,8 +3966,13 @@ def r_hold(tag, name, overrides, tier, exact, ranks):
           and loss_rel <= (0.0 if exact else EPOCH_LOSS_RTOL),
           f"R {tag}: losses {got[0]['loss']}, {got[1]['loss']}, unmeshed "
           f"{want['loss']}")
-    return {"max_abs_err": max(errors.values()), "loss_rel_err": loss_rel,
-            "exact": exact, "epoch_ms": [r["epoch_ms"] for r in runs],
+    unfixed = sorted({*want["unfixed"],
+                      *(n for r in runs for n in r["unfixed"])})
+    check(not unfixed, f"R {tag}: ops without a fixed order {unfixed}")
+    return {"max_abs_err": max(errors.values()),
+            "max_err_at": max(errors, key=errors.get),
+            "loss_rel_err": loss_rel, "exact": exact,
+            "epoch_ms": [r["epoch_ms"] for r in runs],
             "unmeshed_epoch_ms": want["epoch_ms"],
             "shards": runs[0]["shards"], "held": [r["held"] for r in runs],
             "unmeshed_held": want["held"]}
@@ -3951,7 +4183,8 @@ def main() -> int:
                 "epoch_ms_median": run["epoch_ms_median"],
                 "jax_hr10": JAX_SOCIAL_HR10[name],
                 "tiers": {t: train["F"]["tiers"][name][t]["best"]
-                          for t in ("fused", "scan", "stream")}}
+                          for t in ("fused", "scan", "stream")}
+                if name in train["F"]["tiers"] else None}
          for name, run in train["F"]["runs"].items()}), flush=True)
     rows.append(epoch_row(train["C"]["launches"]["bpr_epoch"], profiles))
     rows.append(gmf_row(train["E"]["launches"]["gmf_epoch"], profiles))

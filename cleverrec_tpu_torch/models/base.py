@@ -7,6 +7,16 @@ The JAX package's models are stateless objects over a params pytree
   ``torch.Generator`` (drawn on the CPU, so one seed gives one table on
   every device),
 - ``loss(batch, aux) -> scalar``         (summed, weight-masked)
+- ``loss_parts(batch, aux) -> (rows, tables)``  (the loss in per-rank
+  parts for the scan tier's batch split over ``data``: ``rows`` a sum
+  over the batch's rows, its value on a batch the sum of its values on
+  any partition of the rows; ``tables`` every term that reads no row of
+  the batch; rows + tables is ``loss`` bit for bit; the scan and dual
+  tiers train on it.  A model whose loss is a row sum alone defines
+  ``loss`` and takes ``loss_parts = RecModel.rows_only_parts``; one with
+  table terms defines ``loss_parts`` and takes ``loss =
+  RecModel.summed_parts``; a model without parts cannot be split, and
+  the trainer says so)
 - ``score_pairs(u, i, aux) -> [B]``      (candidate-protocol unit)
 - ``score_candidates(u, cand, aux)``     (default: flattened pairs)
 - ``score_all(u, aux) -> [B, I]``        (full-catalog protocol)
@@ -75,6 +85,21 @@ class RecModel(nn.Module):
     def score_pairs(self, u, i, aux: Aux) -> torch.Tensor:
         raise NotImplementedError
 
+    def loss_parts(self, batch: Dict[str, torch.Tensor], aux: Aux):
+        raise NotImplementedError(f"{self.name} has no loss_parts")
+
+    def rows_only_parts(self, batch: Dict[str, torch.Tensor], aux: Aux):
+        """``loss_parts`` of a loss that is a sum over the batch's rows
+        alone: (loss, 0)."""
+        rows = self.loss(batch, aux)
+        return rows, torch.zeros_like(rows)
+
+    def summed_parts(self, batch: Dict[str, torch.Tensor], aux: Aux):
+        """``loss`` of a model with table terms: rows + tables of its
+        ``loss_parts``."""
+        rows, tables = self.loss_parts(batch, aux)
+        return rows + tables
+
     # -- optional overrides ----------------------------------------------
     def postprocess(self) -> None:
         """In-place hook run after each optimizer step."""
@@ -107,3 +132,8 @@ class RecModel(nn.Module):
             u, chunk[None, :].expand(u.shape[0], -1), aux)
             for chunk in items.split(self.SCORE_ALL_CHUNK)]
         return torch.cat(chunks, dim=1)
+
+
+def has_loss_parts(model) -> bool:
+    """Whether ``model`` gives its loss in per-rank parts."""
+    return type(model).loss_parts is not RecModel.loss_parts

@@ -53,6 +53,8 @@ class BPR(RecModel):
         rows = (self.P[batch["u"]], self.Q[batch["i"]], self.Q[batch["j"]])
         return _rows_loss(self.loss_func, self.reg, rows, batch["w"])
 
+    loss_parts = RecModel.rows_only_parts
+
     def score_pairs(self, u, i, aux: Aux):
         return (self.P[u] * self.Q[i]).sum(dim=1)
 

@@ -53,6 +53,7 @@ def _edges(aux: Aux, prefix: str):
 class DiffNet(RecModel):
     name = "DiffNet"
     sampler = "pairwise"
+    loss_parts = RecModel.rows_only_parts
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)

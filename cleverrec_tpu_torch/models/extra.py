@@ -20,7 +20,8 @@ implements them on the sampled batch protocols.
   and, weighted by ``social_weight``, the squared distance of friend
   pairs in the social domain over a batch of edges drawn each step from
   the trainer's ``dropout_gen`` (without one, a fixed hash of the user
-  id picks the edge).
+  id picks the edge); a data rank's chunk of a split batch keeps its
+  rows of the whole batch's draw.
 
 Every clip and floor that carries a gradient is ``torch.maximum`` and
 ``torch.minimum`` against tensors: at a tie they split the gradient
@@ -55,7 +56,9 @@ def _floor(x, lo: float):
 
 class _Tables(RecModel):
     """Models whose parameters are drawn from the initializer in their
-    registration order."""
+    registration order, and whose loss is a row sum alone."""
+
+    loss_parts = RecModel.rows_only_parts
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> None:
@@ -242,13 +245,16 @@ class EATNN(_Tables):
         return shared * gate[:, None] + spec
 
     @staticmethod
-    def edge_draw(u, n_f: int, generator=None):
+    def edge_draw(u, n_f: int, generator=None, chunk=None):
         """The friend edge of each row: uniform from ``generator`` (one
         fresh batch a step), or, without one, the fixed hash of the JAX
-        package's keyless call in int64 arithmetic."""
+        package's keyless call in int64 arithmetic.  ``chunk`` (lo, hi,
+        n): u holds rows lo:hi of a batch of n (a data rank's share of a
+        split step), and the draw is the whole batch's, cut to them."""
         if generator is not None:
-            return torch.randint(0, n_f, u.shape, generator=generator,
-                                 device=u.device)
+            lo, hi, n = chunk or (0, u.shape[0], u.shape[0])
+            return torch.randint(0, n_f, (n,) + tuple(u.shape[1:]),
+                                 generator=generator, device=u.device)[lo:hi]
         return ((u.long() * HASH_MUL) & 0xFFFFFFFF) % max(n_f, 1)
 
     def loss(self, batch, aux: Aux):
@@ -259,7 +265,7 @@ class EATNN(_Tables):
         s_i, s_j = (uv * qi).sum(dim=1), (uv * qj).sum(dim=1)
         main = pairwise_loss(self.loss_func, s_i - s_j, weight=w)
         idx = self.edge_draw(batch["u"], aux["sf_u_e"].shape[0],
-                             batch.get("dropout_gen"))
+                             batch.get("dropout_gen"), batch.get("chunk"))
         su = self._user_vec(aux["sf_u_e"][idx], "social")
         sv = self._user_vec(aux["sf_v_e"][idx], "social")
         social = torch.sum(torch.square(su - sv) * w[:, None])

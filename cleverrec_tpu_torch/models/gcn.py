@@ -74,9 +74,12 @@ def _adj_apply(aux: Aux, ego: torch.Tensor) -> torch.Tensor:
 
 class _GraphModel(RecModel):
     """The shared half of LightGCN and NGCF: the graph, the P and Q
-    tables, and the scorers over the propagated embeddings."""
+    tables, and the scorers over the propagated embeddings.  Their loss
+    is a row sum alone: the propagation over the whole tables is work
+    every rank of a split repeats, neither rows nor tables."""
 
     sampler = "pairwise"
+    loss_parts = RecModel.rows_only_parts
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)

@@ -133,6 +133,16 @@ class _DualDomainBase(RecModel):
                            + getattr(self, f"b_mlp_{lid}"))
         return x
 
+    def loss_parts(self, batch, aux: Aux):
+        """(the loss, 0): a row sum over both domains' rows.  The dual
+        tier runs whole steps on every rank (the JAX trainer's replicated
+        program), and its two domains' rows, of two batch sizes, do not
+        split as one batch: a data chunk raises."""
+        if "chunk" in batch:
+            raise ValueError(f"{self.name}: the dual tier runs whole steps; "
+                             "its batch does not split over 'data'")
+        return self.rows_only_parts(batch, aux)
+
     def _domain_losses(self, batch, ue_i, ie, je, un_i, in_, jn,
                        ue_s, ve, we, un_s, vn, wn):
         w_i, w_s = batch["w"], batch["w_s"]

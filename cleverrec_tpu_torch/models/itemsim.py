@@ -80,7 +80,12 @@ class FISM(RecModel):
                                       self.meta.user_nums, scale)
         return agg[u.long()]
 
-    def loss(self, batch, aux: Aux):
+    loss = RecModel.summed_parts
+
+    def loss_parts(self, batch, aux: Aux):
+        """(the pairwise or pointwise loss over the batch's rows, the L2 of
+        the whole tables: a table term, over the configured batch size
+        whatever rows a rank holds)."""
         w = batch["w"]
         ur = self._user_repr(aux, batch["u"])
         s_i = (gather_rows(self.Q, batch["i"]) * ur).sum(dim=1) + gather_rows(
@@ -90,8 +95,8 @@ class FISM(RecModel):
         if self.pairwise:
             s_j = (gather_rows(self.Q, batch["j"]) * ur).sum(
                 dim=1) + gather_rows(self.b, batch["j"])
-            return pairwise_loss(self.loss_func, s_i - s_j, weight=w) + reg_emb
-        return sigmoid_xent_loss(batch["y"], s_i, weight=w) + reg_emb
+            return pairwise_loss(self.loss_func, s_i - s_j, weight=w), reg_emb
+        return sigmoid_xent_loss(batch["y"], s_i, weight=w), reg_emb
 
     def score_pairs(self, u, i, aux: Aux):
         ur = self._user_repr(aux, u)
@@ -116,6 +121,8 @@ class NAIS(RecModel):
     SCORE_ALL_CHUNK = 16
     # Candidates scored at once by score_candidates.
     CANDIDATE_CHUNK = 8
+    # The flat loss's L2 reads the batch's rows alone.
+    loss_parts = RecModel.rows_only_parts
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)

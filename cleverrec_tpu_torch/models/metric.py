@@ -52,6 +52,7 @@ class _MetricBase(RecModel):
     """The user and item tables the three share."""
 
     cml_like = True
+    loss_parts = RecModel.rows_only_parts
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)
@@ -78,7 +79,11 @@ class CML(_MetricBase):
         self.reg = cfg.float("reg")
         self.neg_ratio = cfg.neg_ratio
 
-    def loss(self, batch, aux: Aux):
+    loss = RecModel.summed_parts
+
+    def loss_parts(self, batch, aux: Aux):
+        """(the WARP-weighted hinge over the batch's rows, the covariance
+        regulariser over the whole tables: a table term)."""
         w = batch["w"]
         ue = self.P[batch["u"]]
         ie = self.Q[batch["i"]]
@@ -96,7 +101,7 @@ class CML(_MetricBase):
         xc = x - x.mean(dim=0)
         cov = (xc.T @ xc) / x.shape[0]
         cov_loss = self.reg * (cov.sum() - torch.diagonal(cov).sum())
-        return per_pair.sum() + cov_loss
+        return per_pair.sum(), cov_loss
 
     def score_pairs(self, u, i, aux: Aux):
         return sq_dist(self.P[u], self.Q[i])

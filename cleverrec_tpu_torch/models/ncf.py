@@ -41,6 +41,7 @@ def mlp_tower(params, x, n_layers: int):
 
 class _NCFBase(RecModel):
     sampler = "pointwise"
+    loss_parts = RecModel.rows_only_parts
 
     def _param(self, name: str, *shape: int) -> None:
         self.register_parameter(name, nn.Parameter(torch.zeros(*shape)))

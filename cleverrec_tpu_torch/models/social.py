@@ -76,6 +76,7 @@ class _SocialTripleBase(RecModel):
     sampler = "sbpr"
     fused_protocol = "rows"
     item_planes = ("i", "k", "j")
+    loss_parts = RecModel.rows_only_parts
 
     def __init__(self, cfg, meta):
         super().__init__(cfg, meta)
@@ -372,7 +373,11 @@ class SAMN(RecModel):
     def _tower_l2(self):
         return l2_loss(self.W3) + l2_loss(self.b) + l2_loss(self.h)
 
-    def loss(self, batch, aux: Aux):
+    loss = RecModel.summed_parts
+
+    def loss_parts(self, batch, aux: Aux):
+        """(the pairwise loss and reg1's L2 over the batch's rows, reg2's
+        L2 of the attention tower: a table term)."""
         w = batch["w"]
         uv = self._user_vec(batch["u"], aux)
         ie, je = (gather_rows(self.Q, batch[k]) for k in ("i", "j"))
@@ -383,7 +388,7 @@ class SAMN(RecModel):
         wc = w[:, None]
         l2_1 = (l2_loss(uv * wc) + l2_loss(ie * wc) + l2_loss(je * wc)
                 + l2_loss(ib * w) + l2_loss(jb * w))
-        return main + self.reg1 * l2_1 + self.reg2 * self._tower_l2()
+        return main + self.reg1 * l2_1, self.reg2 * self._tower_l2()
 
     def loss_grouped_pairwise(self, batch, aux: Aux):
         """The user-grouped pairwise loss: ``gu`` [G] users, ``gi`` and

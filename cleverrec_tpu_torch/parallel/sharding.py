@@ -23,7 +23,13 @@ height}); its code still reads full tables, through one of the views of
 
 Each rank of a model group computes the same loss on the same batch, so
 a gradient's cotangent is already replicated over ``model``: the
-backwards need no collective (JAX's identity psum).
+backwards need no collective (JAX's identity psum).  Over ``data`` the
+scan tier splits each batch (``data_chunk``: a rank's contiguous chunk,
+``part_of_loss``: its rows term plus, on data rank 0, the table terms)
+and sums the parts' gradients with one all-reduce a step
+(``over_data``); the whole-step tiers take data rank 0's gradients
+(``over_data(..., take_rank0=True)``), as the model axis takes model
+rank 0's (``agree_grads``).
 """
 
 from __future__ import annotations
@@ -89,12 +95,40 @@ def replicate(x: torch.Tensor, mesh) -> torch.Tensor:
     return x.to(mesh.device)
 
 
+def chunk_bounds(n: int, parts: int, index: int) -> tuple[int, int]:
+    """Rows [lo, hi) of chunk ``index`` when n rows split into ``parts``
+    contiguous chunks as ``torch.tensor_split`` splits them (the first
+    n % parts chunks one row longer)."""
+    size, extra = divmod(n, parts)
+    lo = index * size + min(index, extra)
+    return lo, lo + size + (index < extra)
+
+
 def shard_batch_spec(mesh, axis: str = "data"):
     """A function that keeps this data rank's chunk of a batch's leading
-    axis, each leaf's (the leading dim must divide over ``axis``)."""
+    axis, each leaf's: ``torch.tensor_split`` into as many contiguous
+    chunks as ``axis`` has ranks (any batch size, as GSPMD shards any)."""
     def constrain(batch: dict) -> dict:
-        return {k: shard_rows(v, mesh, axis) for k, v in batch.items()}
+        return {k: torch.tensor_split(v, mesh.shape[axis])[mesh.index(axis)]
+                for k, v in batch.items()}
     return constrain
+
+
+def gather_chunks(x: torch.Tensor, n: int, mesh,
+                  axis: str = "data") -> torch.Tensor:
+    """The ``axis`` ranks' chunks of an n-row leading axis (this rank's
+    ``x``, its ``shard_batch_spec`` chunk) joined in row order: one
+    all-gather of the chunks padded to the longest (without a mesh or
+    an ``axis``, ``x``)."""
+    parts = 1 if mesh is None else mesh.shape[axis]
+    if parts == 1:
+        return x
+    longest = -(-n // parts)
+    pad = x.new_zeros((longest - x.shape[0],) + tuple(x.shape[1:]))
+    joined = mesh.all_gather(torch.cat([x.detach(), pad]), axis)
+    rows = [chunk_bounds(n, parts, d) for d in range(parts)]
+    return torch.cat([joined[d * longest:d * longest + hi - lo]
+                      for d, (lo, hi) in enumerate(rows)])
 
 
 # -- the collectives as autograd functions --------------------------------
@@ -354,6 +388,22 @@ def unshard_model(model: torch.nn.Module, mesh=None) -> None:
     model.row_shards = {}
 
 
+def _flat_sum(tensors: list, mesh, axis: str, rank0: bool = False) -> list:
+    """``tensors`` summed over the ranks of this rank's ``axis`` group by
+    one all-reduce of them joined flat (with ``rank0``, every rank but
+    index 0 contributing zeros: rank 0's tensors on every rank); the
+    results in the tensors' shapes."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    if rank0 and mesh.index(axis):
+        flat = torch.zeros_like(flat)
+    flat = mesh.all_reduce_sum(flat, axis)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    return out
+
+
 def agree_grads(grads: dict, shards: dict, mesh) -> dict:
     """The gradients the ranks of a model group agree on, each rank having
     computed the whole step itself: a leaf not in ``shards`` (replicated
@@ -365,16 +415,26 @@ def agree_grads(grads: dict, shards: dict, mesh) -> dict:
     keys = [k for k in grads if k not in shards]
     if mesh.shape[AXIS] == 1 or not keys:
         return grads
-    flat = torch.cat([grads[k].reshape(-1) for k in keys])
-    if mesh.index(AXIS):
-        flat = torch.zeros_like(flat)
-    flat = mesh.all_reduce_sum(flat, AXIS)
-    grads, off = dict(grads), 0
-    for k in keys:
-        n = grads[k].numel()
-        grads[k] = flat[off:off + n].view(grads[k].shape)
-        off += n
-    return grads
+    agreed = _flat_sum([grads[k] for k in keys], mesh, AXIS, rank0=True)
+    return {**grads, **dict(zip(keys, agreed))}
+
+
+def over_data(grads: dict, loss: torch.Tensor, mesh, take_rank0=False):
+    """(gradients, loss) over the ranks of this rank's data group, by one
+    all-reduce a step (a row block joins the blocks of its model index:
+    the data group shares the model index).  By default their sum: the
+    scan tier's batch split, each rank's gradients of its part of the
+    loss and the part itself, summed to the whole batch's, the JAX
+    trainer's GSPMD step.  With ``take_rank0``, data rank 0's: the
+    grouped pairwise, bucketed and dual tiers, which the JAX trainer
+    keeps replicated, each rank having run the whole step, so that
+    ``index_add``'s run-dependent rounding on a card leaves no two
+    replicas apart.  Without a mesh or a data axis, as given."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return grads, loss
+    *joined, loss = _flat_sum(list(grads.values()) + [loss.reshape(1)],
+                              mesh, "data", rank0=take_rank0)
+    return dict(zip(grads, joined)), loss.reshape(())
 
 
 def full_tensors(tensors: dict, shards: dict, mesh) -> dict:
@@ -434,14 +494,37 @@ def table_views(model: torch.nn.Module, mesh, exchange: str = "gspmd"):
         model._views_on = False
 
 
+def data_chunk(batch: dict, mesh) -> dict:
+    """This data rank's chunk of every leaf of ``batch`` (each leaf's
+    leading axis n long, cut as ``shard_batch_spec`` cuts it) and
+    ``chunk``: (lo, hi, n), the rows of the whole batch it holds.  A loss
+    that draws a batch-shaped tensor draws it for all n rows and keeps
+    rows lo:hi, so the draw is the unsplit step's.  Without a mesh or a
+    data axis, ``batch`` as it is."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return batch
+    n = next(iter(batch.values())).shape[0]
+    lo, hi = chunk_bounds(n, mesh.shape["data"], mesh.index("data"))
+    return {**shard_batch_spec(mesh)(batch), "chunk": (lo, hi, n)}
+
+
+def part_of_loss(parts, mesh) -> torch.Tensor:
+    """This data rank's part of the loss from ``loss_parts``' (rows,
+    tables): the rows term over its chunk, plus the table terms on data
+    rank 0 alone, so that the parts sum to the whole batch's loss
+    (without a mesh, rows + tables: the loss)."""
+    rows, tables = parts
+    return rows if mesh is not None and mesh.index("data") else rows + tables
+
+
 def sharded_train_step(model, optimizer, mesh, item_nums: int,
                        neg_ratio: int, exchange: str = "gspmd"):
     """A standalone train step over the mesh
     (cleverrec_tpu/parallel/sharding.py:190-217): pairwise sampling
     (``sampling.pairwise_batch``), this data rank's chunk of the batch,
-    the loss through ``table_views`` (``exchange``), its gradients summed
-    over ``data`` with the loss, and the optimizer's update.  A model with
-    a loss summed over its batch rows (BPR's) computes the unsplit step.
+    its part of the loss (``model.loss_parts``, ``part_of_loss``) through
+    ``table_views`` (``exchange``), the gradients summed over ``data``
+    with the loss (``over_data``), and the optimizer's update.
 
     Returned fn signature:
         step(params, opt_state, gen, arrays, rows, valid)
@@ -450,37 +533,23 @@ def sharded_train_step(model, optimizer, mesh, item_nums: int,
     ``shard_model``), updated in place; ``gen``: the sampler's generator,
     the same seed on every rank; ``arrays``: ``pos_u``, ``pos_i`` and
     ``seen`` (a ``sampling.MemberTable``) as in the trainer; ``rows`` and
-    ``valid``: the step's shuffled epoch row ids and weights (the batch
-    divides over ``data``)."""
+    ``valid``: the step's shuffled epoch row ids and weights."""
     from cleverrec_tpu_torch import sampling
-
-    constrain = shard_batch_spec(mesh)
-    n_data = mesh.shape["data"]
 
     def step(params, opt_state, gen, arrays, rows, valid):
         batch = sampling.pairwise_batch(
             gen, rows, valid, arrays["pos_u"], arrays["pos_i"],
             arrays["seen"], item_nums, neg_ratio)
-        if n_data > 1:
-            batch = constrain(batch)
         names = list(params)
         leaves = [params[k] for k in names]
         with table_views(model, mesh, exchange):
-            loss = model.loss(batch, arrays)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, torch.autograd.grad(
-                     loss, leaves, allow_unused=True))]
-        loss = loss.detach()
-        if n_data > 1:
-            flat = mesh.all_reduce_sum(torch.cat(
-                [g.reshape(-1) for g in grads] + [loss.reshape(1)]), "data")
-            off = 0
-            for k, g in enumerate(grads):
-                grads[k] = flat[off:off + g.numel()].view(g.shape)
-                off += g.numel()
-            loss = flat[off]
-        grads = agree_grads(dict(zip(names, grads)),
-                            shards_of(model), mesh)
+            loss = part_of_loss(model.loss_parts(data_chunk(batch, mesh),
+                                                 arrays), mesh)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for k, p, g in zip(names, leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))}
+        grads, loss = over_data(grads, loss.detach(), mesh)
+        grads = agree_grads(grads, shards_of(model), mesh)
         opt_state = optimizer.update(params, grads, opt_state)
         return params, opt_state, loss
 

@@ -22,11 +22,16 @@ a leading dim that divides the ``model`` size M is row-sharded over
 ``model`` once drawn (``wi``, ``vif``; JAX's rule for FM, not the ranking
 trainer's: 1-D and 3-D leaves too) and ``w0`` is replicated; each step's
 loss and each test read the tables all-gathered
-(``sharding.table_views``, ``gspmd``), and every data rank runs the
-whole step (the JAX trainer splits the batch over ``data``: ROADMAP.md
-queue 1, item 16c), so every rank's numbers are the unmeshed run's; the
-ranks of a model group take one gradient of ``w0``
-(``sharding.agree_grads``).
+(``sharding.table_views``, ``gspmd``).  A data axis D > 1 splits each
+step's batch as the JAX trainer's batch constraint does: each data rank
+keeps its chunk of the step's rows (``x_idx``, ``x_val``, ``y`` and
+``w``; ``torch.tensor_split``, uneven chunks too), its part of the loss
+is the square loss over them plus, on data rank 0 alone, the L2 table
+term (``FM.loss_parts``), and one all-reduce a step sums the parts'
+gradients and losses over ``data`` (``sharding.over_data``); each
+rank's predictions are all-gathered in row order after the epoch, where
+the training RMSE reads them.  The ranks of a model group take one
+gradient of ``w0`` (``sharding.agree_grads``).
 """
 
 from __future__ import annotations
@@ -95,11 +100,17 @@ class FM(nn.Module):
         y2 = (sum_sq - sq_sum).sum(dim=1)
         return self.w0 + wi.sum(dim=1) + 0.5 * y2
 
-    def loss(self, x_idx, x_val, y, w):
-        """(summed weighted square loss + reg * (l2(wi) + l2(vif)), y_pre)."""
+    def loss_parts(self, x_idx, x_val, y, w):
+        """(the summed weighted square loss over the rows, reg * (l2(wi) +
+        l2(vif)) over the whole tables: a table term, y_pre)."""
         y_pre = self.predict(x_idx, x_val)
         main = torch.sum(torch.square(y - y_pre) * w)
-        return main + self.reg * (l2_loss(self.wi) + l2_loss(self.vif)), y_pre
+        return main, self.reg * (l2_loss(self.wi) + l2_loss(self.vif)), y_pre
+
+    def loss(self, x_idx, x_val, y, w):
+        """(summed weighted square loss + reg * (l2(wi) + l2(vif)), y_pre)."""
+        rows, tables, y_pre = self.loss_parts(x_idx, x_val, y, w)
+        return rows + tables, y_pre
 
 
 class FFM(FM):
@@ -216,21 +227,27 @@ class FMTrainer:
         order = torch.as_tensor(order, device=self.device).long()
         w = torch.as_tensor(w, device=self.device).float()
         names, leaves = list(params), list(params.values())
+        mesh = self.mesh
         losses, y_pres = [], []
         for rows, wt in zip(order, w):
+            step = sharding.data_chunk({"rows": rows, "w": wt}, mesh)
+            rows = step["rows"]
             with self._views():
-                loss, y_pre = self.model.loss(self._xi[rows], self._xv[rows],
-                                              self._y[rows], wt)
+                *parts, y_pre = self.model.loss_parts(
+                    self._xi[rows], self._xv[rows], self._y[rows], step["w"])
+                loss = sharding.part_of_loss(parts, mesh)
             grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
-            if self.mesh is not None and self.mesh.shape["model"] > 1:
+            grads, loss = sharding.over_data(grads, loss.detach(), mesh)
+            if mesh is not None and mesh.shape["model"] > 1:
                 grads = sharding.agree_grads(
-                    grads, sharding.shards_of(self.model),
-                    self.mesh)
+                    grads, sharding.shards_of(self.model), mesh)
             self.optimizer.update(params, grads, opt_state)
-            losses.append(loss.detach())
+            losses.append(loss)
             y_pres.append(y_pre.detach())
+        y_pres = sharding.gather_chunks(torch.stack(y_pres).T,
+                                        order.shape[1], mesh).T
         return (params, opt_state, torch.stack(losses).mean(), order, w,
-                torch.stack(y_pres))
+                y_pres)
 
     def run(self, seed: int | None = None):
         """The whole loop: each epoch trains, logs the training RMSE and

@@ -140,11 +140,28 @@ trainer's data-parallel tiers then split its steps
 ``_dp_delta_combine`` combines every float leaf of the state (parameters
 and optimizer moments; the integer count passes) through the pure rule
 ``dp_combine_rule``, fed the ranks' summed deltas by one collective.
-Every other tier (the grouped pairwise, bucketed and dual tiers, and the
-scan tier without local Adam) runs the whole step on every rank, whose
-replicas so stay equal to the unmeshed run (the JAX trainer's GSPMD tier
-splits the scan tier's batch over ``data`` instead: ROADMAP.md queue 1,
-item 16c); the lazy row-Adam tier declines under a mesh.
+
+The scan tier without local Adam splits each step's batch over ``data``,
+the JAX trainer's GSPMD layout (cleverrec_tpu/train/trainer.py:1498-1512,
+1563-1575): every rank draws the whole batch, keeps its data chunk of
+every leaf (``sharding.data_chunk``: ``torch.tensor_split``'s D
+contiguous chunks, uneven ones too; a batch-shaped draw of the loss,
+EATNN's friend edges, is drawn whole and cut), and computes its part of
+the loss (``model.loss_parts``: the rows term over its chunk, plus the
+table terms on data rank 0 alone); one all-reduce a step sums the parts'
+gradients and losses over ``data`` (``sharding.over_data``), so the
+step's loss and update are the whole batch's.  Work on whole tables
+(graph propagation, NGCF's dropout masks) every rank repeats.  Under
+``parallel.exchange=explicit`` the row lookups take this rank's chunk of
+ids through ``row_sharded_gather``, and the sum over ``data`` of the
+tables' gradients, which JAX's data-axis form makes in its backward, is
+that all-reduce.  A model without ``loss_parts`` raises.  The grouped
+pairwise, bucketed and dual tiers, to which the JAX trainer adds no batch
+constraint, run the whole step on every rank, and every rank takes data
+rank 0's gradients and loss (``sharding.over_data``, one all-reduce a
+step), so that a kernel that sums in a run-dependent order
+(``index_add``'s atomics on a card) leaves no two replicas apart; the
+lazy row-Adam tier declines under a mesh.
 
 A model axis M > 1 (cleverrec_tpu/train/trainer.py:290-300, 1340-1342,
 1478-1512, 2016-2018): ``init_state`` draws the whole tables, then keeps
@@ -198,7 +215,7 @@ from cleverrec_tpu_torch.config import Config
 from cleverrec_tpu_torch.data.arrays import DeviceData, build_device_data
 from cleverrec_tpu_torch.data.dataset import RankingData
 from cleverrec_tpu_torch.evalx import Evaluator
-from cleverrec_tpu_torch.models.base import RecModel
+from cleverrec_tpu_torch.models.base import RecModel, has_loss_parts
 from cleverrec_tpu_torch.ops.sparse_adam import (dense_adam_leaf,
                                                  sparse_rows_adam)
 from cleverrec_tpu_torch.ops.train import (EPOCH_FNS, LOG2, _cols, _side,
@@ -220,8 +237,6 @@ BF16_PROTOCOLS = ("pairwise_bpr", "rows")
 # The data-parallel tiers' delta combines (cleverrec_tpu/train/trainer.py:
 # 36-75).
 DP_COMBINES = ("mean", "sum", "count")
-# Where the scan tier's batch split over 'data' is queued.
-ITEM_16C = "ROADMAP.md queue 1, item 16c"
 
 
 def _touched(d: torch.Tensor) -> torch.Tensor:
@@ -435,6 +450,9 @@ class Trainer:
         # The data-parallel tiers' data ranks (1: none runs), K-step
         # rounds (0: one a epoch) and combine (_setup_dp).
         self._dp, self._sync_k, self._combine = 1, 0, None
+        # What the data ranks of an autograd tier do with each step
+        # (_setup_dp): None, "split" or "agree".
+        self._data_mode = None
         self._real_steps = self.steps_per_epoch
         self.sparse_rows = self._sparse_rows_eligible()
         self.fused = not self.sparse_rows and self._fused_epoch_eligible()
@@ -926,12 +944,14 @@ class Trainer:
 
     def _setup_dp(self) -> None:
         """The data mesh's reading of the config
-        (cleverrec_tpu/train/trainer.py:213-230, 505-530, 1466-1480): the
+        (cleverrec_tpu/train/trainer.py:213-230, 505-530, 1466-1512): the
         fused tier trains mesh-DP (grouped too), the scan tier local Adam
         with ``train.dp_local_adam``; their steps padded to a multiple of
-        D * max(K, 1) and the combine checked.  Any other tier runs the
-        whole step on every rank.  One log line says which, and names the
-        data-parallel options set that the run does not apply."""
+        D * max(K, 1) and the combine checked.  Without local Adam the
+        scan tier splits each batch over ``data``; any other tier runs
+        the whole step on every rank, the ranks agreeing on its gradients.
+        One log line says which, and names the data-parallel options set
+        that the run does not apply."""
         cfg, mesh = self.cfg, self.mesh
         dp = mesh.shape["data"] if mesh is not None else 1
         n_model = mesh.shape["model"] if mesh is not None else 1
@@ -1001,17 +1021,36 @@ class Trainer:
                                          "sync_every": self._sync_k,
                                          "combine": self._combine}})
             return
+        if self.tier == "scan":
+            if not has_loss_parts(self.model):
+                raise ValueError(
+                    f"{self.model.name} has no loss_parts: the scan tier's "
+                    f"batch split over 'data' ({tag}) needs the loss in "
+                    "per-rank parts")
+            self._data_mode = "split"
+            sizes = {hi - lo for lo, hi in (
+                sharding.chunk_bounds(self.batch_size, dp, d)
+                for d in range(dp))}
+            chunk = "-".join(str(n) for n in sorted(sizes))
+            if self.logger:
+                self.logger.info(
+                    "%s: the scan tier, the batch split over 'data' (%s of %d "
+                    "rows a data rank; its loss part, the table terms on data "
+                    "rank 0; one all-reduce of the parts' gradients a step; "
+                    "the %s exchange)%s%s", tag, chunk, self.batch_size,
+                    self.exchange, tables, note,
+                    extra={"mesh_tier": {"tier": self.tier, "data": dp,
+                                         "model": n_model, "split": "batch",
+                                         "chunk": chunk,
+                                         "exchange": self.exchange}})
+            return
+        self._data_mode = "agree"
         if self.logger:
-            why = (f"splitting the batch over 'data' is the JAX trainer's "
-                   f"GSPMD layout, which needs each model's loss in per-rank "
-                   f"parts ({ITEM_16C})"
-                   + ("; train.dp_local_adam=True splits the steps instead"
-                      if n_model == 1 and self.exchange != "explicit"
-                      else "") if self.tier == "scan"
-                   else "as the JAX trainer adds no batch constraint to it")
             self.logger.info("%s: the %s tier runs the whole step on every "
-                             "data rank (replicated; %s)%s%s", tag, self.tier,
-                             why, tables, note,
+                             "data rank (replicated, as the JAX trainer adds "
+                             "no batch constraint to it; data rank 0's "
+                             "gradients taken)%s%s", tag, self.tier,
+                             tables, note,
                              extra={"mesh_tier": {"tier": self.tier,
                                                   "data": dp,
                                                   "model": n_model}})
@@ -1224,13 +1263,17 @@ class Trainer:
         """One optimizer step a batch on ``loss_fn(batch, aux)`` (default
         aux: ``self.aux``), each batch with the trainer's
         ``dropout_gen``; returns (params, opt_state, the batches' losses
-        [n]).  Under a model axis the loss reads the tables through
-        ``_views``, the gradients reach the row blocks, and the ranks of a
-        model group take one gradient of each replicated leaf
+        [n]).  Under a data axis, as ``_data_mode`` says: ``split``, each
+        rank's part's gradients and loss (``_scan_epoch``'s chunks)
+        summed over ``data``; ``agree``, data rank 0's taken.
+        Under a model axis the loss reads the tables through ``_views``,
+        the gradients reach the row blocks, and the ranks of a model group
+        take one gradient of each replicated leaf
         (``sharding.agree_grads``)."""
         names = list(params)
         leaves = [params[k] for k in names]
         aux = self.aux if aux is None else aux
+        mode, mesh = self._data_mode, self.mesh
         losses = torch.zeros(len(batches), dtype=torch.float32,
                              device=self.device)
         for s, batch in enumerate(batches):
@@ -1244,13 +1287,16 @@ class Trainer:
                 torch.zeros_like(p) if g is None else g
                 for p, g in zip(leaves, torch.autograd.grad(
                     loss, leaves, allow_unused=True))]))
+            loss = loss.detach()
+            if mode:
+                grads, loss = sharding.over_data(
+                    grads, loss, mesh, take_rank0=mode == "agree")
             if self._agree:
                 grads = sharding.agree_grads(
-                    grads, sharding.shards_of(self.model),
-                    self.mesh)
+                    grads, sharding.shards_of(self.model), mesh)
             opt_state = self.optimizer.update(params, grads, opt_state)
             self.model.postprocess()
-            losses[s] = loss.detach()
+            losses[s] = loss
         return params, opt_state, losses
 
     @staticmethod
@@ -1259,8 +1305,19 @@ class Trainer:
                 for s in range(tensors["u"].shape[0])]
 
     def _scan_epoch(self, params, opt_state, tensors):
+        """The scan and dual tiers: each step on this data rank's chunk of
+        its batch and its part of the loss (the model's ``loss_parts``,
+        the table terms on data rank 0 alone) where the batch splits, else
+        on the whole batch and the whole loss."""
+        mesh = self.mesh if self._data_mode == "split" else None
+
+        def part(batch, aux):
+            return sharding.part_of_loss(self.model.loss_parts(batch, aux),
+                                         mesh)
         params, opt_state, losses = self._steps(
-            params, opt_state, self._batches(tensors), self.model.loss)
+            params, opt_state,
+            [sharding.data_chunk(b, mesh) for b in self._batches(tensors)],
+            part)
         return params, opt_state, losses.mean()
 
     def _local_adam_epoch(self, params, opt_state, tensors):

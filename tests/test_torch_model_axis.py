@@ -1,18 +1,22 @@
-"""The model axis of the parallel layer in the port against the JAX package:
-row-sharded tables over real gloo collectives on the CPU.
+"""The model axis of the parallel layer, and the scan tier's batch split
+over ``data``, in the port against the JAX package: row-sharded tables
+and split batches over real gloo collectives on the CPU.
 
-One spawn of a ``1 x 2`` world and one of a ``2 x 2`` world
+One spawn each of a ``1 x 2``, a ``2 x 1`` and a ``2 x 2`` world
 (``tests/torch_model_worker.py``, which imports no JAX) train one epoch
 of each case from the JAX trainer's initial state on the JAX trainer's
 own draws (its scan tier's ``_scan_parts``, its grouped and dual draws),
-and the JAX trainer's meshed epoch on ``make_mesh(1, 2)`` and
-``make_mesh(2, 2)`` of the 8 virtual CPU devices (``tests/conftest.py``)
-is the reference, at ``tests/test_parallel.py``'s tolerances.  Beside
-it: the ranks equal each other bit for bit, the ``gspmd`` tier equals
-the port's unmeshed epoch bit for bit and the ``explicit`` tier within
-``EXCHANGE_TOL``; each rank holds 1/M of every row-sharded table and its
-moments; FM and FFM; ``row_sharded_gather`` and ``sharded_train_step``
-against JAX's; a ``1 x 2`` run's checkpoint, evaluation and traces.
+and the JAX trainer's meshed epoch on ``make_mesh(1, 2)``,
+``make_mesh(2, 1)`` and ``make_mesh(2, 2)`` of the 8 virtual CPU devices
+(``tests/conftest.py``) is the reference, at ``tests/test_parallel.py``'s
+tolerances.  Beside it: the ranks equal each other bit for bit; at a
+data axis of 1 the ``gspmd`` tier equals the port's unmeshed epoch bit
+for bit and the ``explicit`` tier within ``EXCHANGE_TOL``, and at 2 the
+split scan tier within ``TOL`` (its parts sum the rows in another
+order); each rank holds 1/M of every row-sharded table and its moments;
+FM and FFM; ``row_sharded_gather`` and ``sharded_train_step`` against
+JAX's; a ``1 x 2`` run's checkpoint, evaluation and traces; on ``2 x 1``
+the whole-step tiers' one gradient, rank 1's nudged.
 """
 
 import json
@@ -78,17 +82,32 @@ BPR = {"epoches": "1", "batch_size": "64", "embed_size": "16",
 HARD = {"epoches": "1", "batch_size": "64", "embed_size": "8", "lr": "0.05",
         "neg_ratio": "2", "test.neg_samples": "10"}
 EXPLICIT = {"parallel.exchange": "explicit"}
+SPLIT = ("2x1", "2x2")
 # (case, toy, model, overrides, the tier, its TOL, the meshes it runs
 # on).
 CASES = [
-    ("BPR_gspmd", "toy", "BPR", BPR, "scan", "plain", ("1x2", "2x2")),
+    ("BPR_gspmd", "toy", "BPR", {**BPR, "train.fused_kernel": "False"},
+     "scan", "plain", ("1x2",) + SPLIT),
     # 31 users: P does not divide over 2 ranks (replicated; padded in the
     # exchange's view), Q does.
     ("BPR_explicit", "odd", "BPR", {**BPR, **EXPLICIT}, "scan", "plain",
-     ("1x2", "2x2")),
+     ("1x2",) + SPLIT),
     ("LightGCN", "toy", "LightGCN",
      {**HARD, "loss_func": "bpr", "reg": "0.0001", "n_layers": "2"},
-     "scan", "hard", ("1x2",)),
+     "scan", "hard", ("1x2",) + SPLIT),
+    # SAMN's flat pairwise loss (its tower's L2 a table term).
+    ("SAMN_scan", "toysoc", "SAMN",
+     {**HARD, "loss_func": "bpr", "reg1": "0.01", "reg2": "0.01",
+      "mem_size": "4", "atten_size": "4", "social_file": "trusts.csv",
+      "train.grouped_pairs": "False"}, "scan", "hard", SPLIT),
+    # social_weight 0: each package draws the friend edges from its own
+    # generator (tests/test_torch_extra.py); EATNN_social draws them.
+    ("EATNN", "toysoc", "EATNN",
+     {**HARD, "loss_func": "bpr", "reg": "0.001", "social_weight": "0",
+      "social_file": "trusts.csv"}, "scan", "hard", SPLIT),
+    ("EATNN_social", "toysoc", "EATNN",
+     {**HARD, "loss_func": "bpr", "reg": "0.001", "social_weight": "0.5",
+      "social_file": "trusts.csv"}, "scan", "hard", ("2x1",)),
     ("SAMN", "toysoc", "SAMN",
      {**HARD, "loss_func": "bpr", "reg1": "0.01", "reg2": "0.01",
       "mem_size": "4", "atten_size": "4", "social_file": "trusts.csv"},
@@ -110,13 +129,32 @@ CASES = [
       "social_file": "trusts.csv"},
      "dual", "hard", ("1x2",)),
     # The exchange's full-table fallback: CML's covariance over the
-    # whole tables (tests/test_parallel.py:181-198).
+    # whole tables (tests/test_parallel.py:181-198), a table term of the
+    # split.
     ("CML_explicit", "toy", "CML",
      {**BPR, **EXPLICIT, "margin": "1.0", "reg": "0.1",
-      "loss_func": "hinge"}, "scan", "plain", ("1x2",)),
+      "loss_func": "hinge"}, "scan", "plain", ("1x2",) + SPLIT),
 ]
-FM_CASES = [("FM", ("1x2", "2x2")), ("FFM", ("1x2",))]
-MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
+# Cases held to the port's unmeshed epoch alone, on the JAX initial state
+# and draw of the case named (JAX draws EATNN's edges from its own key).
+PORT_ONLY = {"EATNN_social": "EATNN"}
+FM_CASES = [("FM", ("1x2",) + SPLIT), ("FFM", ("1x2",))]
+MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+# The whole-step tiers on 2 x 1 (case, toy, model, overrides, its tier):
+# one epoch from the port's own seed and draw, rank 1's gradients
+# nudged; the ranks agree bit for bit, and equal the unmeshed epoch.
+AGREE_CASES = [
+    ("SoHRML", "toysoc", "SoHRML",
+     {**HARD, "loss_func": "hinge", "margin": "0.5", "gamma": "0.1",
+      "reg1": "0.01", "reg2": "0.001", "atten_size": "4", "att_type": "2",
+      "mlp_type": "0", "gat_layer_nums": "2", "max_i": "0", "max_s": "0",
+      "node_dropout": "0.1", "message_dropout": "0.1",
+      "train_batches": "4", "social_file": "trusts.csv"}, "dual"),
+    ("NAIS", "toy", "NAIS",
+     {"epoches": "1", "embed_size": "8", "atten_size": "4", "beta": "0.5",
+      "optimizer": "Adagrad", "is_pairwise": "False", "lr": "0.05",
+      "loss_func": "cross_entropy", "batch_size": "256"}, "bucketed"),
+]
 # Full-catalog evaluation (a random split; the port's own, so held to
 # the port's unmeshed evaluator).  The 1 x 2 run: BPR two epochs, saved
 # at its best epoch, the second block traced; MLP evaluated fresh (no dot
@@ -260,7 +298,11 @@ def _world(toys, tmp_path_factory, mesh_tag):
         if mesh_tag not in meshes:
             continue
         jcfg = _jcfg(toys, toy, model, extra)
-        init, draw, after, loss = _jax_case(jcfg, tier, mesh_tag, key)
+        if name in PORT_ONLY:
+            init, draw = (want[PORT_ONLY[name]][k] for k in ("init", "draw"))
+            after = loss = None
+        else:
+            init, draw, after, loss = _jax_case(jcfg, tier, mesh_tag, key)
         want[name] = {"cfg": jcfg.to_dict(), "init": init, "draw": draw,
                       "after": after, "loss": loss}
         cases.append({"name": name, "kind": "epoch", "cfg": jcfg.to_dict()})
@@ -303,6 +345,13 @@ def _world(toys, tmp_path_factory, mesh_tag):
         mlp = _jcfg(toys, "toy", "MLP", MLP)
         cases.append({"name": "eval", "kind": "eval", "cfg": mlp.to_dict()})
         want["eval"] = {"cfg": mlp.to_dict()}
+    if mesh_tag == "2x1":
+        for name, toy, model, extra, _ in AGREE_CASES:
+            cfg = _jcfg(toys, toy, model, extra).to_dict()
+            want[name] = {"cfg": cfg}
+            cases += [{"name": f"{name}_{tag}", "kind": "agree", "cfg": cfg,
+                       "apart": tag == "apart"}
+                      for tag in ("agree", "apart")]
     spec["cases"] = np.array(json.dumps(cases))
     d, m = MESHES[mesh_tag]
     return {"ranks": _spawn(d, m, spec, out_dir), "want": want,
@@ -348,27 +397,35 @@ def world12(toys, tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def world21(toys, tmp_path_factory):
+    return _world(toys, tmp_path_factory, "2x1")
+
+
+@pytest.fixture(scope="module")
 def world22(toys, tmp_path_factory):
     return _world(toys, tmp_path_factory, "2x2")
 
 
 def _worlds(request, tag):
-    return request.getfixturevalue({"1x2": "world12", "2x2": "world22"}[tag])
+    return request.getfixturevalue({"1x2": "world12", "2x1": "world21",
+                                    "2x2": "world22"}[tag])
 
 
 def _port_epoch(want):
     """The port's unmeshed epoch from JAX's initial state on JAX's draw
-    (``train_epoch``, so pre_epoch runs): (params, moments, loss,
-    metrics)."""
+    (``train_epoch``, so pre_epoch runs), or, without them, from its own
+    seed's state and draw: (params, moments, loss, metrics)."""
     cfg = Config(want["cfg"])
     data = load_ranking_data(cfg)
     model = make_model(cfg, DataMeta(data.user_nums, data.item_nums),
                        device="cpu")
     trainer = Trainer(model, data, cfg, device="cpu")
     params, state = trainer.init_state()
-    load_params(model, {k: _np(v) for k, v in want["init"][0].items()})
-    draw = {k: torch.as_tensor(np.array(v)) for k, v in want["draw"].items()}
-    trainer.sample_epoch = lambda: draw
+    if "init" in want:
+        load_params(model, {k: _np(v) for k, v in want["init"][0].items()})
+        draw = {k: torch.as_tensor(np.array(v))
+                for k, v in want["draw"].items()}
+        trainer.sample_epoch = lambda: draw
     # The ranks' thread count: a CPU kernel's sums may split by thread.
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -376,8 +433,11 @@ def _port_epoch(want):
         params, state, loss = trainer.train_epoch(params, state)
     finally:
         torch.set_num_threads(threads)
-    return ({k: p.detach() for k, p in params.items()},
-            {"mu": state.mu, "nu": state.nu}, loss, trainer.evaluate())
+    moments = ({"acc": state.sum_of_squares} if hasattr(state,
+                                                        "sum_of_squares")
+               else {"mu": state.mu, "nu": state.nu})
+    return ({k: p.detach() for k, p in params.items()}, moments, loss,
+            trainer.evaluate())
 
 
 def _same_ranks(ranks, prefix):
@@ -395,11 +455,13 @@ EPOCH_PARAMS = [(c[0], tag) for c in CASES for tag in c[6]]
 def test_meshed_epoch_matches_jax_and_the_unmeshed_port(request, name, tag):
     """One epoch on the mesh: the ranks equal each other bit for bit; the
     gathered state and the loss equal the port's unmeshed epoch on the
-    same draw (bit for bit under gspmd, within EXCHANGE_TOL under
-    explicit) and the JAX trainer's meshed epoch within
-    tests/test_parallel.py's tolerances (``TOL``); the evaluation after it
-    (``full_sharded`` or candidates, through the exchange) equals the
-    unmeshed evaluator's; the tier is the JAX trainer's."""
+    same draw (at a data axis of 1 bit for bit under gspmd and within
+    EXCHANGE_TOL under explicit; at 2, the batch split over 'data', within
+    ``TOL``) and the JAX trainer's meshed epoch within
+    tests/test_parallel.py's tolerances (``TOL``; not the ``PORT_ONLY``
+    cases); the evaluation after it (``full_sharded`` or candidates,
+    through the exchange) equals the unmeshed evaluator's; the tier is the
+    JAX trainer's."""
     world = _worlds(request, tag)
     case = next(c for c in CASES if c[0] == name)
     tier, tol = case[4], case[5]
@@ -408,12 +470,18 @@ def test_meshed_epoch_matches_jax_and_the_unmeshed_port(request, name, tag):
     got = ranks[0]
     assert str(got[f"{name}/tier"]) == tier
     params, moments, loss, metrics = _port_epoch(want)
+    rtol, atol, lrtol = TOL[tol]
+    split = tier == "scan" and world["mesh"][0] > 1
+    assert str(got[f"{name}/data_mode"]) == ("split" if split else "None")
     explicit = "explicit" in name
     for leaf, x in params.items():
         for part, ref in (("p", x), ("mu", moments["mu"][leaf]),
                           ("nu", moments["nu"][leaf])):
             g = got[f"{name}/{part}/{leaf}"]
-            if explicit:
+            if split:
+                np.testing.assert_allclose(g, ref.numpy(), rtol=rtol,
+                                           atol=atol, err_msg=f"{part}/{leaf}")
+            elif explicit:
                 np.testing.assert_allclose(g, ref.numpy(), rtol=EXCHANGE_TOL,
                                            atol=EXCHANGE_TOL,
                                            err_msg=f"{part}/{leaf}")
@@ -421,8 +489,12 @@ def test_meshed_epoch_matches_jax_and_the_unmeshed_port(request, name, tag):
                 np.testing.assert_array_equal(g, ref.numpy(),
                                               err_msg=f"{part}/{leaf}")
     assert float(got[f"{name}/loss"]) == pytest.approx(
-        loss, rel=EXCHANGE_TOL if explicit else 0)
-    rtol, atol, lrtol = TOL[tol]
+        loss, rel=lrtol if split else EXCHANGE_TOL if explicit else 0)
+    meshed = json.loads(str(got[f"{name}/metrics"]))
+    for k, vals in metrics.items():
+        np.testing.assert_allclose(meshed[str(k)], vals, atol=METRIC_ATOL)
+    if name in PORT_ONLY:
+        return
     (p1, o1) = want["after"]
     assert float(got[f"{name}/loss"]) == pytest.approx(want["loss"],
                                                        rel=lrtol)
@@ -432,9 +504,32 @@ def test_meshed_epoch_matches_jax_and_the_unmeshed_port(request, name, tag):
             np.testing.assert_allclose(got[f"{name}/{part}/{leaf}"],
                                        _np(ref), rtol=rtol, atol=atol,
                                        err_msg=f"{part}/{leaf}")
-    meshed = json.loads(str(got[f"{name}/metrics"]))
-    for k, vals in metrics.items():
-        np.testing.assert_allclose(meshed[str(k)], vals, atol=METRIC_ATOL)
+
+
+@pytest.mark.parametrize("name,tier", [(c[0], c[4]) for c in AGREE_CASES])
+def test_whole_step_tiers_take_one_gradient(world21, name, tier):
+    """SoHRML's dual and NAIS's bucketed epoch on 2 x 1, rank 1's
+    gradients nudged: the ranks take data rank 0's gradients and loss
+    (``sharding.over_data``), so their states and losses are equal bit
+    for bit, and equal to the unmeshed epoch on the same seed; with the
+    agreement taken out, the nudge parts them."""
+    ranks = world21["ranks"]
+    agreed = f"{name}_agree/"
+    _same_ranks(ranks, agreed)
+    got = ranks[0]
+    assert str(got[f"{agreed}tier"]) == tier
+    assert str(got[f"{agreed}data_mode"]) == "agree"
+    params, moments, loss, _ = _port_epoch(world21["want"][name])
+    for leaf, x in params.items():
+        for part, ref in (("p", x), *((k, m[leaf])
+                                      for k, m in moments.items())):
+            np.testing.assert_array_equal(got[f"{agreed}{part}/{leaf}"],
+                                          ref.numpy(),
+                                          err_msg=f"{part}/{leaf}")
+    assert float(got[f"{agreed}loss"]) == float(loss)
+    apart = [k for k in ranks[0] if k.startswith(f"{name}_apart/p/")]
+    assert apart and any(not np.array_equal(ranks[0][k], ranks[1][k])
+                         for k in apart)
 
 
 @pytest.mark.parametrize("tag", ["1x2", "2x2"])
@@ -461,14 +556,15 @@ def test_each_rank_holds_its_rows(request, tag):
 def test_fm_under_the_mesh_matches_jax(request, name, tag):
     """FM and FFM: one meshed epoch on JAX's order and weights from JAX's
     parameters against JAX's meshed epoch (every leaf with a leading dim
-    that divides M row-sharded, w0 replicated); a whole meshed run's best
-    RMSE equals the port's unmeshed run's (rel 1e-4; every rank runs the
-    whole step)."""
+    that divides M row-sharded, w0 replicated; at a data axis of 2 the
+    batch split over 'data'); a whole meshed run's best RMSE equals the
+    port's unmeshed run's (rel 1e-4)."""
     world = _worlds(request, tag)
     ranks, want = world["ranks"], world["want"][name]
     _same_ranks(ranks, f"{name}/")
     got = ranks[0]
-    assert json.loads(str(got[f"{name}/shards"])) == ["vif", "wi"]
+    assert json.loads(str(got[f"{name}/shards"])) == (
+        ["vif", "wi"] if world["mesh"][1] > 1 else [])
     p1, o1 = want["after"]
     assert float(got[f"{name}/loss"]) == pytest.approx(want["loss"],
                                                        rel=LOSS_RTOL)
@@ -641,7 +737,7 @@ def test_placement_matches_jax(m):
     'model' (2-D, an entity cardinality high, dividing M); shard_params
     gives model rank r rows [r N / M, (r + 1) N / M) of those and every
     other leaf whole; replicate and shard_batch_spec (data rank d's chunk
-    of a batch's leading axis) keep their contracts."""
+    of a batch's leading axis, uneven chunks too) keep their contracts."""
     from cleverrec_tpu.models.base import DataMeta as JMeta
     meta = DataMeta(30, 40)
     params = {name: np.arange(int(np.prod(shape)), dtype=np.float32).reshape(
@@ -665,4 +761,6 @@ def test_placement_matches_jax(m):
                 np.testing.assert_array_equal(held[k].numpy(), x, err_msg=k)
         batch = shard_batch_spec(mesh)({"u": torch.arange(10)})
         assert batch["u"].tolist() == [5, 6, 7, 8, 9]
+        batch = shard_batch_spec(mesh)({"u": torch.arange(11)})
+        assert batch["u"].tolist() == [6, 7, 8, 9, 10]
         assert replicate(torch.ones(2), mesh).device == torch.device("cpu")

@@ -414,9 +414,9 @@ TIERS = [
 @pytest.mark.parametrize("name,extra,tier", TIERS)
 def test_tier_under_a_mesh_is_the_jax_tier(toys, name, extra, tier):
     """The tier a config takes under a 2 x 1 mesh is the JAX trainer's;
-    the data-parallel tiers split the steps, the others run the whole step
-    on every rank and say so in one log line, the scan tier naming item
-    16c; the lazy row-Adam tier declines."""
+    the data-parallel tiers split the steps, the scan tier the batch, the
+    others run the whole step on every rank, and one log line says which;
+    the lazy row-Adam tier declines."""
     _tier_case(toys, name, extra, tier, (2, 1))
 
 
@@ -451,7 +451,10 @@ def _tier_case(toys, name, extra, tier, shape):
     lines = [r for r in records if r.startswith(f"mesh {d}x{m}: ")]
     assert len(lines) == 1
     assert ("each rank" in lines[0]) == split
-    assert ("item 16c" in lines[0]) == (want == "scan" and d > 1)
+    assert ("the batch split over 'data'" in lines[0]) == (
+        want == "scan" and d > 1)
+    assert trainer._data_mode == (None if d == 1 or split else
+                                  "split" if want == "scan" else "agree")
     assert ("row-sharded over" in lines[0]) == (m > 1)
     if "train.sparse_rows_force" in extra:
         assert any("declines under a mesh" in r for r in records)
@@ -494,16 +497,31 @@ def test_mesh_options_that_do_not_apply_are_named(toys, mesh, extra, says):
         not mesh or mesh == 1) and "which this run does not have" in lines[0]
 
 
+class _LoneRank(Mesh):
+    """A rank of a data mesh alone in its process: a collective over an
+    axis longer than 1 sees every other rank hold this rank's tensors (the
+    scan tier's split sums over 'data' each step)."""
+
+    def all_reduce_sum(self, t, axis):
+        return t if self.shape[axis] == 1 else t * self.shape[axis]
+
+    def all_gather(self, t, axis, dim=0):
+        return torch.cat([t.detach()] * self.shape[axis], dim=dim)
+
+
 def test_checkpoints_cross_the_mesh(toys, tmp_path):
     """Rank 0 of a mesh alone writes save.best's checkpoint (rank 1 of the
     same run writes nothing); it resumes unmeshed, and an unmeshed run's
     checkpoint resumes on a mesh rank, the parameters, moments, count and
-    generators as saved."""
+    generators as saved.  The meshed runs' ranks each train alone
+    (``_LoneRank``): the checkpoint's path is what is held here, the
+    collectives are tests/test_torch_model_axis.py's."""
     extra = {"train.fused_kernel": "False", "epoches": "1",
              "save.best": "True"}
     runs = {}
-    for tag, mesh in (("rank1", Mesh(2, 1, "cpu", rank=1)),
-                      ("rank0", Mesh(2, 1, "cpu", rank=0)), ("flat", None)):
+    for tag, mesh in (("rank1", _LoneRank(2, 1, "cpu", rank=1)),
+                      ("rank0", _LoneRank(2, 1, "cpu", rank=0)),
+                      ("flat", None)):
         model, data, cfg = _trainer_args(_jcfg(
             toys, "BPR", **extra, saved_dir=str(tmp_path / tag)))
         trainer = Trainer(model, data, cfg, device="cpu", mesh=mesh)

@@ -1,6 +1,6 @@
 """One rank of tests/test_torch_model_axis.py's gloo meshes on the CPU
-(``1 x 2`` or ``2 x 2``).  It imports no JAX: the test hands it the JAX
-trainer's draws and initial states in an .npz.
+(``1 x 2``, ``2 x 1`` or ``2 x 2``).  It imports no JAX: the test hands it
+the JAX trainer's draws and initial states in an .npz.
 
     python tests/torch_model_worker.py RANK D M PORT SPEC.npz OUT_DIR
 
@@ -12,7 +12,8 @@ config) and the arrays of each case under ``<name>/...``.  Kinds:
   (``<name>/draw/<column>``), through ``train_epoch`` (so ``pre_epoch``
   runs); out: the parameters and optimizer state gathered whole, the
   loss, the tier, the rank's bytes of each leaf and moment, the
-  row-sharded names and the evaluation after the epoch;
+  row-sharded names, what the data ranks did with each step (the
+  trainer's ``_data_mode``) and the evaluation after the epoch;
 - ``fm_epoch``: one ``FMTrainer.train_epoch`` on the given order and
   weights from the given parameters; ``fm_run``: a whole ``run()``;
 - ``gather``: ``row_sharded_gather`` of the rank's rows of ``table`` by
@@ -23,7 +24,12 @@ config) and the arrays of each case under ``<name>/...``.  Kinds:
 - ``run``: ``Trainer.run()`` (the config sets ``save.best``,
   ``saved_dir`` and ``profile.dir``), the evaluation of the final
   parameters, then ``resume`` of the checkpoint, held to the file's rows;
-- ``eval``: the evaluation of a fresh draw.
+- ``eval``: the evaluation of a fresh draw;
+- ``agree``: one epoch of a whole-step tier (grouped pairwise, bucketed,
+  dual) from the trainer's own seed and draw, rank 1's gradients nudged
+  by ``NUDGE`` (``torch.autograd.grad`` wrapped); with ``apart``, the
+  data ranks' agreement (``sharding.over_data``) taken out on every
+  rank.
 
 It writes ``OUT_DIR/rank<R>.npz``.
 """
@@ -48,6 +54,9 @@ from cleverrec_tpu_torch.rating import FMTrainer, make_rating_model
 from cleverrec_tpu_torch.train import Trainer
 from cleverrec_tpu_torch.train.checkpoint import (load_checkpoint,
                                                   map_optimizer_state)
+
+# What rank 1 adds to every gradient element in an ``agree`` case.
+NUDGE = 1e-7
 
 
 def arrays_of(spec, prefix):
@@ -105,6 +114,7 @@ def epoch_case(out, name, cfg, spec, mesh):
     state_out(out, name, model, params, state, mesh)
     out[f"{name}/loss"] = np.float64(loss)
     out[f"{name}/tier"] = np.array(trainer.tier)
+    out[f"{name}/data_mode"] = np.array(str(trainer._data_mode))
     out[f"{name}/metrics"] = np.array(json.dumps(
         {str(k): v for k, v in trainer.evaluate().items()}))
 
@@ -190,6 +200,29 @@ def run_case(out, name, cfg, mesh):
     out[f"{name}/resumed_epoch"] = np.int64(epoch)
 
 
+def agree_case(out, name, cfg, mesh, apart):
+    model, trainer = ranking(cfg, mesh)
+    params, state = trainer.init_state()
+    grad, agree = torch.autograd.grad, sharding.over_data
+
+    def nudged(*args, **kwargs):
+        return tuple(None if g is None else g + NUDGE
+                     for g in grad(*args, **kwargs))
+
+    if mesh.index("data") == 1:
+        torch.autograd.grad = nudged
+    if apart:
+        sharding.over_data = lambda grads, loss, *_, **__: (grads, loss)
+    try:
+        params, state, loss = trainer.train_epoch(params, state)
+    finally:
+        torch.autograd.grad, sharding.over_data = grad, agree
+    state_out(out, name, model, params, state, mesh)
+    out[f"{name}/loss"] = np.float64(loss)
+    out[f"{name}/tier"] = np.array(trainer.tier)
+    out[f"{name}/data_mode"] = np.array(str(trainer._data_mode))
+
+
 def main(rank, d, m, port, spec_path, out_dir) -> int:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -220,6 +253,8 @@ def main(rank, d, m, port, spec_path, out_dir) -> int:
             out[f"{name}/mode"] = np.array(trainer.evaluator.mode)
         elif kind == "run":
             run_case(out, name, cfg, mesh)
+        elif kind == "agree":
+            agree_case(out, name, cfg, mesh, case["apart"])
         else:
             raise ValueError(f"unknown case kind {kind!r}")
     assert "jax" not in sys.modules
