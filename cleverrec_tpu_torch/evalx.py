@@ -51,6 +51,7 @@ from cleverrec_tpu_torch.metrics import PAD_ITEM, ranking_metrics_topks
 from cleverrec_tpu_torch.ops.topk import topk
 from cleverrec_tpu_torch.parallel.sharding import table_views
 from cleverrec_tpu_torch.sampling import rows_to_bits
+from cleverrec_tpu_torch.utils import trace
 
 
 def _pad_masked(v, items):
@@ -271,18 +272,24 @@ class Evaluator:
 
     @torch.no_grad()
     def evaluate(self, aux=None) -> dict[int, tuple[float, float, float]]:
-        """Returns {K: (mean HR, mean MRR, mean NDCG)} over all test users."""
-        if self.cfg.bool("eval.host_metrics", False):
-            return self.evaluate_host(aux)
-        aux = self._aux(aux)
-        pre = self._pre(aux)
-        sums = torch.zeros((len(self.topk), 3), device=self.device)
-        with table_views(self.model, self.mesh, "serve"):
-            for i in range(self._batches["u"].shape[0]):
-                b = self._batch(i)
-                rec = self._rank_batch(aux, b, pre)
-                sums += self._metric_sums(rec, b["real"], b["row_w"])
-        sums = sums.cpu().numpy()
+        """Returns {K: (mean HR, mean MRR, mean NDCG)} over all test users.
+        Inside the span ``eval.evaluate``: each batch in ``eval.batch``,
+        its metric sums in ``eval.metrics``."""
+        with trace.span("eval.evaluate"):
+            if self.cfg.bool("eval.host_metrics", False):
+                return self.evaluate_host(aux)
+            aux = self._aux(aux)
+            pre = self._pre(aux)
+            sums = torch.zeros((len(self.topk), 3), device=self.device)
+            with table_views(self.model, self.mesh, "serve"):
+                for i in range(self._batches["u"].shape[0]):
+                    with trace.span("eval.batch"):
+                        b = self._batch(i)
+                        rec = self._rank_batch(aux, b, pre)
+                        with trace.span("eval.metrics"):
+                            sums += self._metric_sums(rec, b["real"],
+                                                      b["row_w"])
+            sums = sums.cpu().numpy()
         t = len(self.dd.test_users)
         return {k: tuple(float(x) / t for x in sums[idx])
                 for idx, k in enumerate(self.topk)}

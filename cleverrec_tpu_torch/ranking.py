@@ -27,6 +27,7 @@ from cleverrec_tpu_torch.ops.topk import (grouped_topk, sharded_topk_scores,
 from cleverrec_tpu_torch.parallel.sharding import (ExchangeTable,
                                                    pad_table_for_sharding,
                                                    shards_of, table_views)
+from cleverrec_tpu_torch.utils import trace
 
 # The JAX package's fused path pads the catalog to 4096-item tiles and
 # takes the group-max branch from two tiles up; the port keeps the same
@@ -42,24 +43,29 @@ def masked_full_scores(model, aux, u, rows, filter_seen: bool = True):
     """[B, I] scores with seen train items masked to -inf.
 
     ``rows``: the batch users' sorted seen rows [B, L], padded with the
-    sentinel id ``I``, which lands in a spill column that is cut off."""
-    scores = model.score_all(u, aux)
-    if model.cml_like:
-        scores = -scores
+    sentinel id ``I``, which lands in a spill column that is cut off.
+    The scoring in the span ``rank.score``, the masking in ``rank.mask``."""
+    with trace.span("rank.score"):
+        scores = model.score_all(u, aux)
+        if model.cml_like:
+            scores = -scores
     if not filter_seen:
         return scores
-    b, item_nums = scores.shape
-    seen = torch.zeros((b, item_nums + 1), dtype=torch.bool,
-                       device=scores.device)
-    seen.scatter_(1, rows.long(), True)
-    return scores.masked_fill(seen[:, :item_nums], -torch.inf)
+    with trace.span("rank.mask"):
+        b, item_nums = scores.shape
+        seen = torch.zeros((b, item_nums + 1), dtype=torch.bool,
+                           device=scores.device)
+        seen.scatter_(1, rows.long(), True)
+        return scores.masked_fill(seen[:, :item_nums], -torch.inf)
 
 
 @torch.no_grad()
 def rank_dense(model, aux, u, rows, k: int, filter_seen: bool = True):
-    """Dense [B, I] scoring + top-k (group-max pruned past 16k items)."""
-    return grouped_topk(masked_full_scores(model, aux, u, rows,
-                                           filter_seen), k)
+    """Dense [B, I] scoring + top-k (group-max pruned past 16k items);
+    the top-k in the span ``rank.select``."""
+    scores = masked_full_scores(model, aux, u, rows, filter_seen)
+    with trace.span("rank.select"):
+        return grouped_topk(scores, k)
 
 
 @torch.no_grad()
@@ -257,8 +263,14 @@ def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
     one bitmap word per group, and k rounds of max extraction pick the
     result.  Any group holding a top-k item has a max >= the k-th score,
     and at most k groups can, so the rescue is exact up to f32 rounding
-    between the kernel's dot and the rescue's."""
-    u_vecs, table, bias = model.dot_decomposition(u, aux)
+    between the kernel's dot and the rescue's.
+
+    Spans: the decomposition ``rank.decompose``; the kernel and the group
+    top-k ``rank.score``; the narrow branch's row top-k ``rank.select``;
+    the wide branch's rescue ``rank.rescue`` and extraction
+    ``rank.extract``."""
+    with trace.span("rank.decompose"):
+        u_vecs, table, bias = model.dot_decomposition(u, aux)
     if model.cml_like:
         # Negate INSIDE the dot, (-u).q - bias, so the kernels' -3e38 seen
         # mask stays the worst score; never negate after masking.
@@ -275,45 +287,52 @@ def rank_fused(model, aux, u, seen_bits, k: int, pre=None):
     n = i_real + ((-i_real) % BLOCK_I)           # the JAX padded width
     b = u_vecs.shape[0]
     if not (n >= 2 * BLOCK_I and n // COMB_I >= 2 * k):
-        scores = dot_scores(u_vecs, table, seen_bits, bias)
-        if i_real < k:      # the JAX path ranks padded (masked) columns
-            scores = torch.nn.functional.pad(scores, (0, k - i_real),
-                                             value=NEG)
-        v, idx = topk(scores, k)
-        return _normalize(v), idx
+        with trace.span("rank.score"):
+            scores = dot_scores(u_vecs, table, seen_bits, bias)
+            if i_real < k:  # the JAX path ranks padded (masked) columns
+                scores = torch.nn.functional.pad(scores, (0, k - i_real),
+                                                 value=NEG)
+        with trace.span("rank.select"):
+            v, idx = topk(scores, k)
+            return _normalize(v), idx
 
-    gmax = dot_gmax(u_vecs, table, seen_bits, bias)          # [B, G]
-    # Ascending group order: the extraction's first-position tie rule
-    # then picks the lowest item id.
-    gi = topk(gmax, k)[1].sort(dim=1).values                 # [B, k]
-    # Group g is the contiguous rows [32g, 32g + 32) of the table; rows
-    # past the catalog are clamped here and masked below.
-    ids = gi[:, :, None] * COMB_I + torch.arange(COMB_I, device=gi.device)
-    slab_rows = ids.clamp(max=i_real - 1)
-    if rescue is None:
-        qc, u_r = table[slab_rows], u_vecs                   # [B, k, 32, d]
-    else:
-        # bf16 operands, exact f32 products, f32 sums.
-        qc, u_r = rescue[slab_rows].float(), u_vecs.bfloat16().float()
-    cand = torch.einsum("bkcd,bd->bkc", qc, u_r)             # [B, k, 32]
-    if bias is not None:
-        cand = cand + bias[slab_rows]
-    # Group g is bitmap word g: member r is bit r.
-    words = torch.gather(seen_bits, 1, gi)                   # [B, k]
-    bit = torch.arange(COMB_I, dtype=torch.int32, device=words.device)
-    seen = ((words[:, :, None] >> bit) & 1) == 1
-    cand = torch.where(seen | (ids >= i_real), torch.full_like(cand, NEG),
-                       cand)
-    # k rounds of max extraction; argmax returns the first maximal lane.
-    c = cand.reshape(b, k * COMB_I)
-    ids_flat = ids.reshape(b, k * COMB_I)
-    batch = torch.arange(b, device=c.device)
-    vs, cis = [], []
-    for _ in range(k):
-        a = c.argmax(dim=1)
-        vs.append(c[batch, a])
-        cis.append(a)
-        c[batch, a] = -torch.inf
-    v = torch.stack(vs, dim=1)
-    items = torch.gather(ids_flat, 1, torch.stack(cis, dim=1))
-    return _normalize(v), items
+    with trace.span("rank.score"):
+        gmax = dot_gmax(u_vecs, table, seen_bits, bias)      # [B, G]
+        # Ascending group order: the extraction's first-position tie rule
+        # then picks the lowest item id.
+        gi = topk(gmax, k)[1].sort(dim=1).values             # [B, k]
+    with trace.span("rank.rescue"):
+        # Group g is the contiguous rows [32g, 32g + 32) of the table;
+        # rows past the catalog are clamped here and masked below.
+        ids = gi[:, :, None] * COMB_I + torch.arange(COMB_I,
+                                                     device=gi.device)
+        slab_rows = ids.clamp(max=i_real - 1)
+        if rescue is None:
+            qc, u_r = table[slab_rows], u_vecs               # [B, k, 32, d]
+        else:
+            # bf16 operands, exact f32 products, f32 sums.
+            qc, u_r = rescue[slab_rows].float(), u_vecs.bfloat16().float()
+        cand = torch.einsum("bkcd,bd->bkc", qc, u_r)         # [B, k, 32]
+        if bias is not None:
+            cand = cand + bias[slab_rows]
+        # Group g is bitmap word g: member r is bit r.
+        words = torch.gather(seen_bits, 1, gi)               # [B, k]
+        bit = torch.arange(COMB_I, dtype=torch.int32, device=words.device)
+        seen = ((words[:, :, None] >> bit) & 1) == 1
+        cand = torch.where(seen | (ids >= i_real),
+                           torch.full_like(cand, NEG), cand)
+    with trace.span("rank.extract"):
+        # k rounds of max extraction; argmax returns the first maximal
+        # lane.
+        c = cand.reshape(b, k * COMB_I)
+        ids_flat = ids.reshape(b, k * COMB_I)
+        batch = torch.arange(b, device=c.device)
+        vs, cis = [], []
+        for _ in range(k):
+            a = c.argmax(dim=1)
+            vs.append(c[batch, a])
+            cis.append(a)
+            c[batch, a] = -torch.inf
+        v = torch.stack(vs, dim=1)
+        items = torch.gather(ids_flat, 1, torch.stack(cis, dim=1))
+        return _normalize(v), items

@@ -39,6 +39,7 @@ from cleverrec_tpu_torch.common import resolve_device
 from cleverrec_tpu_torch.ops.topk import topk
 from cleverrec_tpu_torch.parallel.sharding import shards_of
 from cleverrec_tpu_torch.sampling import rows_to_bits
+from cleverrec_tpu_torch.utils import trace
 
 
 # ``auto`` serves through the fused backend up to this many items and
@@ -144,7 +145,8 @@ def build_retrieval_fn(model, aux, device_data, k: int = 10,
 
     @torch.no_grad()
     def retrieve(u):
-        return module(torch.as_tensor(u, device=dev).long())
+        with trace.span("serve.call"):
+            return module(torch.as_tensor(u, device=dev).long())
 
     retrieve.backend = backend
     retrieve.module = module

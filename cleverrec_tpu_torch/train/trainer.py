@@ -225,6 +225,7 @@ from cleverrec_tpu_torch.ops.train import (EPOCH_FNS, LOG2, _cols, _side,
 from cleverrec_tpu_torch.parallel import sharding
 from cleverrec_tpu_torch.parallel.mesh import mesh_device
 from cleverrec_tpu_torch.train import checkpoint
+from cleverrec_tpu_torch.utils import trace
 
 # History widths of the bucketed tier's buckets below h_max
 # (cleverrec_tpu/train/trainer.py:1702-1704); h_max is the last.
@@ -1079,7 +1080,11 @@ class Trainer:
         epoch, ``j`` [G_pad, T] (a negative a cell, ``item_nums`` on pad
         cells) and ``perm`` [steps, G/step] (the groups of each step); for
         the bucketed tier, ``buckets``, each bucket's draw in plan
-        order."""
+        order.  Inside the span ``train.sample``."""
+        with trace.span("train.sample"):
+            return self._sample_epoch()
+
+    def _sample_epoch(self) -> dict:
         if self._gen is None:
             raise RuntimeError("call init_state first")
         if self.model.sampler == "dual":
@@ -1277,26 +1282,27 @@ class Trainer:
         losses = torch.zeros(len(batches), dtype=torch.float32,
                              device=self.device)
         for s, batch in enumerate(batches):
-            with self._views():
-                loss = loss_fn({**batch, "dropout_gen": self._dropout_gen},
-                               aux)
-            # A parameter outside the loss (NeuMF's h_gmf and h_mlp, kept
-            # for the warm start) gets a zero gradient, as under JAX:
-            # Adam then leaves it and its moments as they were.
-            grads = dict(zip(names, [
-                torch.zeros_like(p) if g is None else g
-                for p, g in zip(leaves, torch.autograd.grad(
-                    loss, leaves, allow_unused=True))]))
-            loss = loss.detach()
-            if mode:
-                grads, loss = sharding.over_data(
-                    grads, loss, mesh, take_rank0=mode == "agree")
-            if self._agree:
-                grads = sharding.agree_grads(
-                    grads, sharding.shards_of(self.model), mesh)
-            opt_state = self.optimizer.update(params, grads, opt_state)
-            self.model.postprocess()
-            losses[s] = loss
+            with trace.span("train.step"):
+                with self._views():
+                    loss = loss_fn({**batch,
+                                    "dropout_gen": self._dropout_gen}, aux)
+                # A parameter outside the loss (NeuMF's h_gmf and h_mlp,
+                # kept for the warm start) gets a zero gradient, as under
+                # JAX: Adam then leaves it and its moments as they were.
+                grads = dict(zip(names, [
+                    torch.zeros_like(p) if g is None else g
+                    for p, g in zip(leaves, torch.autograd.grad(
+                        loss, leaves, allow_unused=True))]))
+                loss = loss.detach()
+                if mode:
+                    grads, loss = sharding.over_data(
+                        grads, loss, mesh, take_rank0=mode == "agree")
+                if self._agree:
+                    grads = sharding.agree_grads(
+                        grads, sharding.shards_of(self.model), mesh)
+                opt_state = self.optimizer.update(params, grads, opt_state)
+                self.model.postprocess()
+                losses[s] = loss
         return params, opt_state, losses
 
     @staticmethod
@@ -1730,14 +1736,15 @@ class Trainer:
         return params, opt_state, int(state["epoch"])
 
     def train_epoch(self, params, opt_state):
-        if hasattr(self.model, "pre_epoch"):
-            # The epoch's constants from the parameters that enter it
-            # (SoHRML's edge attention), which evaluate then reads too.
-            with torch.no_grad(), self._views("gspmd"):
-                self.aux.update(self.model.pre_epoch(self.aux))
-        params, opt_state, loss = self._run_epoch(params, opt_state,
-                                                  self.sample_epoch())
-        return params, opt_state, float(loss)
+        with trace.span("train.epoch"):
+            if hasattr(self.model, "pre_epoch"):
+                # The epoch's constants from the parameters that enter it
+                # (SoHRML's edge attention), which evaluate then reads too.
+                with torch.no_grad(), self._views("gspmd"):
+                    self.aux.update(self.model.pre_epoch(self.aux))
+            params, opt_state, loss = self._run_epoch(params, opt_state,
+                                                      self.sample_epoch())
+            return params, opt_state, float(loss)
 
     def train_epochs(self, params, opt_state, n_epochs: int):
         """n epochs in a row; returns (params, opt_state, losses[n])."""

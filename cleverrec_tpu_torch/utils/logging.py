@@ -1,12 +1,10 @@
-"""Logging + timing utilities (reference: utils/tools.py:18-48)."""
+"""Logging utilities (reference: utils/tools.py)."""
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import sys
-import time
 
 
 def get_logger(log_dir: str | None, model: str) -> logging.Logger:
@@ -27,12 +25,3 @@ def get_logger(log_dir: str | None, model: str) -> logging.Logger:
     ch.setFormatter(fmt)
     logger.addHandler(ch)
     return logger
-
-
-@contextlib.contextmanager
-def timer(text: str, logger=None):
-    emit = logger.info if logger else print
-    t0 = time.time()
-    emit(f"Start {text}...")
-    yield
-    emit(f"{text} done, time: {time.time() - t0:.2f}s")
